@@ -1,0 +1,320 @@
+"""Tile-heterogeneous matrix layouts (twin of ``repro.core.layout``).
+
+A tensor has a single dtype, so "each tile has its own precision" needs
+an explicit representation:
+
+* ``MPMatrix``     — one dense buffer per format of the FormatSet, each
+                     tile valid in exactly one of them (zeros elsewhere).
+* ``KSplitWeight`` — production layout for LM matmuls: the class map is
+                     constant along N, K-blocks are stored class by class
+                     (most expensive format first), one buffer per format.
+* ``NSplitWeight`` — class map constant along K, split along N.
+
+Class maps are host-side numpy int8 arrays; buffers are torch tensors on
+whatever device the dense source lived on.  ``CompactMPMatrix`` arrives
+with the grouped kernel.
+
+Every dot here follows one numeric rule (the port's fix for torch's
+low-precision ``@`` returning low precision): operands are rounded to the
+format's compute dtype, upcast to fp32, and multiplied in fp32 with TF32
+off, so products of bf16/fp16/fp8 values are exact and sums are fp32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import precision as P
+from repro_torch.core.formats import (DEFAULT_FORMATS, FormatSet,
+                                      PrecisionFormat)
+
+
+def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` on fp32 operands in full fp32 (raises if TF32 is on —
+    TF32 keeps ~3 digits and would break the fp32 class's error bound)."""
+    if a.is_cuda and (torch.backends.cuda.matmul.allow_tf32
+                      or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "fp32 matmul needs TF32 off: set torch.backends.cuda.matmul."
+            "allow_tf32 = False and float32_matmul_precision 'highest'")
+    return torch.matmul(a.float(), b.float())
+
+
+def round_to_compute(x: torch.Tensor, fmt: PrecisionFormat) -> torch.Tensor:
+    """Receiver-side conversion: ``x`` rounded to the format's compute
+    dtype, returned as fp32 (exact upcast)."""
+    op = fmt.compute_dtype
+    if op == torch.float32:
+        return x.float()
+    return x.to(op).float()
+
+
+def dot_at(x: torch.Tensor, w: torch.Tensor, fmt: PrecisionFormat
+           ) -> torch.Tensor:
+    """``x @ w`` at the format's operational precision, fp32 result."""
+    return fp32_matmul(round_to_compute(x, fmt), round_to_compute(w, fmt))
+
+
+def _pad_to(x: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    pm, pn = m - x.shape[0], n - x.shape[1]
+    if pm or pn:
+        x = torch.nn.functional.pad(x, (0, pn, 0, pm))
+    return x
+
+
+def _check_codes(cls_map: np.ndarray, fset: FormatSet) -> np.ndarray:
+    cls_map = np.asarray(cls_map)
+    bad = [int(c) for c in np.unique(cls_map) if not 0 <= c < len(fset)]
+    if bad:
+        raise ValueError(f"class codes {bad} outside format set {fset.names}")
+    return cls_map
+
+
+def expand_map(cls_map: np.ndarray, tile: int) -> np.ndarray:
+    """Per-element class codes of a tile map."""
+    return np.repeat(np.repeat(np.asarray(cls_map), tile, 0), tile, 1)
+
+
+# ---------------------------------------------------------------------------
+# MPMatrix — dense per-format buffers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MPMatrix:
+    """``bufs[code]`` is a full (padded) buffer in that format's buffer
+    dtype; tile (i, j) is valid in the buffer ``cls[i, j]`` selects and
+    zero in the others."""
+
+    bufs: tuple[torch.Tensor, ...]
+    cls: np.ndarray                    # int8[mt, nt]
+    tile: int
+    shape: tuple[int, int]             # logical (unpadded) shape
+    fset: FormatSet = DEFAULT_FORMATS
+
+    @classmethod
+    def from_dense(cls, w: torch.Tensor, cls_map: np.ndarray, tile: int,
+                   fset: FormatSet = DEFAULT_FORMATS) -> "MPMatrix":
+        cls_map = _check_codes(np.asarray(cls_map, np.int8), fset)
+        mt, nt = cls_map.shape
+        wp = _pad_to(w.float(), mt * tile, nt * tile)
+        sel = torch.from_numpy(expand_map(cls_map, tile)).to(w.device)
+        bufs = tuple(
+            fset.fmt(code).to_buffer(
+                torch.where(sel == code, wp, torch.zeros_like(wp)),
+                tile=tile)
+            for code in fset.codes)
+        return cls(bufs, cls_map, tile, (int(w.shape[0]), int(w.shape[1])),
+                   fset)
+
+    def padded_dense(self) -> torch.Tensor:
+        """Padded fp32 view with per-tile storage rounding applied (the
+        sum of the buffers' upcasts — only one is non-zero per tile)."""
+        d = self.bufs[0].float()
+        for b in self.bufs[1:]:
+            d = d + b.float()
+        return d
+
+    def to_dense(self) -> torch.Tensor:
+        return self.padded_dense()[: self.shape[0], : self.shape[1]]
+
+    @property
+    def padded_shape(self) -> tuple[int, int]:
+        return tuple(self.bufs[0].shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.bufs[0].device
+
+    def storage_bytes(self) -> int:
+        return P.map_storage_bytes(self.cls, self.tile, self.fset)
+
+
+# ---------------------------------------------------------------------------
+# KSplitWeight — structured-K production layout for LM matmuls
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KSplitWeight:
+    """W[K, N] whose class is constant along N within each K-block; the
+    K-blocks of each class are stored contiguously::
+
+        y = Σ_fmt  x[:, rows_fmt] @ w_fmt     (at that format's precision)
+
+    ``k_cls`` int8[kt] is the per-K-block class code; ``bufs[code]`` is
+    the ``[K_code, N]`` buffer of that format."""
+
+    bufs: tuple[torch.Tensor, ...]
+    k_cls: np.ndarray
+    tile: int
+    shape: tuple[int, int]             # logical (K, N)
+    fset: FormatSet = DEFAULT_FORMATS
+
+    @staticmethod
+    def k_partition(k_cls: np.ndarray, tile: int,
+                    fset: FormatSet = DEFAULT_FORMATS
+                    ) -> tuple[np.ndarray, ...]:
+        """K-row indices per class in storage order (descending code)."""
+        out = []
+        for code in fset.class_order:
+            blocks = np.nonzero(np.asarray(k_cls) == code)[0]
+            rows = (blocks[:, None] * tile
+                    + np.arange(tile)[None, :]).reshape(-1)
+            out.append(rows.astype(np.int64))
+        return tuple(out)
+
+    @functools.cached_property
+    def sorted(self) -> bool:
+        """True when the K-classes are stored in their logical order
+        (class vector sorted by descending code), so x's K columns are
+        already class-contiguous — the condition of the kernel path."""
+        return bool(np.all(np.diff(self.k_cls.astype(np.int64)) <= 0))
+
+    @functools.cached_property
+    def role_fractions(self) -> tuple[float, float]:
+        """(HIGH fraction, LOW8 fraction) of the K-blocks (the map is
+        fixed for the weight's life, so this is computed once)."""
+        fset = self.fset
+        b8 = (float((self.k_cls == fset.low8).mean())
+              if fset.low8 is not None else 0.0)
+        return float((self.k_cls == fset.high).mean()), b8
+
+    @classmethod
+    def from_dense(cls, w: torch.Tensor, k_cls: np.ndarray, tile: int,
+                   fset: FormatSet = DEFAULT_FORMATS) -> "KSplitWeight":
+        k_cls = _check_codes(np.asarray(k_cls, np.int8), fset)
+        kt = k_cls.shape[0]
+        k, n = int(w.shape[0]), int(w.shape[1])
+        if k != kt * tile:
+            raise ValueError(
+                f"K={k} must equal kt*tile={kt}*{tile} (choose a tile that "
+                "divides K)")
+        wp = w.float()
+        parts = dict(zip(fset.class_order, cls.k_partition(k_cls, tile,
+                                                           fset)))
+        bufs = []
+        for code in fset.codes:
+            idx = torch.from_numpy(parts[code]).to(w.device)
+            rows = wp.index_select(0, idx)
+            bufs.append(fset.fmt(code).to_buffer(rows, tile=tile))
+        return cls(tuple(bufs), k_cls, tile, (k, n), fset)
+
+    def to_dense(self) -> torch.Tensor:
+        k, n = self.shape
+        dev = self.bufs[0].device
+        wp = torch.zeros((self.k_cls.shape[0] * self.tile, n),
+                         dtype=torch.float32, device=dev)
+        parts = self.k_partition(self.k_cls, self.tile, self.fset)
+        for code, idx in zip(self.fset.class_order, parts):
+            if len(idx):
+                wp[torch.from_numpy(idx).to(dev)] = self.bufs[code].float()
+        return wp[:k, :n]
+
+    def storage_bytes(self) -> int:
+        t = self.tile
+        return int(sum(
+            buf.numel() * self.fset.bytes_of(code)
+            + (buf.shape[0] // t) * (-(-buf.shape[1] // t))
+            * self.fset.meta_bytes_of(code)
+            for code, buf in enumerate(self.bufs)))
+
+
+# ---------------------------------------------------------------------------
+# NSplitWeight — class map constant along K, split along N
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class NSplitWeight:
+    """``bufs[code]`` is the ``[K, N_code]`` buffer of that format; column
+    blocks are stored class-sorted (most expensive format first)."""
+
+    bufs: tuple[torch.Tensor, ...]
+    n_cls: np.ndarray                  # int8[nt], stored order
+    tile: int
+    shape: tuple[int, int]
+    fset: FormatSet = DEFAULT_FORMATS
+
+    @classmethod
+    def from_dense(cls, w: torch.Tensor, n_cls: np.ndarray, tile: int,
+                   fset: FormatSet = DEFAULT_FORMATS) -> "NSplitWeight":
+        """``n_cls`` must be class-sorted (descending code)."""
+        n_cls = _check_codes(np.asarray(n_cls, np.int8), fset)
+        k, n = int(w.shape[0]), int(w.shape[1])
+        if n != n_cls.shape[0] * tile:
+            raise ValueError(f"N={n} != nt*tile={n_cls.shape[0]}*{tile}")
+        order = np.argsort(-n_cls.astype(np.int64), kind="stable")
+        if not np.array_equal(order, np.arange(len(n_cls))):
+            raise ValueError("n_cls must be class-sorted (fold permutations "
+                             "into adjacent layers instead)")
+        wp = w.float()
+        cols = {code: int((n_cls == code).sum()) * tile
+                for code in fset.codes}
+        bufs: list = [None] * len(fset)
+        start = 0
+        for code in fset.class_order:
+            stop = start + cols[code]
+            bufs[code] = fset.fmt(code).to_buffer(
+                wp[:, start:stop].contiguous(), tile=tile)
+            start = stop
+        return cls(tuple(bufs), n_cls, tile, (k, n), fset)
+
+    def to_dense(self) -> torch.Tensor:
+        return torch.cat([self.bufs[code].float()
+                          for code in self.fset.class_order], dim=1)
+
+    def storage_bytes(self) -> int:
+        t = self.tile
+        return int(sum(
+            buf.numel() * self.fset.bytes_of(code)
+            + (-(-buf.shape[0] // t)) * (buf.shape[1] // t)
+            * self.fset.meta_bytes_of(code)
+            for code, buf in enumerate(self.bufs)))
+
+
+#: non-HIGH classes round their fp32 dot output to the class's compute
+#: dtype, as the reference's row-parallel matmul reduces them in it
+REDUCE_LOW_IN_COMPUTE = True
+
+def nsplit_matmul(x: torch.Tensor, w: NSplitWeight) -> torch.Tensor:
+    """y = x @ W with per-N-block operational precision, fp32 result.
+
+    A plain library matmul, as the reference leaves it to XLA."""
+    fset = w.fset
+    parts = []
+    for code in fset.class_order:
+        buf = w.bufs[code]
+        if not buf.shape[1]:
+            continue
+        fmt = fset.fmt(code)
+        y = dot_at(x, buf, fmt)
+        if code != fset.high and REDUCE_LOW_IN_COMPUTE:
+            y = y.to(fmt.compute_dtype).float()
+        parts.append(y)
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+
+
+def _take_k(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """x[..., idx] — a slice when idx is contiguous."""
+    if len(idx) and np.all(np.diff(idx) == 1):
+        return x[..., int(idx[0]):int(idx[-1]) + 1]
+    return x.index_select(-1, torch.from_numpy(idx).to(x.device))
+
+
+def ksplit_matmul(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:
+    """y = x @ W with receiver-side conversion per class (the plain
+    gathering path — any K-class order): one fp32 dot per class, summed
+    in storage order."""
+    fset = w.fset
+    parts_idx = w.k_partition(w.k_cls, w.tile, fset)
+    out = None
+    for code, idx in zip(fset.class_order, parts_idx):
+        if not len(idx):
+            continue
+        p = dot_at(_take_k(x, idx), w.bufs[code], fset.fmt(code))
+        out = p if out is None else out + p
+    if out is None:
+        return torch.zeros(x.shape[:-1] + (w.shape[1],),
+                           dtype=torch.float32, device=x.device)
+    return out

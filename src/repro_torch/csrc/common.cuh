@@ -1,0 +1,87 @@
+// Shared helpers of the port's CUDA kernels: dtype codes, loads that
+// upcast any storage dtype to fp32 exactly, rounding to a compute dtype,
+// and stores that round fp32 into a storage dtype with the reference's
+// semantics (round-to-nearest-even; fp8 e4m3 overflow -> NaN).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Dtype codes shared with kernels/_build.py (DTYPE_CODES).
+enum DType : int {
+  DT_F32 = 0,
+  DT_BF16 = 1,
+  DT_F16 = 2,
+  DT_E4M3 = 3,
+  DT_E5M2 = 4,
+};
+
+template <int DT>
+__device__ __forceinline__ float load_t(const void* p, long long i) {
+  if constexpr (DT == DT_F32) {
+    return __ldg(reinterpret_cast<const float*>(p) + i);
+  } else if constexpr (DT == DT_BF16) {
+    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p) + i);
+    return __uint_as_float(static_cast<unsigned int>(u) << 16);
+  } else if constexpr (DT == DT_F16) {
+    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p) + i);
+    return __half2float(__ushort_as_half(u));
+  } else {
+    const unsigned char u = __ldg(reinterpret_cast<const unsigned char*>(p) + i);
+    const __half_raw h = __nv_cvt_fp8_to_halfraw(
+        static_cast<__nv_fp8_storage_t>(u),
+        DT == DT_E4M3 ? __NV_E4M3 : __NV_E5M2);
+    return __half2float(__half(h));
+  }
+}
+
+// Runtime-dtype load (the branch is uniform across a block).
+__device__ __forceinline__ float load_any(const void* p, int dt, long long i) {
+  switch (dt) {
+    case DT_F32: return load_t<DT_F32>(p, i);
+    case DT_BF16: return load_t<DT_BF16>(p, i);
+    case DT_F16: return load_t<DT_F16>(p, i);
+    case DT_E4M3: return load_t<DT_E4M3>(p, i);
+    default: return load_t<DT_E5M2>(p, i);
+  }
+}
+
+// Receiver-side conversion: v rounded to the compute dtype (returned as
+// the exact fp32 value of the rounded number).
+__device__ __forceinline__ float round_to(float v, int ct) {
+  if (ct == DT_BF16) return __bfloat162float(__float2bfloat16_rn(v));
+  if (ct == DT_F16) return __half2float(__float2half_rn(v));
+  return v;
+}
+
+// Largest |v| that fp8 e4m3 rounds to a finite value (448 = max finite;
+// 464 rounds half-to-even down to it); above it the reference gives NaN.
+#define E4M3_NAN_ABOVE 464.0f
+
+__device__ __forceinline__ void store_any(void* p, int dt, long long i, float v) {
+  switch (dt) {
+    case DT_F32:
+      reinterpret_cast<float*>(p)[i] = v;
+      break;
+    case DT_BF16:
+      reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+      break;
+    case DT_F16:
+      reinterpret_cast<__half*>(p)[i] = __float2half_rn(v);
+      break;
+    case DT_E4M3:
+      reinterpret_cast<unsigned char*>(p)[i] =
+          (isnan(v) || fabsf(v) > E4M3_NAN_ABOVE)
+              ? static_cast<unsigned char>(0x7F)
+              : static_cast<unsigned char>(
+                    __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3));
+      break;
+    default:
+      reinterpret_cast<unsigned char*>(p)[i] = static_cast<unsigned char>(
+          __nv_cvt_float_to_fp8(v, __NV_NOSAT, __NV_E5M2));
+      break;
+  }
+}

@@ -1,0 +1,57 @@
+"""Public wrappers of the port's kernels over the layout types.
+
+Each wrapper derives dtypes from the operands' FormatSet, so any
+registered format flows through without kernel edits.  On CPU tensors the
+kernels' plain versions run; on CUDA tensors the hand-written kernels
+launch (built from ``csrc/`` at first use).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.layout import KSplitWeight, MPMatrix
+from repro_torch.kernels import _build
+from repro_torch.kernels import ksplit_gemm as _ksplit
+from repro_torch.kernels import mp_gemm_tile as _mp_tile
+
+#: the kernel modules whose ``launches`` counters :func:`launch_counts`
+#: reports
+KERNELS = {"ksplit_gemm": _ksplit, "mp_gemm_tile": _mp_tile}
+
+
+def launch_counts() -> dict[str, int]:
+    """CUDA launches per kernel since the last :func:`reset_launch_counts`."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def ensure_built() -> dict[str, str]:
+    """Build every kernel library now (in parallel) instead of at its
+    first launch; returns name -> library path."""
+    return _build.build_all()
+
+
+def mp_gemm(a: MPMatrix, b: MPMatrix, c: MPMatrix,
+            alpha: float = 1.0, beta: float = 0.0) -> MPMatrix:
+    """Tile-centric mixed-precision GEMM (Algorithm 1) via the tile
+    kernel.  Per-format multi-buffer layout in and out."""
+    if not (a.fset == b.fset == c.fset):
+        raise ValueError("mp_gemm operands must share a format set")
+    o_bufs = _mp_tile.mp_gemm_tile_multi(
+        a.bufs, b.bufs, c.bufs, a.cls, b.cls, c.cls, tile=a.tile,
+        specs=_mp_tile.format_specs(a.fset), alpha=alpha, beta=beta)
+    return MPMatrix(tuple(o_bufs), c.cls, c.tile, c.shape, c.fset)
+
+
+def ksplit_matmul_kernel(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:
+    """MPLinear's matmul through the class-split kernel.  ``x``: [M, K]
+    with K-classes stored contiguously in ``w.fset.class_order`` (sorted
+    class vectors)."""
+    fset = w.fset
+    return _ksplit.ksplit_gemm_multi(
+        x, tuple(w.bufs[code] for code in fset.class_order),
+        tuple(fset.fmt(code) for code in fset.class_order))

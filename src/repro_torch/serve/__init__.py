@@ -1,0 +1,19 @@
+"""Serving stack: ``ServeConfig`` and the scheduler import without torch
+device work; ``Engine``/``Request`` load the model stack on first use::
+
+    from repro_torch.serve import Engine, Request, ServeConfig
+"""
+from repro_torch.serve.config import DEFAULT_PAD_LENS, ServeConfig
+
+__all__ = ["DEFAULT_PAD_LENS", "Engine", "Request", "ServeConfig"]
+
+_LAZY = {"Engine": "repro_torch.serve.engine",
+         "Request": "repro_torch.serve.engine"}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(_LAZY[name]), name)

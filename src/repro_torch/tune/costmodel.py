@@ -1,0 +1,202 @@
+"""Analytical roofline cost model over (path × precision map) (twin of
+``repro.tune.costmodel``).
+
+``GemmProblem`` captures the static facts of one mixed-precision GEMM;
+``GemmPlan`` is one way to execute it.  ``predict_time`` scores a plan as
+``max(compute, memory) + launches × launch overhead`` on the port's own
+paths:
+
+* ``ref``         — the oracle: one full fp32 dot per C class present,
+                    plus dense fp32 copies of every operand;
+* ``tile``        — the tile CUDA kernel: one launch, reads each valid
+                    tile's storage bytes, writes every output buffer;
+* ``ksplit_torch``— the plain gathering KSplit path: one fp32 dot per
+                    class on rounded fp32 copies of x and w;
+* ``ksplit_cuda`` — the ksplit CUDA kernel: one launch, weight storage
+                    bytes read once.
+
+Every port path multiplies on the fp32 pipes today (operands rounded to
+the compute dtype, then fp32 FMA), so compute is priced at the device's
+fp32 rate; the registry's per-format pass costs describe tensor-core
+paths the port has not built yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet
+from repro_torch.tune.device import DeviceSpec
+
+#: every execution path the dispatcher can route to
+PATHS = ("ref", "tile", "ksplit_torch", "ksplit_cuda")
+
+#: paths that launch the port's CUDA kernels
+KERNEL_PATHS = ("tile", "ksplit_cuda")
+
+#: tile edges the tile kernel is compiled for
+TILE_SIZES = (16, 32, 64, 128)
+
+
+def _fracs(cls_map: np.ndarray, fset: FormatSet) -> tuple[float, float]:
+    total = cls_map.size
+    f8 = (float((cls_map == fset.low8).sum()) / total
+          if fset.low8 is not None else 0.0)
+    return (float((cls_map == fset.high).sum()) / total, f8)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmProblem:
+    """Static description of one C ← α·A·B + β·C instance."""
+
+    m: int
+    n: int
+    k: int
+    tile: int
+    op: str = "mp_gemm"
+    a_high: float = 0.0
+    a_low8: float = 0.0
+    b_high: float = 0.0
+    b_low8: float = 0.0
+    c_high: float = 0.0
+    c_low8: float = 0.0
+    b_k_constant: bool = False   # B map constant along N (ksplit layouts)
+    c_classes: tuple = (DEFAULT_FORMATS.low,)
+    alpha_one: bool = True
+    beta_zero: bool = True
+    pad_free: bool = True
+    formats: str = DEFAULT_FORMATS.key()
+
+    @property
+    def fset(self) -> FormatSet:
+        return FormatSet.from_key(self.formats)
+
+    @classmethod
+    def from_maps(cls, pa: np.ndarray, pb: np.ndarray, pc: np.ndarray,
+                  tile: int, *, alpha: float = 1.0, beta: float = 0.0,
+                  op: str = "mp_gemm", pad_free: bool = True,
+                  fset: FormatSet = DEFAULT_FORMATS) -> "GemmProblem":
+        pa, pb, pc = (np.asarray(p) for p in (pa, pb, pc))
+        ah, a8 = _fracs(pa, fset)
+        bh, b8 = _fracs(pb, fset)
+        ch, c8 = _fracs(pc, fset)
+        return cls(
+            m=pa.shape[0] * tile, n=pb.shape[1] * tile,
+            k=pa.shape[1] * tile, tile=tile, op=op,
+            a_high=ah, a_low8=a8, b_high=bh, b_low8=b8,
+            c_high=ch, c_low8=c8,
+            b_k_constant=bool(np.all(pb == pb[:, :1])),
+            c_classes=tuple(sorted(int(v) for v in np.unique(pc))),
+            alpha_one=(alpha == 1.0), beta_zero=(beta == 0.0),
+            pad_free=pad_free, formats=fset.key())
+
+    def ratio_key(self) -> str:
+        def one(h, l8):
+            a, c = round(100 * h), round(100 * l8)
+            return f"{a}D{100 - a - c}S" + (f"{c}Q" if c else "")
+        return "|".join((one(self.a_high, self.a_low8),
+                         one(self.b_high, self.b_low8),
+                         one(self.c_high, self.c_low8)))
+
+    def struct_key(self) -> str:
+        return ("a{}b{}k{}p{}c{}".format(
+            int(self.alpha_one), int(self.beta_zero),
+            int(self.b_k_constant), int(self.pad_free),
+            "".join(str(c) for c in self.c_classes)))
+
+    def _elem_bytes(self, code: int) -> float:
+        fset = self.fset
+        return (fset.bytes_of(code)
+                + fset.meta_bytes_of(code) / float(self.tile * self.tile))
+
+    def bytes_per_elem(self, frac_high: float, frac_low8: float) -> float:
+        fset = self.fset
+        hb, lb = self._elem_bytes(fset.high), self._elem_bytes(fset.low)
+        l8b = (self._elem_bytes(fset.low8)
+               if fset.low8 is not None else 0.0)
+        return (hb * frac_high + l8b * frac_low8
+                + lb * (1.0 - frac_high - frac_low8))
+
+    def stream_bytes_per_elem(self) -> float:
+        """Bytes/elem of all per-format buffers of an MPMatrix together."""
+        return float(sum(self._elem_bytes(c) for c in self.fset.codes))
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One executable choice: a path plus a block shape.  The CUDA
+    kernels use fixed internal blocking, so every port plan carries
+    bm = bn = bk = tile."""
+
+    path: str
+    bm: int = 128
+    bn: int = 128
+    bk: int = 128
+
+    def key(self) -> str:
+        return f"{self.path}:{self.bm}x{self.bn}x{self.bk}"
+
+
+def validate_plan(plan: GemmPlan, prob: GemmProblem,
+                  dev: DeviceSpec) -> list[str]:
+    """Reasons this plan cannot run here (empty list = valid)."""
+    if plan.path not in PATHS:
+        return [f"unknown path {plan.path!r}"]
+    if plan.path == "ref":
+        return []
+    bad: list[str] = []
+    t = prob.tile
+    if (plan.bm, plan.bn, plan.bk) != (t, t, t):
+        bad.append(f"port plans carry bm=bn=bk=tile={t}")
+    if plan.path in KERNEL_PATHS and not dev.kernels:
+        bad.append(f"{plan.path} needs the CUDA kernels (sm_90a), not "
+                   f"{dev.kind}")
+    if plan.path == "tile" and t not in TILE_SIZES:
+        bad.append(f"tile kernel is built for tiles {TILE_SIZES}, not {t}")
+    if plan.path in ("ksplit_torch", "ksplit_cuda"):
+        if not prob.b_k_constant:
+            bad.append("ksplit paths need B map constant along N")
+        if len(prob.c_classes) != 1:
+            bad.append("ksplit paths need a uniform C map")
+        if not prob.pad_free:
+            bad.append("ksplit paths need unpadded operands")
+        if prob.k % t:
+            bad.append(f"K={prob.k} not a multiple of tile={t}")
+    if plan.path == "ksplit_cuda" and not prob.beta_zero:
+        bad.append("ksplit kernel computes y=x·W (beta=0)")
+    return bad
+
+
+def predict_time(plan: GemmPlan, prob: GemmProblem, dev: DeviceSpec) -> dict:
+    """Roofline score; ``total_s`` is the rank key."""
+    m, n, k = prob.m, prob.n, prob.k
+    flops = 2.0 * m * n * k
+    a_bytes = m * k * prob.bytes_per_elem(prob.a_high, prob.a_low8)
+    b_bytes = k * n * prob.bytes_per_elem(prob.b_high, prob.b_low8)
+    c_bytes = m * n * prob.bytes_per_elem(prob.c_high, prob.c_low8)
+    s = prob.stream_bytes_per_elem()
+    n_cls = len(prob.c_classes)
+    if plan.path == "ref":
+        dots, launches = n_cls, 8 + 6 * n_cls
+        # every buffer read, dense fp32 copies, rounded copies per class,
+        # the output re-encoded into nf buffers
+        hbm = ((m * k + k * n + m * n) * (s + 4.0)
+               + n_cls * (m * k + k * n + 3 * m * n) * 8.0 + m * n * s)
+    elif plan.path == "tile":
+        dots, launches = 1, 1
+        hbm = a_bytes + b_bytes + c_bytes + m * n * s
+    elif plan.path == "ksplit_torch":
+        b_classes = 1 + int(prob.b_high > 0) + int(prob.b_low8 > 0)
+        dots, launches = 1, 6 * b_classes
+        hbm = a_bytes + b_bytes + (m * k + k * n) * 8.0 \
+            + b_classes * m * n * 8.0
+    else:   # ksplit_cuda
+        dots, launches = 1, 1
+        hbm = a_bytes + b_bytes + m * n * 4.0
+    compute_s = flops * dots / (dev.fp32_tflops * 1e12)
+    hbm_s = hbm / (dev.hbm_gbps * 1e9)
+    overhead_s = dev.launch_overhead_s * launches
+    return {"compute_s": compute_s, "hbm_s": hbm_s,
+            "overhead_s": overhead_s,
+            "total_s": max(compute_s, hbm_s) + overhead_s}

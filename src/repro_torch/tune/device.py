@@ -1,0 +1,86 @@
+"""Device capability table — the hardware half of "hardware-aware" (twin
+of ``repro.tune.device``).
+
+A ``DeviceSpec`` holds what the cost model and plan validator need about
+one device kind.  ``gpu-h100`` is the device the port's CUDA kernels are
+built for (``sm_90a``); other kinds run the plain PyTorch paths.  Numbers
+are published peaks (NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 989
+TFLOP/s dense bf16, 67 TFLOP/s fp32 outside the tensor cores); they feed
+a relative roofline, not a measurement.
+
+``REPRO_TORCH_TUNE_DEVICE=<table key>`` forces a spec (so a CPU host can
+resolve plans for the card, and tests can drive the card's dispatch
+decisions on CPU tensors — the kernel wrappers then run their plain
+versions).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+
+import torch
+
+#: environment variable that forces a DeviceSpec by table key
+DEVICE_ENV = "REPRO_TORCH_TUNE_DEVICE"
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSpec:
+    """Capabilities of one device kind, as seen by the tuner."""
+
+    kind: str                  # table key, also the plan-cache key part
+    smem_bytes: int            # shared memory one block can use
+    hbm_gbps: float            # device-memory bandwidth, GB/s
+    low_tflops: float          # peak bf16 matmul TFLOP/s
+    fp32_tflops: float         # peak fp32 FMA TFLOP/s (non-tensor-core)
+    launch_overhead_s: float   # fixed cost per kernel launch
+    kernels: bool              # the port's CUDA kernels run here
+
+
+DEVICE_TABLE: dict[str, DeviceSpec] = {
+    "gpu-h100": DeviceSpec(
+        kind="gpu-h100", smem_bytes=227 * 2**10, hbm_gbps=3350.0,
+        low_tflops=989.0, fp32_tflops=67.0, launch_overhead_s=4e-6,
+        kernels=True),
+    # a CUDA card the kernels are not built for: plain PyTorch paths
+    "gpu-a100": DeviceSpec(
+        kind="gpu-a100", smem_bytes=163 * 2**10, hbm_gbps=2039.0,
+        low_tflops=312.0, fp32_tflops=19.5, launch_overhead_s=4e-6,
+        kernels=False),
+    "cpu": DeviceSpec(
+        kind="cpu", smem_bytes=0, hbm_gbps=30.0, low_tflops=0.2,
+        fp32_tflops=0.2, launch_overhead_s=2e-5, kernels=False),
+}
+
+#: substrings of ``torch.cuda.get_device_name`` -> table key
+_KIND_PATTERNS = (("h100", "gpu-h100"), ("a100", "gpu-a100"))
+
+
+def detect_device(device: torch.device | str | None = None) -> DeviceSpec:
+    """The DeviceSpec of ``device`` (default: cuda if available, else
+    cpu), unless ``REPRO_TORCH_TUNE_DEVICE`` forces one."""
+    forced = os.environ.get(DEVICE_ENV)
+    if forced:
+        if forced not in DEVICE_TABLE:
+            raise KeyError(f"{DEVICE_ENV}={forced!r} not in device table "
+                           f"{sorted(DEVICE_TABLE)}")
+        return DEVICE_TABLE[forced]
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return DEVICE_TABLE["cpu"]
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return DEVICE_TABLE[_cuda_kind(index)]
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_kind(index: int) -> str:
+    """Table key of CUDA device ``index`` (a card's name never changes)."""
+    name = torch.cuda.get_device_name(index).lower()
+    for pat, key in _KIND_PATTERNS:
+        if pat in name:
+            return key
+    return "gpu-a100"

@@ -1,0 +1,320 @@
+"""Unified mixed-precision GEMM dispatch — ``mp_matmul``, ``linear_matmul``
+and the plan registry (twin of ``repro.tune.dispatch``).
+
+Every execution path is registered behind one entry point; a resolved
+``GemmPlan`` (explicit argument > in-memory registry > persisted cache >
+cost-model best) picks the path.  On ``gpu-h100`` the cost model routes
+``mp_matmul`` to the ``tile`` CUDA kernel and every sorted-map KSplit
+linear to the ``ksplit_cuda`` kernel at every M (the kernel masks ragged
+rows itself, and its fixed summation order makes a row's result the same
+at any M); on other devices the plain PyTorch paths run.
+
+Counters (in :func:`repro_torch.obs.metrics_registry`):
+
+* ``tune.plan_resolutions{source=registry|cache|model}`` — a ``model``
+  resolution is fresh work; serving must do none after warmup;
+* ``dispatch.calls{path, op, formats}`` — one per dispatched GEMM.
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core.layout import KSplitWeight, MPMatrix, ksplit_matmul
+from repro_torch.core.mp_gemm import mp_gemm_ref
+from repro_torch.kernels import ops
+from repro_torch.tune import search as S
+from repro_torch.tune.costmodel import (GemmPlan, GemmProblem, PATHS,
+                                        validate_plan)
+from repro_torch.tune.device import DeviceSpec, detect_device
+
+#: in-memory plan registry: plan-cache key -> GemmPlan
+_REGISTRY: dict[str, GemmPlan] = {}
+
+RESOLUTION_METRIC = "tune.plan_resolutions"
+DISPATCH_METRIC = "dispatch.calls"
+
+#: paths a KSplit linear may take
+LINEAR_PATHS = ("ksplit_torch", "ksplit_cuda")
+
+
+def _count_resolution(source: str) -> None:
+    obs.metrics_registry().counter(RESOLUTION_METRIC, source=source).inc()
+
+
+def resolution_counters() -> dict[str, int]:
+    """``{source: count}`` of plan resolutions since the last reset."""
+    return {labels["source"]: int(c.value) for labels, c in
+            obs.metrics_registry().series(RESOLUTION_METRIC)}
+
+
+def fresh_resolutions(counters: dict[str, int] | None = None) -> int:
+    """Resolutions that did fresh (cost-model) work, not a registry or
+    cache hit."""
+    c = resolution_counters() if counters is None else counters
+    return int(c.get("model", 0))
+
+
+def dispatch_counts(op: str | None = None) -> dict[str, int]:
+    """``{path: calls}`` of the dispatch counter (optionally one op)."""
+    out: dict[str, int] = {}
+    for labels, c in obs.metrics_registry().series(DISPATCH_METRIC):
+        if op is None or labels["op"] == op:
+            out[labels["path"]] = out.get(labels["path"], 0) + int(c.value)
+    return out
+
+
+def clear_registry() -> None:
+    _REGISTRY.clear()
+
+
+def warm_registry(cache: S.PlanCache | None = None) -> int:
+    """Load every persisted plan into the registry; returns the count."""
+    cache = cache or S.default_cache()
+    keys = cache.keys()
+    for key in keys:
+        _REGISTRY[key] = cache.get(key)
+    return len(keys)
+
+
+# ---------------------------------------------------------------------------
+# Problem construction
+# ---------------------------------------------------------------------------
+
+def canonical_operands(a: MPMatrix, b: MPMatrix, c: MPMatrix | None
+                       ) -> tuple[MPMatrix, MPMatrix, MPMatrix]:
+    """Default C (when omitted) is a zero matrix with a uniform-LOW map."""
+    if not isinstance(a, MPMatrix) or not isinstance(b, MPMatrix):
+        raise TypeError("mp_matmul operands must be MPMatrix")
+    if a.tile != b.tile:
+        raise ValueError(f"tile mismatch {a.tile} vs {b.tile}")
+    if a.fset != b.fset or (c is not None and c.fset != a.fset):
+        raise ValueError("mp_matmul operands must share a format set")
+    if a.cls.shape[1] != b.cls.shape[0]:
+        raise ValueError(
+            f"inner tile-grid mismatch {a.cls.shape} · {b.cls.shape}")
+    if c is not None:
+        if c.tile != a.tile:
+            raise ValueError(f"C tile {c.tile} != A/B tile {a.tile}")
+        if c.cls.shape != (a.cls.shape[0], b.cls.shape[1]):
+            raise ValueError(
+                f"C tile grid {c.cls.shape} incompatible with "
+                f"{a.cls.shape} · {b.cls.shape}")
+    if c is None:
+        cmap = np.full((a.cls.shape[0], b.cls.shape[1]), a.fset.low, np.int8)
+        c = MPMatrix.from_dense(
+            torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                        device=a.device), cmap, a.tile, a.fset)
+    return a, b, c
+
+
+def problem_of(a: MPMatrix, b: MPMatrix, c: MPMatrix, *,
+               alpha: float = 1.0, beta: float = 0.0) -> GemmProblem:
+    pad_free = (a.shape == a.padded_shape and b.shape == b.padded_shape
+                and c.shape == c.padded_shape)
+    return GemmProblem.from_maps(a.cls, b.cls, c.cls, a.tile, alpha=alpha,
+                                 beta=beta, pad_free=pad_free, fset=a.fset)
+
+
+# ---------------------------------------------------------------------------
+# Path executors
+# ---------------------------------------------------------------------------
+
+def _exec_ref(a, b, c, alpha, beta):
+    return mp_gemm_ref(a, b, c, alpha=alpha, beta=beta)
+
+
+def _exec_tile(a, b, c, alpha, beta):
+    return ops.mp_gemm(a, b, c, alpha=alpha, beta=beta)
+
+
+def _ksplit_weight(b: MPMatrix) -> KSplitWeight:
+    return KSplitWeight.from_dense(b.to_dense(), b.cls[:, 0], b.tile, b.fset)
+
+
+def _finish_c(y, c: MPMatrix, alpha, beta):
+    out = alpha * y
+    if beta != 0.0:
+        out = out + beta * c.to_dense()
+    return MPMatrix.from_dense(out, c.cls, c.tile, c.fset)
+
+
+def _exec_ksplit_torch(a, b, c, alpha, beta):
+    return _finish_c(ksplit_matmul(a.to_dense(), _ksplit_weight(b)), c,
+                     alpha, beta)
+
+
+def _exec_ksplit_cuda(a, b, c, alpha, beta):
+    w = _ksplit_weight(b)
+    x = a.to_dense()
+    # the kernel consumes x with class-contiguous K columns (storage order)
+    idx = np.concatenate(KSplitWeight.k_partition(w.k_cls, w.tile, w.fset))
+    xp = x.index_select(1, torch.from_numpy(idx).to(x.device)).contiguous()
+    return _finish_c(ops.ksplit_matmul_kernel(xp, w), c, alpha, beta)
+
+
+_EXECUTORS = {
+    "ref": _exec_ref,
+    "tile": _exec_tile,
+    "ksplit_torch": _exec_ksplit_torch,
+    "ksplit_cuda": _exec_ksplit_cuda,
+}
+assert set(_EXECUTORS) == set(PATHS)
+
+
+def execute_plan(plan: GemmPlan, a: MPMatrix, b: MPMatrix, c: MPMatrix,
+                 *, alpha: float = 1.0, beta: float = 0.0) -> MPMatrix:
+    return _EXECUTORS[plan.path](a, b, c, alpha, beta)
+
+
+# ---------------------------------------------------------------------------
+# Plan resolution + public entry point
+# ---------------------------------------------------------------------------
+
+def _lookup_plan(prob: GemmProblem, dev: DeviceSpec
+                 ) -> tuple[GemmPlan, str] | None:
+    """Registry → persisted cache; a stored plan is served only while it
+    is still valid for this problem on this device."""
+    key = S.plan_key(dev, prob)
+    plan = _REGISTRY.get(key)
+    if plan is not None and not validate_plan(plan, prob, dev):
+        return plan, "registry"
+    plan = S.default_cache().get(key)
+    if plan is not None and not validate_plan(plan, prob, dev):
+        _REGISTRY[key] = plan
+        return plan, "cache"
+    return None
+
+
+def resolve_plan(prob: GemmProblem, dev: DeviceSpec | None = None,
+                 paths: Iterable[str] = PATHS) -> tuple[GemmPlan, str]:
+    """registry > persisted cache > cost-model best; returns (plan,
+    source).  Never measures."""
+    dev = dev or detect_device()
+    hit = _lookup_plan(prob, dev)
+    if hit is not None:
+        _count_resolution(hit[1])
+        return hit
+    key = S.plan_key(dev, prob)
+    ranked = S.rank_plans(S.candidate_plans(prob, dev, paths), prob, dev)
+    if not ranked:
+        raise ValueError(f"no valid plan for {key}")
+    plan = ranked[0][0]
+    _REGISTRY[key] = plan
+    _count_resolution("model")
+    return plan, "model"
+
+
+def mp_matmul(a: MPMatrix, b: MPMatrix, c: MPMatrix | None = None, *,
+              alpha: float = 1.0, beta: float = 0.0,
+              plan: GemmPlan | None = None) -> MPMatrix:
+    """C ← α·A·B + β·C routed through the best known execution path."""
+    a, b, c = canonical_operands(a, b, c)
+    prob = problem_of(a, b, c, alpha=alpha, beta=beta)
+    dev = detect_device(a.device)
+    if plan is None:
+        plan, _ = resolve_plan(prob, dev)
+    else:
+        bad = validate_plan(plan, prob, dev)
+        if bad:
+            raise ValueError(f"plan {plan.key()} invalid: {bad}")
+    obs.metrics_registry().counter(
+        DISPATCH_METRIC, path=plan.path, op=prob.op,
+        formats=prob.formats).inc()
+    return execute_plan(plan, a, b, c, alpha=alpha, beta=beta)
+
+
+# ---------------------------------------------------------------------------
+# MPLinear integration (op = "linear")
+# ---------------------------------------------------------------------------
+
+def linear_problem(w: KSplitWeight, m: int) -> GemmProblem:
+    bh, b8 = w.role_fractions
+    k, n = w.shape
+    return GemmProblem(
+        m=int(m), n=n, k=k, tile=w.tile, op="linear",
+        a_high=0.0, a_low8=0.0, b_high=bh, b_low8=b8,
+        c_high=0.0, c_low8=0.0, b_k_constant=True,
+        c_classes=(w.fset.low,),
+        alpha_one=True, beta_zero=True, pad_free=True,
+        formats=w.fset.key())
+
+
+def linear_matmul(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:
+    """MPLinear's matmul, path taken from the plan registry.
+
+    A registry hit costs a dict lookup; a miss resolves through the cache
+    or the cost model and is counted (``tune_linear_params`` at setup
+    makes serving hit the registry, so serving adds no resolutions).
+    The kernel path needs x's K columns class-contiguous, which holds iff
+    the K-class vector is sorted by descending code (ratio policies);
+    other maps take the gathering plain path."""
+    m = 1
+    for d in x.shape[:-1]:
+        m *= int(d)
+    dev = detect_device(x.device)
+    prob = linear_problem(w, m)
+    plan = _REGISTRY.get(S.plan_key(dev, prob))
+    if plan is None:
+        plan, _ = resolve_plan(prob, dev, LINEAR_PATHS)
+    path = plan.path if (plan.path != "ksplit_cuda" or w.sorted) \
+        else "ksplit_torch"
+    obs.metrics_registry().counter(DISPATCH_METRIC, path=path, op="linear",
+                                   formats=w.fset.key()).inc()
+    if path == "ksplit_cuda":
+        y = ops.ksplit_matmul_kernel(x.reshape(m, x.shape[-1]).contiguous(),
+                                     w)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+    return ksplit_matmul(x, w)
+
+
+def tune_linear_params(params, m_hint: int) -> dict[str, GemmPlan]:
+    """Tune-once-at-setup: resolve a plan for every distinct KSplitWeight
+    signature in a parameter tree (dicts / lists / MPLinear leaves) at
+    ``m_hint`` rows.  Pure model selection + cache lookup."""
+    from repro_torch.core.linear import MPLinear
+    plans: dict[str, GemmPlan] = {}
+
+    def visit(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                visit(v)
+        elif isinstance(node, MPLinear) and isinstance(node.w, KSplitWeight):
+            w = node.w
+            dev = detect_device(w.bufs[0].device)
+            prob = linear_problem(w, m_hint)
+            key = S.plan_key(dev, prob)
+            if key not in plans:
+                plans[key] = resolve_plan(prob, dev, LINEAR_PATHS)[0]
+
+    visit(params)
+    return plans
+
+
+def resolve_plans_for_buckets(params_by_tag: dict, buckets
+                              ) -> dict[tuple, dict[str, GemmPlan]]:
+    """Plan prefetch for the serve scheduler's shape buckets.
+
+    ``buckets`` is an iterable of ``(tag, batch, pad_len)``.  The engine
+    prefills by stepping the decode function, so every linear of a bucket
+    runs at ``m = batch``; ``m = 1`` is resolved too, because on the card
+    every sorted-map linear takes the ksplit kernel at every M — the
+    kernel's M-independent summation order is what keeps a row's tokens
+    the same served alone or batched.  Returns ``{(tag, m): {key:
+    plan}}``; every plan is also loaded into the registry."""
+    out: dict[tuple, dict[str, GemmPlan]] = {}
+    for tag, batch, _pad_len in buckets:
+        if tag not in params_by_tag:
+            raise KeyError(f"unknown weight-variant tag {tag!r} "
+                           f"(have {sorted(params_by_tag)})")
+        for m in sorted({1, int(batch)}):
+            if (tag, m) not in out:
+                out[(tag, m)] = tune_linear_params(params_by_tag[tag],
+                                                   m_hint=m)
+    return out

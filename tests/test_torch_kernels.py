@@ -1,0 +1,233 @@
+"""Port parity: the two kernels of ``repro_torch`` — their plain PyTorch
+versions against the JAX package's Pallas kernels run as its own tests run
+them (``interpret=True`` on CPU), at tiles 16 and 32 — plus the wrappers'
+routing and checks.  The CUDA kernels themselves run only on a card: those
+tests are marked ``gpu`` and skip here.
+
+Tolerances.  Both packages multiply the same operands rounded to the same
+compute dtype, so every product is exact in fp32 and only the order of the
+fp32 sums differs; two orders of a K-term sum differ by at most
+``2·K·2^-24·Σ|x·w|`` per element.  Outputs then stored in a narrower
+format may differ by one rounding of that format, integer C tiles by one
+quantization step.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import formats as JF
+from repro.core import layout as JL
+from repro.core import precision as JP
+from repro.kernels import ksplit_gemm as JK
+from repro.kernels import mp_gemm_tile as JMT
+from repro_torch.bridge import tensor_from_numpy
+from repro_torch.core import formats as PF
+from repro_torch.core import layout as PL
+from repro_torch.kernels import ksplit_gemm as PK
+from repro_torch.kernels import mp_gemm_tile as PMT
+from repro_torch.kernels import ops
+
+SETS = ("fp8_e4m3+bf16+fp32", "fp8_e5m2+fp16+fp32", "int8_pt+bf16+fp32")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel)")
+    return torch.device("cuda")
+
+
+def _ksplit_case(key, k_cls, m, tile, n, xdtype, seed=0):
+    rng = np.random.default_rng(seed)
+    k = len(k_cls) * tile
+    w = rng.standard_normal((k, n)).astype(np.float32) / np.sqrt(k)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    jfs, pfs = JF.FormatSet.from_key(key), PF.FormatSet.from_key(key)
+    k_cls = np.asarray(k_cls, np.int8)
+    jw = JL.KSplitWeight.from_dense(jnp.asarray(w), k_cls, tile, jfs)
+    pw = PL.KSplitWeight(tuple(tensor_from_numpy(np.asarray(b), "cpu")
+                               for b in jw.bufs), k_cls, tile, (k, n), pfs)
+    xj = jnp.asarray(x).astype(xdtype)
+    xp = tensor_from_numpy(np.asarray(xj), "cpu")
+    return xj, xp, jw, pw
+
+
+def _bound(xp, pw):
+    fs = pw.fset
+    return PK.order_bound(xp, [pw.bufs[c] for c in fs.class_order],
+                          [fs.fmt(c) for c in fs.class_order]).numpy()
+
+
+@pytest.mark.parametrize("key,k_cls,tile,xdtype", [
+    (key, k_cls, 16, jnp.bfloat16) for key in SETS
+    for k_cls in ([2, 2, 1, 0], [1, 1, 1, 1])] + [
+    (SETS[0], [2, 1, 1, 1], 32, jnp.bfloat16),
+    (SETS[1], [2, 2, 1, 0], 16, jnp.float32)])
+def test_ksplit_plain_matches_pallas(key, k_cls, tile, xdtype):
+    m, n = 16, 32
+    xj, xp, jw, pw = _ksplit_case(key, k_cls, m, tile, n, xdtype)
+    fs = jw.fset
+    specs = JMT.format_specs(fs)
+    yj = np.asarray(JK.ksplit_gemm_multi(
+        xj, tuple(jw.bufs[c] for c in fs.class_order),
+        specs=tuple(specs[c] for c in fs.class_order),
+        bm=16, bn=16, bk=tile, interpret=True))
+    yp = PK.ksplit_gemm_plain(
+        xp, [pw.bufs[c] for c in pw.fset.class_order],
+        [pw.fset.fmt(c) for c in pw.fset.class_order]).numpy()
+    bound = _bound(xp, pw)
+    assert np.all(np.abs(yj - yp) <= bound)
+
+
+def test_ksplit_wrapper_on_cpu_is_the_plain_version():
+    _, xp, _, pw = _ksplit_case(SETS[0], [2, 2, 1, 0], 5, 16, 24,
+                                jnp.bfloat16)
+    before = PK.launches
+    y = ops.ksplit_matmul_kernel(xp, pw)
+    plain = PK.ksplit_gemm_plain(
+        xp, [pw.bufs[c] for c in pw.fset.class_order],
+        [pw.fset.fmt(c) for c in pw.fset.class_order])
+    assert torch.equal(y, plain) and PK.launches == before
+    # ... and the gathering path agrees with it to summation order
+    ref = PL.ksplit_matmul(xp, pw)
+    bound = _bound(xp, pw)
+    assert np.all(np.abs((ref - y).numpy()) <= bound)
+
+
+def test_ksplit_wrapper_rejects_bad_operands():
+    _, xp, _, pw = _ksplit_case(SETS[0], [2, 2, 1, 0], 4, 16, 24,
+                                jnp.bfloat16)
+    bufs = [pw.bufs[c] for c in pw.fset.class_order]
+    fmts = [pw.fset.fmt(c) for c in pw.fset.class_order]
+    with pytest.raises(ValueError):
+        PK.ksplit_gemm_multi(xp[:, :-16], bufs, fmts)      # K mismatch
+    with pytest.raises(ValueError):
+        PK.ksplit_gemm_multi(xp[None], bufs, fmts)         # not 2-D
+    with pytest.raises(ValueError):
+        PK.ksplit_gemm_multi(xp, bufs, fmts[:2])           # formats short
+
+
+def _tile_case(key, t, shape, ratios, seed=0):
+    rng = np.random.default_rng(seed)
+    m, k, n = shape
+    jfs, pfs = JF.FormatSet.from_key(key), PF.FormatSet.from_key(key)
+    dense = [rng.standard_normal(s).astype(np.float32)
+             for s in ((m, k), (k, n), (m, n))]
+    maps = [JP.make_map(d.shape, t, JP.Policy("ratio", ratios[0], ratios[1],
+                                               seed=seed + i), fset=jfs)
+            for i, d in enumerate(dense)]
+    jm = [JL.MPMatrix.from_dense(jnp.asarray(d), p, t, jfs)
+          for d, p in zip(dense, maps)]
+    pm = [PL.MPMatrix.from_dense(torch.from_numpy(d), p, t, pfs)
+          for d, p in zip(dense, maps)]
+    return jm, pm, maps, dense
+
+
+def _within(pm, maps, t, got, want, alpha, beta):
+    """Worst ratio of |got - want| to the tile GEMM's order allowance
+    (``mp_gemm_tile.order_allowance``); ``got``/``want`` dense fp32."""
+    allow = PMT.order_allowance(
+        pm[0].bufs, pm[1].bufs, pm[2].bufs, maps[2], want, tile=t,
+        specs=PMT.format_specs(pm[0].fset), alpha=alpha, beta=beta)
+    return PMT.within(got, want, allow)[1]
+
+
+@pytest.mark.parametrize("key,t,shape,ratios,alpha,beta", [
+    (key, 16, (32, 48, 32), ratios, alpha, beta) for key in SETS
+    for ratios, alpha, beta in (((0.4, 0.3), 1.5, 0.5),
+                                ((1.0, 0.0), 1.0, 0.0))] + [
+    (SETS[0], 32, (64, 64, 32), (0.5, 0.0), 2.0, -1.0),
+    (SETS[2], 32, (64, 64, 32), (0.0, 0.0), 1.0, 0.0)])
+def test_tile_plain_matches_pallas(key, t, shape, ratios, alpha, beta):
+    jm, pm, maps, _ = _tile_case(key, t, shape, ratios)
+    jouts = JMT.mp_gemm_tile_multi(
+        jm[0].bufs, jm[1].bufs, jm[2].bufs, *(jnp.asarray(p) for p in maps),
+        tile=t, specs=JMT.format_specs(jm[0].fset), alpha=alpha, beta=beta,
+        interpret=True)
+    pouts = PMT.mp_gemm_tile_plain(
+        pm[0].bufs, pm[1].bufs, pm[2].bufs, *maps, tile=t,
+        specs=PMT.format_specs(pm[0].fset), alpha=alpha, beta=beta)
+    for jo, po in zip(jouts, pouts):
+        assert PF.dtype_name(po.dtype) == jnp.dtype(jo.dtype).name
+    jd = torch.from_numpy(sum(np.asarray(o).astype(np.float32)
+                              for o in jouts))
+    pd = sum(o.float() for o in pouts)
+    # each output buffer is zero outside its class's tiles, as in the
+    # reference
+    sel = PL.expand_map(maps[2], t)
+    for code, po in enumerate(pouts):
+        assert not po.float()[torch.from_numpy(sel != code)].any()
+    assert _within(pm, maps, t, pd, jd, alpha, beta) <= 1.0
+
+
+def test_quantize_tiles_matches_reference_epilogue():
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((32, 48)) * 5).astype(np.float32)
+    x[0, 0] = np.nan      # a NaN makes its tile's scale 1, as in JAX
+    got = PMT.quantize_tiles(torch.from_numpy(x), 16, 127).numpy()
+    for i in range(2):
+        for j in range(3):
+            blk = x[16 * i:16 * (i + 1), 16 * j:16 * (j + 1)]
+            want = np.asarray(JMT.quantize_block(jnp.asarray(blk), 127))
+            np.testing.assert_array_equal(
+                got[16 * i:16 * (i + 1), 16 * j:16 * (j + 1)], want)
+
+
+def test_tile_wrapper_on_cpu_is_the_plain_version_and_checks():
+    _, pm, maps, _ = _tile_case(SETS[0], 16, (32, 32, 32), (0.4, 0.3))
+    specs = PMT.format_specs(pm[0].fset)
+    before = PMT.launches
+    out = ops.mp_gemm(*pm, alpha=1.0, beta=0.5)
+    plain = PMT.mp_gemm_tile_plain(pm[0].bufs, pm[1].bufs, pm[2].bufs,
+                                   *maps, tile=16, specs=specs, beta=0.5)
+    assert all(torch.equal(a, b) for a, b in zip(out.bufs, plain))
+    assert PMT.launches == before
+    with pytest.raises(ValueError):
+        PMT.mp_gemm_tile_multi(pm[0].bufs, pm[1].bufs, pm[2].bufs,
+                               maps[0], maps[1], maps[2][:1], tile=16,
+                               specs=specs)
+
+
+@pytest.mark.gpu
+def test_ksplit_kernel_matches_plain_on_card(cuda):
+    for m in (1, 4, 37):
+        _, xp, _, pw = _ksplit_case(SETS[0], [2, 2, 1, 0], m, 32, 200,
+                                    jnp.bfloat16)
+        x = xp.to(cuda)
+        w = PL.KSplitWeight(tuple(b.to(cuda) for b in pw.bufs), pw.k_cls,
+                            pw.tile, pw.shape, pw.fset)
+        before = PK.launches
+        y = ops.ksplit_matmul_kernel(x, w).cpu()
+        assert PK.launches == before + 1
+        y1 = ops.ksplit_matmul_kernel(x[:1].contiguous(), w).cpu()
+        assert torch.equal(y1, y[:1])          # batch invariance
+        plain = PK.ksplit_gemm_plain(
+            xp, [pw.bufs[c] for c in pw.fset.class_order],
+            [pw.fset.fmt(c) for c in pw.fset.class_order])
+        bound = _bound(xp, pw)
+        assert np.all(np.abs((y - plain).numpy()) <= bound)
+
+
+@pytest.mark.gpu
+def test_tile_kernel_matches_plain_on_card(cuda):
+    for key in SETS:
+        _, pm, maps, _ = _tile_case(key, 32, (64, 96, 64), (0.4, 0.3))
+        specs = PMT.format_specs(pm[0].fset)
+        outs = PMT.mp_gemm_tile_multi(
+            *[tuple(b.to(cuda) for b in x.bufs) for x in pm], *maps,
+            tile=32, specs=specs, alpha=1.5, beta=0.5)
+        plain = PMT.mp_gemm_tile_plain(
+            pm[0].bufs, pm[1].bufs, pm[2].bufs, *maps, tile=32, specs=specs,
+            alpha=1.5, beta=0.5)
+        kd = sum(o.float().cpu() for o in outs)
+        pd = sum(o.float() for o in plain)
+        assert _within(pm, maps, 32, kd, pd, 1.5, 0.5) <= 1.0
