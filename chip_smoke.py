@@ -6,23 +6,39 @@ NVIDIA H100.
 
 Phases (each raises on failure, so a failing run never exits 0):
 
-1. print the card (``nvidia-smi`` name and power limit) and build both CUDA
-   kernels from ``src/repro_torch/csrc`` (nvcc in parallel);
+1. print the card (``nvidia-smi`` name and power limit) and the device
+   spec dispatch resolves for it (must be ``gpu-h100``), and build the
+   five CUDA kernels from ``src/repro_torch/csrc`` (nvcc in parallel);
 2. hold each kernel to its plain PyTorch version on the card: the ksplit
    kernel at the served InternLM2-1.8B shapes (m = 1 and 4) and at
    m = 4096, the tile kernel at M = N = K = 1024 and 4096, t = 128, over
-   four class mixes and one integer-class format set;
-3. ``mp_matmul`` at 1024³ through dispatch: the plan must be ``tile``, the
-   tile kernel must launch, and the result must sit inside the
-   registry-derived error bounds against numpy fp64;
+   four class mixes and one integer-class format set; the split kernel at
+   4096³, t = 128, for split2_fp16 and split3_e5m2 C classes and a mix
+   with an int8 class, plus its slices bit for bit (B = I); the grouped
+   kernel at 4096³, t = 128, 50D50S; the convert kernel at 8192² into
+   every output dtype, bit for bit;
+3. ``mp_matmul`` at 1024³ through dispatch: the plan must be ``tile``
+   (``split`` with split C classes), the kernel must launch, and the
+   result must sit inside the registry-derived error bounds against numpy
+   fp64;
 4. serve InternLM2-1.8B at full width (random weights from a seeded
    ``torch.Generator``): 8 requests, 16 greedy tokens each, batched tokens
    equal to the unbatched reference, no fresh plan resolution after
    warmup, every KSplit linear on the ksplit kernel;
    A profiled decode step then shows where its time goes (wall vs device
    busy time, top kernels by device time);
-5. time each kernel (CUDA events, median) beside its bound, its plain
-   version and ``torch.matmul`` at the same shape.
+5. the refinement solver on the card: ``graded_spd`` n = 8192, tile 128,
+   start 0D:100S, LU, tol 0.01, three solves — storage escalation (tile
+   kernel), split compute escalation (split kernel only) and the grouped
+   residual path (grouped kernel); each must escalate, converge (fp64
+   HPL-MxP metric ≤ tol) with a forward error ≤ 1e-2 and no fresh
+   mid-solve plan resolution, on its kernel and the convert kernel (the
+   layouts' storage casts); each solve's last step-0 trailing update and
+   last residual GEMM are replayed through their kernel and its plain
+   version.  The same three solves at n = 1024 on the card and on the
+   CPU (plain versions) must take the same decisions;
+6. time each kernel (CUDA events, median) beside its bound, its plain
+   version and one PyTorch call computing the same function.
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -55,6 +71,22 @@ KSPLIT_BIG = (4096, 2048, 8192)
 TILE_SIZES = (1024, 4096)
 TILE = 128
 DEVICE = "cuda"
+#: the split and grouped kernel checks and timings (M = N = K)
+SPLIT_SIZE = 4096
+#: the convert kernel's matrix edge
+CONVERT_SIZE = 8192
+#: the solve phase: operator edge (the launcher's graded_spd defaults)
+SOLVE_N = 8192
+#: the solves' HPL-MxP tolerance: at n = 8192 the launcher's tol 1 stops
+#: after one sweep on the bf16-stored operator (metric 0.435, forward
+#: error 1.54); at 0.01 every solve must escalate
+SOLVE_TOL = 0.01
+#: largest relative forward error max|x - x_true| / max|x_true| accepted
+FORWARD_TOL = 1e-2
+#: the card-against-CPU solve parity: operator edge and x tolerance (two
+#: converged iterates whose products differ in summation order)
+PARITY_N = 1024
+PARITY_X_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -199,28 +231,63 @@ def tile_case(size, t, fkey, hi, q, gen, seed0=1):
     return fs, mats, maps
 
 
-def check_tile(gen) -> dict:
+def kernel_vs_plain(path, A, B, C, alpha=1.0, beta=0.0):
+    """One launch of the ``path`` kernel (``tile``, ``split`` or
+    ``grouped``) against its plain version on the same MPMatrix operands:
+    (max |kernel - plain|, worst ratio to the summation-order allowance
+    ``order_allowance`` of the tile or split module).  The grouped kernel
+    takes the operands as CompactMPMatrix, as dispatch's grouped path
+    does, and computes C = A·B."""
     import torch
+    from repro_torch.core.layout import CompactMPMatrix
+    from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.kernels import mp_gemm_tile as MT
+    from repro_torch.kernels import split_gemm as SG
+    from repro_torch.split import split_format_specs
+    t, fs = A.tile, A.fset
+    if path == "grouped":
+        if (alpha, beta) != (1.0, 0.0):
+            fail("the grouped kernel computes C = A·B only")
+        ac = CompactMPMatrix.from_dense(A.to_dense(), A.cls, t, fs)
+        bc = CompactMPMatrix.from_dense(B.to_dense(), B.cls, t, fs)
+        out = GG.grouped_mp_gemm(ac, bc, C.cls)
+        plain = GG.grouped_gemm_plain(ac, bc, C.cls)
+        sync()
+        if any(tuple(k.shape) != tuple(p.shape) or k.dtype != p.dtype
+               for k, p in zip(out.tiles, plain)):
+            fail("grouped kernel's compact outputs differ in shape or dtype")
+        dk = out.to_dense()
+        dp = CompactMPMatrix(plain, out.cls, out.slot, t, out.shape,
+                             fs).to_dense()
+        zero = tuple(torch.zeros_like(b) for b in C.bufs)
+        allow = MT.order_allowance(A.bufs, B.bufs, zero, C.cls, dp, tile=t,
+                                   specs=MT.format_specs(fs))
+        return MT.within(dk, dp, allow)
+    if path == "tile":
+        mod, specs, run = MT, MT.format_specs(fs), MT.mp_gemm_tile_multi
+        plain_fn = MT.mp_gemm_tile_plain
+    elif path == "split":
+        mod, specs, run = SG, split_format_specs(fs), SG.split_gemm_tile_multi
+        plain_fn = SG.split_gemm_plain
+    else:
+        fail(f"no kernel for the path {path!r}")
+    args = (A.bufs, B.bufs, C.bufs, A.cls, B.cls, C.cls)
+    kw = dict(tile=t, specs=specs, alpha=alpha, beta=beta)
+    ok = run(*args, **kw)
+    op = plain_fn(*args, **kw)
+    sync()
+    dk = sum(o.float() for o in ok)
+    dp = sum(o.float() for o in op)
+    allow = mod.order_allowance(A.bufs, B.bufs, C.bufs, C.cls, dp, **kw)
+    return MT.within(dk, dp, allow)
+
+
+def check_tile(gen) -> dict:
     out = {}
-    alpha, beta = 1.5, 0.5
     for size in TILE_SIZES:
         for label, fkey, hi, q in TILE_MIXES:
             fs, (A, B, C), maps = tile_case(size, TILE, fkey, hi, q, gen)
-            specs = MT.format_specs(fs)
-            ok = MT.mp_gemm_tile_multi(A.bufs, B.bufs, C.bufs, *maps,
-                                       tile=TILE, specs=specs, alpha=alpha,
-                                       beta=beta)
-            op = MT.mp_gemm_tile_plain(A.bufs, B.bufs, C.bufs, *maps,
-                                       tile=TILE, specs=specs, alpha=alpha,
-                                       beta=beta)
-            sync()
-            dk = sum(o.float() for o in ok)
-            dp = sum(o.float() for o in op)
-            allow = MT.order_allowance(A.bufs, B.bufs, C.bufs, maps[2], dp,
-                                       tile=TILE, specs=specs, alpha=alpha,
-                                       beta=beta)
-            err, ratio = MT.within(dk, dp, allow)
+            err, ratio = kernel_vs_plain("tile", A, B, C, 1.5, 0.5)
             print(f"tile {size}^3 t={TILE} {label} [{fkey}]: "
                   f"max|kernel-plain| {err:.3e}, worst/allowance "
                   f"{ratio:.3e} (2*K*2^-24*(|a||A||B|+|b||C|) + one output "
@@ -228,7 +295,153 @@ def check_tile(gen) -> dict:
             if not ratio <= 1.0:
                 fail(f"tile {size} {label} outside tolerance")
             out[(size, label)] = err
-            del A, B, C, ok, op, dk, dp, allow
+            del A, B, C
+    return out
+
+
+SPLIT_MIXES = (
+    # (label, format-set key, ratio_high, ratio_low8) of every map
+    ("split2 50D50S", "fp8_e4m3+bf16+split2_fp16", 0.5, 0.0),
+    ("split3 50D50S", "fp8_e4m3+bf16+split3_e5m2", 0.5, 0.0),
+    ("split2 40D40S20Q-int8", "int8_pt+bf16+split2_fp16", 0.4, 0.2),
+)
+
+
+def check_split(gen) -> dict:
+    """The split kernel against its plain version over the SPLIT_MIXES,
+    then its slices bit for bit: with B = I and C = 0 every dot is exact,
+    so a split C tile's output is the fp32 sum of A's slices, bitwise."""
+    import torch
+    from repro_torch.core.formats import FormatSet, split_slices
+    from repro_torch.core.layout import MPMatrix
+    from repro_torch.kernels import split_gemm as SG
+    from repro_torch.split import recombine, split_format_specs
+    out = {}
+    size, t = SPLIT_SIZE, TILE
+    for label, fkey, hi, q in SPLIT_MIXES:
+        fs, (A, B, C), maps = tile_case(size, t, fkey, hi, q, gen, seed0=31)
+        err, ratio = kernel_vs_plain("split", A, B, C, 1.5, 0.5)
+        print(f"split {size}^3 t={t} {label} [{fkey}]: max|kernel-plain| "
+              f"{err:.3e}, worst/allowance {ratio:.3e} (split classes: "
+              "2*K*s^2*2^-24*(|a|*sum|A slices|*sum|B slices|+|b||C|) + "
+              "two split round trips; others as the tile kernel)")
+        if not ratio <= 1.0:
+            fail(f"split {label} outside tolerance")
+        out[label] = err
+        del A, B, C
+    for fkey in ("fp8_e4m3+bf16+split2_fp16", "fp8_e4m3+bf16+split3_e5m2"):
+        fs = FormatSet.from_key(fkey)
+        mt = size // t
+        a = torch.randn((size, size), generator=gen, device=DEVICE) * (
+            10.0 ** torch.randint(-7, 4, (size, 1), generator=gen,
+                                  device=DEVICE).float())
+        hi = np.full((mt, mt), fs.high, np.int8)
+        A = MPMatrix.from_dense(a, hi, t, fs)
+        B = MPMatrix.from_dense(torch.eye(size, device=DEVICE), hi, t, fs)
+        C = MPMatrix.from_dense(torch.zeros((size, size), device=DEVICE),
+                                hi, t, fs)
+        specs = split_format_specs(fs)
+        ok = SG.split_gemm_tile_multi(A.bufs, B.bufs, C.bufs, hi, hi, hi,
+                                      tile=t, specs=specs)
+        f = fs.fmt(fs.high)
+        want = recombine(split_slices(A.bufs[fs.high], f.slices,
+                                      f.slice_dtype))
+        sync()
+        same = torch.equal(ok[fs.high], want)
+        print(f"split slices {f.name} {size}^2 (B = I, |A| over 1e-7..1e3): "
+              f"kernel output == recombine(split_slices(A)) bitwise: {same}")
+        if not same:
+            fail(f"split kernel's {f.name} slices differ from split_slices")
+        del a, A, B, C, ok, want
+    return out
+
+
+def grouped_case(size, t, gen, seed0=41):
+    """Compact A, B and a C map at 50D50S on the default format set, plus
+    the same operands as MPMatrix (for the allowance)."""
+    import torch
+    from repro_torch.core.formats import DEFAULT_FORMATS as FS
+    from repro_torch.core.layout import CompactMPMatrix, MPMatrix
+    from repro_torch.core.precision import Policy, make_map
+    maps = [make_map((size, size), t, Policy("ratio", 0.5, 0.0,
+                                             seed=seed0 + s), fset=FS)
+            for s in range(3)]
+    dense = [torch.randn((size, size), generator=gen, device=DEVICE)
+             for _ in range(2)]
+    comp = [CompactMPMatrix.from_dense(d, p, t, FS)
+            for d, p in zip(dense, maps)]
+    mp = [MPMatrix.from_dense(d, p, t, FS) for d, p in zip(dense, maps)]
+    return comp, mp, maps
+
+
+def check_grouped(gen) -> dict:
+    import torch
+    from repro_torch.core.layout import MPMatrix
+    size, t = SPLIT_SIZE, TILE
+    _, (Am, Bm), maps = grouped_case(size, t, gen)
+    C = MPMatrix.from_dense(torch.zeros((size, size), device=DEVICE),
+                            maps[2], t, Am.fset)
+    err, ratio = kernel_vs_plain("grouped", Am, Bm, C)
+    print(f"grouped {size}^3 t={t} 50D50S: max|kernel-plain| {err:.3e}, "
+          f"worst/allowance {ratio:.3e} (2*K*2^-24*|A||B| + one output "
+          "rounding); one launch for every output class")
+    if not ratio <= 1.0:
+        fail("grouped kernel outside tolerance")
+    return {"err": err}
+
+
+def convert_input(gen):
+    """fp32 [CONVERT_SIZE]^2 spanning 1e-12..1e6 (subnormal, overflow and
+    e4m3-NaN ranges of every target) plus the rounding edge cases."""
+    import torch
+    n = CONVERT_SIZE
+    x = torch.randn((n, n), generator=gen, device=DEVICE) * (
+        10.0 ** (torch.rand((n, n), generator=gen, device=DEVICE) * 18
+                 - 12))
+    edges = torch.tensor(
+        [0.0, -0.0, 448.0, 464.0, 464.01, -480.0, 57344.0, 61439.99,
+         61440.0, 65504.0, 65520.0, 1e5, float("inf"), -float("inf"),
+         float("nan"), 2.0 ** -16, 2.0 ** -17, 3 * 2.0 ** -17, 2.0 ** -24,
+         2.0 ** -25, 3 * 2.0 ** -25, 2.0 ** -133, 3e38], device=DEVICE)
+    x.view(-1)[: edges.numel()] = edges
+    return x
+
+
+def same_bits(got, want) -> bool:
+    """Bitwise equal where ``want`` is a number, NaN where it is NaN
+    (NaN payloads differ between PyTorch's and CUDA's casts)."""
+    import torch
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    nan = torch.isnan(want.float())
+    if not torch.equal(torch.isnan(got.float()), nan):
+        return False
+    g = got.view(ints[got.element_size()])
+    w = want.view(ints[want.element_size()])
+    return torch.equal(torch.where(nan, torch.zeros_like(g), g),
+                       torch.where(nan, torch.zeros_like(w), w))
+
+
+def check_convert(gen) -> dict:
+    import torch
+    from repro_torch.kernels import convert as CV
+    x = convert_input(gen)
+    out = {}
+    for dt in CV.OUT_DTYPES:
+        got = CV.convert(x, dt)
+        want = CV.convert_plain(x, dt)
+        sync()
+        ok = same_bits(got, want)
+        g, w = got.float(), want.float()
+        differ = ~(torch.isnan(g) | torch.isnan(w)) & (g != w)
+        err = float(torch.where(differ, (g - w).abs(), 0.0).nan_to_num(
+            float("inf")).max())
+        print(f"convert {CONVERT_SIZE}^2 fp32 -> {dt}: bitwise equal to the "
+              f"plain cast (NaN where it is NaN): {ok}; max|kernel-plain| "
+              f"over numbers {err}")
+        if not ok:
+            fail(f"convert to {dt} differs from its plain version")
+        out[str(dt)] = err
+        del got, want, g, w, differ
     return out
 
 
@@ -236,7 +449,7 @@ def check_tile(gen) -> dict:
 # phase 3: mp_matmul through dispatch
 # ---------------------------------------------------------------------------
 
-def check_mp_matmul(gen) -> dict:
+def check_mp_matmul(gen) -> None:
     import torch
     from repro_torch.core.accuracy import check_against_fp64
     from repro_torch.core.formats import DEFAULT_FORMATS as FS
@@ -267,7 +480,43 @@ def check_mp_matmul(gen) -> dict:
           f"fp64 worst/bound per C class {rep['worst_ratio']}")
     if not rep["ok"]:
         fail(f"mp_matmul outside the fp64 error bounds: {rep}")
-    return {"launches": launches}
+
+
+def check_mp_matmul_split(gen) -> None:
+    """``mp_matmul`` with split C classes: dispatch must pick ``split`` and
+    the split kernel must launch, inside the fp64 error bounds."""
+    import torch
+    from repro_torch.core.accuracy import check_against_fp64
+    from repro_torch.core.formats import DEFAULT_FORMATS
+    from repro_torch.core.layout import MPMatrix
+    from repro_torch.core.precision import Policy, make_map
+    from repro_torch.kernels import ops
+    from repro_torch.split import split_variant
+    from repro_torch.tune import dispatch as D
+    fs = split_variant(DEFAULT_FORMATS)
+    n, t = TILE_SIZES[0], TILE
+    dense = [torch.randn((n, n), generator=gen, device=DEVICE)
+             for _ in range(3)]
+    maps = [make_map((n, n), t, Policy("ratio", 0.4, 0.2, seed=s), fset=fs)
+            for s in (14, 15, 16)]
+    A, B, C = (MPMatrix.from_dense(d, p, t, fs) for d, p in zip(dense, maps))
+    prob = D.problem_of(A, B, C, beta=0.5)
+    plan, _ = D.resolve_plan(prob, D.detect_device(A.device))
+    if plan.path != "split":
+        fail(f"mp_matmul with split C classes resolved {plan.path!r}")
+    ops.reset_launch_counts()
+    out = D.mp_matmul(A, B, C, beta=0.5)
+    sync()
+    launches = ops.launch_counts()["split_gemm"]
+    if launches < 1:
+        fail("mp_matmul did not launch the split kernel")
+    rep = check_against_fp64(out.to_dense().cpu().numpy(),
+                             dense[0].cpu().numpy(), dense[1].cpu().numpy(),
+                             dense[2].cpu().numpy(), *maps, t, fs, beta=0.5)
+    print(f"mp_matmul {n}^3 [{fs.key()}] plan={plan.key()} split launches="
+          f"{launches} fp64 worst/bound per C class {rep['worst_ratio']}")
+    if not rep["ok"]:
+        fail(f"split mp_matmul outside the fp64 error bounds: {rep}")
 
 
 # ---------------------------------------------------------------------------
@@ -399,7 +648,204 @@ def param_bytes(params) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timings beside bounds
+# phase 5: the refinement solver
+# ---------------------------------------------------------------------------
+
+#: (label, SolveConfig overrides, the kernel its GEMMs must launch)
+SOLVES = (("store", {}, "mp_gemm_tile"),
+          ("split", {"compute_escalation": "split"}, "split_gemm"),
+          ("grouped", {"residual_path": "grouped"}, "grouped_gemm"))
+
+
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler``; returns its result and the
+    device time it caused: kernels, memory copies, their sum and the top
+    rows by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    rows = [(e.key, e.self_device_time_total / 1e6)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    copy_s = sum(sec for name, sec in rows if "memcpy" in name.lower()
+                 or "memset" in name.lower())
+    busy_s = sum(sec for _, sec in rows)
+    return out, {"busy_s": busy_s, "copy_s": copy_s,
+                 "kernel_s": busy_s - copy_s, "top": rows[:6]}
+
+
+class SolveSpy:
+    """Wraps ``dispatch.mp_matmul`` while a solve runs and keeps the
+    operands of its last step-0 trailing update (K = t, M = N = n - t) and
+    of its last residual GEMM (M = K = n, N = the padded RHS width), with
+    the path of the plan each ran under — the operands of the last
+    factorization and sweep, after any escalation."""
+
+    def __init__(self, n: int):
+        from repro_torch.tune import dispatch as D
+        self.D, self.real, self.n, self.seen = D, D.mp_matmul, n, {}
+
+    def __enter__(self):
+        def spy(a, b, c=None, *, alpha=1.0, beta=0.0, plan=None):
+            if plan is None:
+                fail("the solve ran a GEMM without a prefetched plan")
+            if a.shape[1] == self.n:
+                self.seen["residual"] = (a, b, c, alpha, beta, plan.path)
+            elif a.shape[0] == self.n - a.tile:
+                self.seen["trailing"] = (a, b, c, alpha, beta, plan.path)
+            return self.real(a, b, c, alpha=alpha, beta=beta, plan=plan)
+        self.D.mp_matmul = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.D.mp_matmul = self.real
+
+
+def solve_phase() -> dict:
+    """Three solves of graded_spd(SOLVE_N) at tile 128 from 0D:100S at
+    SOLVE_TOL.  Each must escalate (promotion, re-quantization and
+    refactorization run on the card), converge on the fp64 HPL-MxP metric
+    with a forward error at most FORWARD_TOL and no fresh mid-solve
+    resolution, and launch its kernel and the convert kernel (the split
+    solve no other GEMM kernel).  Then the kernel of each captured
+    trailing update and residual GEMM is held to its plain version on
+    those operands."""
+    from repro_torch.kernels import ops
+    from repro_torch.solve import (SolveConfig, graded_spd,
+                                   rhs_for_solution, solve)
+    from repro_torch.tune import dispatch as D
+    t0 = time.perf_counter()
+    a = graded_spd(SOLVE_N, cond=1e4, rho=0.9, seed=0)
+    xt, b = rhs_for_solution(a, nrhs=1, seed=1)
+    print(f"solve: graded_spd n={SOLVE_N} cond=1e4 rho=0.9, nrhs 1, tile "
+          f"{TILE}, start 0D:100S, LU, tol {SOLVE_TOL} (operator built in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    out = {}
+    for label, kw, kernel in SOLVES:
+        cfg = SolveConfig(tile=TILE, ratio_high=0.0, ratio_low8=0.0,
+                          tol=SOLVE_TOL, **kw)
+        d0 = D.dispatch_counts()
+        with SolveSpy(SOLVE_N) as spy:
+            ops.reset_launch_counts()
+            if label == "store":
+                rep, busy = profiled(lambda: solve(a, b, cfg, device=DEVICE))
+            else:
+                rep = solve(a, b, cfg, device=DEVICE)
+            sync()
+            launches = ops.launch_counts()
+        d1 = D.dispatch_counts()
+        paths = {p: v - d0.get(p, 0) for p, v in d1.items()
+                 if v != d0.get(p, 0)}
+        err = forward_error(rep.x, xt)
+        share = rep.trail_copy_seconds / max(rep.factor_seconds, 1e-12)
+        print(f"solve {label}: converged={rep.converged} sweeps "
+              f"{rep.sweeps} escalations {rep.escalations} factorizations "
+              f"{rep.factorizations} mode {rep.compute_mode}; metric "
+              f"history {[float(f'{v:.3g}') for v in rep.metric_history]} "
+              f"(tol {cfg.tol}), forward err {err:.3g} (limit "
+              f"{FORWARD_TOL}); map {' -> '.join(rep.ratio_history)} "
+              f"({rep.storage_bytes} B vs {rep.uniform_high_bytes} B "
+              "uniform HIGH)")
+        print(f"solve {label}: total {rep.total_seconds:.2f} s, GEMM "
+              f"{rep.gemm_seconds:.2f} s, factorizations "
+              f"{rep.factor_seconds:.2f} s of which trailing-update host "
+              f"copies {rep.trail_copy_seconds:.2f} s ({share:.1%}); "
+              f"sweeps {[round(v, 3) for v in rep.sweep_seconds]} s; fresh "
+              f"resolutions {rep.fresh_resolutions}; dispatch {paths}; "
+              f"kernel launches {launches}")
+        if label == "store":
+            idle = 1 - busy["busy_s"] / rep.total_seconds
+            print(f"solve store, profiled: device busy {busy['busy_s']:.3f} s "
+                  f"of {rep.total_seconds:.2f} s wall (kernels "
+                  f"{busy['kernel_s']:.3f} s, copies {busy['copy_s']:.3f} "
+                  f"s), idle share {idle:.1%}")
+            for name, sec in busy["top"]:
+                print(f"solve store, profiled: {sec * 1e3:9.2f} ms  "
+                      f"{name[:90]}")
+        if not (rep.converged and rep.metric <= cfg.tol):
+            fail(f"solve {label} did not converge: {rep.metric_history}")
+        if rep.escalations < 1:
+            fail(f"solve {label} converged without escalating")
+        if not err <= FORWARD_TOL:
+            fail(f"solve {label}: forward error {err:.3g} > {FORWARD_TOL}")
+        if rep.fresh_resolutions:
+            fail(f"solve {label}: {rep.fresh_resolutions} fresh mid-solve "
+                 "plan resolutions")
+        for k in (kernel, "convert"):
+            if launches[k] < 1:
+                fail(f"solve {label} never launched the {k} kernel")
+        if label == "split" and (set(paths) != {"split"} or any(
+                v for k, v in launches.items()
+                if k not in (kernel, "convert"))):
+            fail(f"the split solve ran GEMMs off the split kernel: {paths}, "
+                 f"{launches}")
+        for kind in ("trailing", "residual"):
+            A, B, C, alpha, beta, path = spy.seen[kind]
+            e, ratio = kernel_vs_plain(path, A, B, C, alpha, beta)
+            print(f"solve {label} {kind} GEMM {A.shape[0]}x{A.shape[1]} . "
+                  f"{B.shape[0]}x{B.shape[1]} [{path}]: max|kernel-plain| "
+                  f"{e:.3e}, worst/allowance {ratio:.3e}")
+            if not ratio <= 1.0:
+                fail(f"solve {label}: the {path} kernel's {kind} GEMM is "
+                     "outside tolerance")
+        out[label] = {"launches": launches[kernel],
+                      "convert_launches": launches["convert"],
+                      "seconds": rep.total_seconds}
+        del spy
+    return out
+
+
+def forward_error(x, xt) -> float:
+    return float(np.abs(x - xt).max() / np.abs(xt).max())
+
+
+def parity_phase() -> None:
+    """The three solves at PARITY_N on the card and again on the CPU with
+    the kernels' plain versions under the same device spec: every
+    decision (converged, sweeps, escalations, factorizations, final map)
+    must be equal and the solutions must agree to PARITY_X_TOL."""
+    from repro_torch.solve import (SolveConfig, graded_spd,
+                                   rhs_for_solution, solve)
+    from repro_torch.tune.device import DEVICE_ENV
+    a = graded_spd(PARITY_N, cond=1e4, rho=0.9, seed=0)
+    xt, b = rhs_for_solution(a, nrhs=1, seed=1)
+    for label, kw, _ in SOLVES:
+        cfg = SolveConfig(tile=TILE, tol=SOLVE_TOL, **kw)
+        card = solve(a, b, cfg, device=DEVICE)
+        prev = os.environ.get(DEVICE_ENV)
+        os.environ[DEVICE_ENV] = "gpu-h100"    # the card's plans, on CPU
+        try:
+            host = solve(a, b, cfg, device="cpu")
+        finally:
+            if prev is None:
+                del os.environ[DEVICE_ENV]
+            else:
+                os.environ[DEVICE_ENV] = prev
+        keys = ("converged", "sweeps", "escalations", "factorizations",
+                "compute_mode")
+        same = all(getattr(card, k) == getattr(host, k) for k in keys) and (
+            np.array_equal(card.final_map, host.final_map))
+        dx = forward_error(card.x, host.x)
+        print(f"parity {label} n={PARITY_N}: card sweeps {card.sweeps} "
+              f"escalations {card.escalations} map {card.final_ratio} "
+              f"forward err {forward_error(card.x, xt):.3g}; decisions "
+              f"equal to the CPU solve: {same}; max|x_card - x_cpu| / "
+              f"max|x_cpu| {dx:.3g} (limit {PARITY_X_TOL})")
+        if not same:
+            fail(f"parity {label}: decisions differ, card "
+                 f"{[getattr(card, k) for k in keys]} vs CPU "
+                 f"{[getattr(host, k) for k in keys]}")
+        if not dx <= PARITY_X_TOL:
+            fail(f"parity {label}: solutions differ by {dx:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: timings beside bounds
 # ---------------------------------------------------------------------------
 
 def time_ksplit(gen, policy) -> list[dict]:
@@ -470,6 +916,93 @@ def time_tile(gen) -> dict:
             "bound_by": by, "library_ms": lib_ms}
 
 
+def _ops_bound_s(pc, t, k, fs) -> float:
+    """Σ over C classes of 2·(class tiles)·t²·K·slices² over the peak of
+    the dtype the class's passes run on (fp32 67, bf16/fp16 989 TFLOP/s)."""
+    total = 0.0
+    for c in np.unique(pc):
+        f = fs.fmt(int(c))
+        s = getattr(f, "slices", 1)
+        total += (2.0 * int((pc == c).sum()) * t * t * k * s * s
+                  / peak_for(f.compute_dtype))
+    return total
+
+
+def _bound(nbytes, ops_s) -> tuple[float, str]:
+    by = "bytes" if nbytes / PEAK_BYTES_S >= ops_s else "operations"
+    return max(nbytes / PEAK_BYTES_S, ops_s) * 1e3, by
+
+
+def time_split(gen) -> dict:
+    import torch
+    from repro_torch.core.precision import map_storage_bytes
+    from repro_torch.kernels import split_gemm as SG
+    from repro_torch.split import split_format_specs
+    size, t = SPLIT_SIZE, TILE
+    label, fkey, hi, q = SPLIT_MIXES[0]
+    fs, (A, B, C), maps = tile_case(size, t, fkey, hi, q, gen, seed0=51)
+    specs = split_format_specs(fs)
+    ms = time_ms(lambda: SG.split_gemm_tile_multi(
+        A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs), iters=10)
+    plain_ms = time_ms(lambda: SG.split_gemm_plain(
+        A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs), iters=3)
+    a32, b32 = A.to_dense(), B.to_dense()
+    lib_ms = time_ms(lambda: torch.matmul(a32, b32), iters=10)
+    nbytes = (sum(map_storage_bytes(p, t, fs) for p in maps)
+              + sum(size * size * torch.empty((), dtype=sp[2]).element_size()
+                    for sp in specs))
+    bound_ms, by = _bound(nbytes, _ops_bound_s(maps[2], t, size, fs))
+    print(f"time split {size}^3 t={t} {label}: kernel {ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({by}), plain {plain_ms:.3f} ms, "
+          f"torch.matmul fp32 (TF32 off) {lib_ms:.3f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def time_grouped(gen) -> dict:
+    import torch
+    from repro_torch.core.precision import map_storage_bytes
+    from repro_torch.kernels import grouped_gemm as GG
+    size, t = SPLIT_SIZE, TILE
+    (A, B), (Am, Bm), maps = grouped_case(size, t, gen, seed0=61)
+    ms = time_ms(lambda: GG.grouped_mp_gemm(A, B, maps[2]), iters=10)
+    plain_ms = time_ms(lambda: GG.grouped_gemm_plain(A, B, maps[2]),
+                       iters=5)
+    a16 = Am.to_dense().to(torch.bfloat16)
+    b16 = Bm.to_dense().to(torch.bfloat16)
+    lib_ms = time_ms(lambda: torch.matmul(a16, b16), iters=10)
+    nbytes = (A.storage_bytes() + B.storage_bytes()
+              + map_storage_bytes(maps[2], t, A.fset))
+    bound_ms, by = _bound(nbytes, _ops_bound_s(maps[2], t, size, A.fset))
+    print(f"time grouped {size}^3 t={t} 50D50S: kernel {ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({by}), plain {plain_ms:.3f} ms, torch.matmul "
+          f"bf16 {lib_ms:.3f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def time_convert(gen) -> dict:
+    """Every output dtype; the bf16 row is the one the kernels line
+    carries."""
+    import torch
+    from repro_torch.kernels import convert as CV
+    x = torch.randn((CONVERT_SIZE, CONVERT_SIZE), generator=gen,
+                    device=DEVICE)
+    rows = {}
+    for dt in CV.OUT_DTYPES:
+        ms = time_ms(lambda: CV.convert(x, dt))
+        plain_ms = time_ms(lambda: CV.convert_plain(x, dt))
+        lib_ms = time_ms(lambda: x.to(dt))
+        nbytes = x.numel() * (4 + torch.empty((), dtype=dt).element_size())
+        bound_ms, by = _bound(nbytes, 0.0)
+        print(f"time convert {CONVERT_SIZE}^2 fp32 -> {dt}: kernel "
+              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms, x.to(dtype) {lib_ms:.4f} ms")
+        rows[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": lib_ms}
+    return rows[torch.bfloat16]
+
+
 def main() -> None:
     try:
         import torch
@@ -492,6 +1025,13 @@ def main() -> None:
     smi = smi_line()
     print(f"card: {smi}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+    from repro_torch.tune.device import detect_device
+    spec = detect_device(torch.device(DEVICE)).kind
+    print(f"device spec: {spec} (compute capability "
+          f"{torch.cuda.get_device_capability(0)})")
+    if spec != "gpu-h100":
+        fail(f"dispatch resolved the spec {spec!r}, not 'gpu-h100': the "
+             "kernels would not run")
 
     t0 = time.perf_counter()
     ops.ensure_built()
@@ -505,12 +1045,21 @@ def main() -> None:
     policy = Policy(kind="ratio", ratio_high=0.5)   # InternLM2's default
     ks_err = check_ksplit(gen, policy)
     tile_err = check_tile(gen)
-    mm = check_mp_matmul(gen)
+    split_err = check_split(gen)
+    gr = check_grouped(gen)
+    cv_err = check_convert(gen)
+    check_mp_matmul(gen)
+    check_mp_matmul_split(gen)
     from repro_torch.configs import get
     cfg = get("internlm2-1.8b")
     sv = serve(cfg)
+    sol = solve_phase()
+    parity_phase()
     ks_rows = time_ksplit(gen, policy)
     tl = time_tile(gen)
+    sp = time_split(gen)
+    gt = time_grouped(gen)
+    cv = time_convert(gen)
 
     main_row = next(r for r in ks_rows if (r["m"], r["n"]) == (4, 8192))
     kernels = [
@@ -525,11 +1074,27 @@ def main() -> None:
         {"name": "mp_gemm_tile", "route": "cuda",
          "source": "src/repro_torch/csrc/mp_gemm_tile.cu",
          "replaces": "src/repro/kernels/mp_gemm_tile.py:121",
-         "launches": mm["launches"],
+         "launches": sol["store"]["launches"],
          "max_abs_err": max(tile_err.values()),
          "ms": tl["ms"], "plain_ms": tl["plain_ms"],
          "bound_ms": tl["bound_ms"], "bound_by": tl["bound_by"],
          "library_ms": tl["library_ms"]},
+        {"name": "split_gemm", "route": "cuda",
+         "source": "src/repro_torch/csrc/split_gemm.cu",
+         "replaces": "src/repro/kernels/split_gemm.py:117",
+         "launches": sol["split"]["launches"],
+         "max_abs_err": max(split_err.values()), **sp},
+        {"name": "grouped_gemm", "route": "cuda",
+         "source": "src/repro_torch/csrc/grouped_gemm.cu",
+         "replaces": "src/repro/kernels/grouped_gemm.py:119",
+         "launches": sol["grouped"]["launches"],
+         "max_abs_err": gr["err"], **gt},
+        # the layouts' storage casts on the card: every solve's operands
+        {"name": "convert", "route": "cuda",
+         "source": "src/repro_torch/csrc/convert.cu",
+         "replaces": "src/repro/kernels/convert.py:23",
+         "launches": sum(v["convert_launches"] for v in sol.values()),
+         "max_abs_err": max(cv_err.values()), **cv},
     ]
     print(f"serve tokens/s {sv['tokens_per_s']:.2f}; ksplit launches per "
           f"model step {sv['launches_per_step']:.1f}; total "

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["bridge", "configs", "core", "kernels", "models", "obs", "serve",
-           "tune"]
+__all__ = ["bridge", "configs", "core", "kernels", "launch", "models", "obs",
+           "serve", "solve", "split", "tune"]
 
 
 def __getattr__(name):

@@ -7,6 +7,9 @@ fp64 twin of ``repro.core.accuracy``).
 ``u`` is the unit roundoff of each format (storage or compute), taken
 from the port's format registry.  Per-tile-scaled integer classes widen
 the error scale to per-tile absmax envelopes.
+
+The refinement solver's oracles live here too: the HPL-MxP acceptance
+metric and the per-tile residual attribution that decides promotion.
 """
 from __future__ import annotations
 
@@ -63,6 +66,79 @@ def _tile_max_envelope(x_abs: np.ndarray, cls_map: np.ndarray, tile: int,
             if blk.size:
                 blk[...] = blk.max()
     return out
+
+
+def error_scale(a: np.ndarray, b: np.ndarray, c: np.ndarray | None = None,
+                beta: float = 0.0) -> np.ndarray:
+    """Per-element magnitude the relative bounds scale by:
+    (|A|·|B|)(i,j) + |β|·|C|(i,j), computed in fp64."""
+    s = np.abs(np.asarray(a, np.float64)) @ np.abs(np.asarray(b, np.float64))
+    if beta and c is not None:
+        s = s + abs(beta) * np.abs(np.asarray(c, np.float64))
+    return s
+
+
+def hpl_mxp_metric(a_exact: np.ndarray, x: np.ndarray, b: np.ndarray,
+                   fset: FormatSet = DEFAULT_FORMATS) -> float:
+    """HPL-MxP acceptance metric ``||Ax-b||_inf / (||A||_inf·||x||_inf·n·u)``
+    in fp64 against the exact operator; ``u`` is the HIGH role's storage
+    roundoff."""
+    a64 = np.asarray(a_exact, np.float64)
+    x64 = np.asarray(x, np.float64)
+    b64 = np.asarray(b, np.float64)
+    r = np.abs(a64 @ x64 - b64).max()
+    u = fset.fmt(fset.high).storage_roundoff()
+    denom = (np.abs(a64).sum(axis=1).max()
+             * np.abs(x64).max() * a64.shape[0] * u)
+    return float(r / max(denom, 1e-300))
+
+
+def tile_rounding_contribution(a_exact: np.ndarray, a_stored: np.ndarray,
+                               x: np.ndarray, tile: int) -> np.ndarray:
+    """Per-tile worst-row share of the storage-rounding residual
+    ``Σ_j |A-Â|[ti, tj]·|x|[tj]`` as an ``[mt, nt]`` matrix (fp64).  A
+    tile whose storage overflowed (NaN or inf) counts as a huge finite
+    error, so it dominates every budget."""
+    d = np.abs(np.asarray(a_exact, np.float64)
+               - np.asarray(a_stored, np.float64))
+    d = np.nan_to_num(d, nan=1e300, posinf=1e300)
+    xa = np.abs(np.asarray(x, np.float64))
+    if xa.ndim == 1:
+        xa = xa[:, None]
+    m, n = d.shape
+    mt, nt = m // tile, n // tile
+    per_row = np.empty((m, nt))
+    for j in range(nt):
+        per_row[:, j] = (d[:, j * tile:(j + 1) * tile]
+                         @ xa[j * tile:(j + 1) * tile]).max(axis=1)
+    return per_row.reshape(mt, tile, nt).max(axis=1)
+
+
+def escalation_threshold(a_exact: np.ndarray, x: np.ndarray, tile: int,
+                         fset: FormatSet = DEFAULT_FORMATS,
+                         safety: float = DEFAULT_SAFETY) -> np.ndarray:
+    """Per-tile residual budget ``safety · u_high · (|A|·|x|)/nt``."""
+    a64 = np.abs(np.asarray(a_exact, np.float64))
+    xa = np.abs(np.asarray(x, np.float64))
+    if xa.ndim == 1:
+        xa = xa[:, None]
+    m, n = a64.shape
+    mt, nt = m // tile, n // tile
+    u_high = fset.fmt(fset.high).storage_roundoff()
+    row_scale = (a64 @ xa).max(axis=1)
+    tile_rows = row_scale.reshape(mt, tile).max(axis=1)
+    return safety * u_high * np.repeat(tile_rows[:, None], nt, axis=1) / nt
+
+
+def promotion_mask(a_exact: np.ndarray, a_stored: np.ndarray, x: np.ndarray,
+                   cls_map: np.ndarray, tile: int,
+                   fset: FormatSet = DEFAULT_FORMATS,
+                   safety: float = DEFAULT_SAFETY) -> np.ndarray:
+    """``[mt, nt]`` mask of tiles whose rounding contribution exceeds
+    their budget and that still have a higher role to escalate to."""
+    contrib = tile_rounding_contribution(a_exact, a_stored, x, tile)
+    budget = escalation_threshold(a_exact, x, tile, fset, safety)
+    return (contrib > budget) & (np.asarray(cls_map) < fset.high)
 
 
 def check_against_fp64(out_dense, a, b, c, pa: np.ndarray, pb: np.ndarray,

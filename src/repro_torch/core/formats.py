@@ -18,8 +18,9 @@ saturates to ±448, while the reference yields NaN for ``|x| > 464`` (and
 for ±inf).  :func:`cast_storage` writes that NaN explicitly — the
 accuracy oracle and the refinement solver treat it as infinite error.
 
-The compound split formats (``split2_fp16``, ``split3_e5m2``) arrive with
-the split kernel.
+The compound split formats (``split2_fp16``, ``split3_e5m2``) store one
+value as a sum of slices of a narrow dtype (:func:`split_slices`); their
+layout buffers mirror the recombined value in fp32.
 """
 from __future__ import annotations
 
@@ -226,6 +227,78 @@ FP8_E5M2 = register_format(
 FP16 = register_format(
     name="fp16", storage_dtype=torch.float16, compute_dtype=torch.float16,
     bytes_per_elem=2, pass_cost={"default": 1.0}, short="S")
+
+
+# ---------------------------------------------------------------------------
+# Compound split formats (Ozaki/Ootomo-style split accumulation)
+# ---------------------------------------------------------------------------
+
+def split_slices(x: torch.Tensor, slices: int, slice_dtype: torch.dtype
+                 ) -> tuple[torch.Tensor, ...]:
+    """Deterministic hi→lo operand split: slice *i* is the ``slice_dtype``
+    rounding of the residual left by slices ``0..i-1``.  For fp16 slices
+    the pairwise slice products are exact in fp32 (11-bit × 11-bit
+    significands fit in 24 bits)."""
+    rest = x.float()
+    out = []
+    for _ in range(slices):
+        s = rest.to(slice_dtype)
+        out.append(s)
+        rest = rest - s.float()
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitFormat(PrecisionFormat):
+    """A compound format: one logical value stored as ``slices``
+    precision-recovery slices of ``slice_dtype``.  Layout buffers mirror
+    the recombined value in fp32; compute is ``slices²`` low-precision
+    passes accumulated in fp32, and the recovered unit roundoff is
+    ``2^-(slices·(nmant+1))``."""
+
+    slices: int = 2
+    slice_dtype: torch.dtype = torch.float16
+
+    @property
+    def buffer_dtype(self) -> torch.dtype:
+        return torch.float32
+
+    def encode(self, x: torch.Tensor, *, tile: int | None = None
+               ) -> QuantizedTile:
+        """Payload is the fp32 recombination of the slice expansion."""
+        parts = split_slices(x, self.slices, self.slice_dtype)
+        out = parts[0].float()
+        for s in parts[1:]:
+            out = out + s.float()
+        return QuantizedTile(out)
+
+    def recovered_roundoff(self) -> float:
+        return unit_roundoff(self.slice_dtype) ** self.slices
+
+    def storage_roundoff(self) -> float:
+        return self.recovered_roundoff()
+
+    def operational_roundoff(self) -> float:
+        return self.recovered_roundoff()
+
+    def signature(self) -> str:
+        return (f"{super().signature()}:split{self.slices}x"
+                f"{dtype_name(self.slice_dtype)}")
+
+
+#: 2×fp16 split: 4 fp16 passes recover fp32-grade accuracy (2^-22).
+SPLIT2_FP16 = register_format(SplitFormat(
+    name="split2_fp16", storage_dtype=torch.float32,
+    compute_dtype=torch.float16, bytes_per_elem=4,
+    pass_cost={"default": 4.0, "gpu": 1.0, "cpu": 1.25},
+    short="D", slices=2, slice_dtype=torch.float16))
+
+#: 3×fp8 e5m2 split: 9 passes at bf16 recover ~bf16-grade accuracy (2^-9).
+SPLIT3_E5M2 = register_format(SplitFormat(
+    name="split3_e5m2", storage_dtype=torch.float32,
+    compute_dtype=torch.bfloat16, bytes_per_elem=3,
+    pass_cost={"default": 9.0, "gpu": 2.25, "cpu": 4.5},
+    short="D", slices=3, slice_dtype=torch.float8_e5m2))
 
 
 # ---------------------------------------------------------------------------

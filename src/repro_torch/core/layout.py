@@ -10,9 +10,12 @@ an explicit representation:
                      (most expensive format first), one buffer per format.
 * ``NSplitWeight`` — class map constant along K, split along N.
 
+* ``CompactMPMatrix`` — class-sorted compact tiles: ``tiles[code]`` holds
+                     that format's tiles only (the grouped kernel's
+                     operands).
+
 Class maps are host-side numpy int8 arrays; buffers are torch tensors on
-whatever device the dense source lived on.  ``CompactMPMatrix`` arrives
-with the grouped kernel.
+whatever device the dense source lived on.
 
 Every dot here follows one numeric rule (the port's fix for torch's
 low-precision ``@`` returning low precision): operands are rounded to the
@@ -30,6 +33,7 @@ import torch
 from repro_torch.core import precision as P
 from repro_torch.core.formats import (DEFAULT_FORMATS, FormatSet,
                                       PrecisionFormat)
+from repro_torch.kernels.convert import convert
 
 
 def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -63,6 +67,17 @@ def _pad_to(x: torch.Tensor, m: int, n: int) -> torch.Tensor:
     if pm or pn:
         x = torch.nn.functional.pad(x, (0, pn, 0, pm))
     return x
+
+
+def _to_buffer(fmt: PrecisionFormat, x: torch.Tensor, tile: int
+               ) -> torch.Tensor:
+    """``fmt.to_buffer(x)``.  On the card a plain float format's storage
+    cast is the convert kernel's (``csrc/convert.cu``, bit for bit the
+    reference's rounding); split and integer formats keep their own."""
+    if (x.is_cuda and type(fmt) is PrecisionFormat
+            and x.dtype != fmt.storage_dtype):
+        return convert(x.contiguous(), fmt.storage_dtype)
+    return fmt.to_buffer(x, tile=tile)
 
 
 def _check_codes(cls_map: np.ndarray, fset: FormatSet) -> np.ndarray:
@@ -102,12 +117,25 @@ class MPMatrix:
         wp = _pad_to(w.float(), mt * tile, nt * tile)
         sel = torch.from_numpy(expand_map(cls_map, tile)).to(w.device)
         bufs = tuple(
-            fset.fmt(code).to_buffer(
-                torch.where(sel == code, wp, torch.zeros_like(wp)),
-                tile=tile)
+            _to_buffer(fset.fmt(code),
+                       torch.where(sel == code, wp, torch.zeros_like(wp)),
+                       tile)
             for code in fset.codes)
         return cls(bufs, cls_map, tile, (int(w.shape[0]), int(w.shape[1])),
                    fset)
+
+    def requantize(self, new_map: np.ndarray,
+                   dense: torch.Tensor | None = None) -> "MPMatrix":
+        """Re-quantize under a new class map (same tile grid and format
+        set) — the refinement solver's escalation primitive.  ``dense`` is
+        the exact source, so a promoted tile recovers the bits its old
+        format dropped; without it the stored values are re-tiled."""
+        new_map = _check_codes(np.asarray(new_map), self.fset)
+        if new_map.shape != self.cls.shape:
+            raise ValueError(
+                f"new map {new_map.shape} != tile grid {self.cls.shape}")
+        src = self.to_dense() if dense is None else dense
+        return MPMatrix.from_dense(src, new_map, self.tile, self.fset)
 
     def padded_dense(self) -> torch.Tensor:
         """Padded fp32 view with per-tile storage rounding applied (the
@@ -130,6 +158,87 @@ class MPMatrix:
 
     def storage_bytes(self) -> int:
         return P.map_storage_bytes(self.cls, self.tile, self.fset)
+
+
+# ---------------------------------------------------------------------------
+# CompactMPMatrix — class-sorted compact tiles
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CompactMPMatrix:
+    """``tiles[code]`` holds that format's tiles as ``buffer_dtype[n_code,
+    t, t]``; ``slot[i, j]`` is the index of tile (i, j) inside its class
+    array (row-major order within each class).  Allocated bytes equal the
+    map's storage bytes."""
+
+    tiles: tuple[torch.Tensor, ...]
+    cls: np.ndarray                    # int8[mt, nt]
+    slot: np.ndarray                   # int32[mt, nt]
+    tile: int
+    shape: tuple[int, int]
+    fset: FormatSet = DEFAULT_FORMATS
+
+    @staticmethod
+    def make_slots(cls_map: np.ndarray) -> np.ndarray:
+        slot = np.zeros_like(cls_map, dtype=np.int32)
+        for c in np.unique(cls_map):
+            mask = cls_map == c
+            slot[mask] = np.arange(mask.sum(), dtype=np.int32)
+        return slot
+
+    @classmethod
+    def from_dense(cls, w: torch.Tensor, cls_map: np.ndarray, tile: int,
+                   fset: FormatSet = DEFAULT_FORMATS) -> "CompactMPMatrix":
+        cls_map = _check_codes(np.asarray(cls_map), fset)
+        mt, nt = cls_map.shape
+        wp = _pad_to(w.float(), mt * tile, nt * tile)
+        tiles = wp.reshape(mt, tile, nt, tile).permute(0, 2, 1, 3).reshape(
+            mt * nt, tile, tile)
+        flat_cls = cls_map.reshape(-1)
+        bufs = []
+        for code in fset.codes:
+            fmt = fset.fmt(code)
+            idx = np.nonzero(flat_cls == code)[0]
+            if not len(idx):
+                bufs.append(torch.zeros((0, tile, tile),
+                                        dtype=fmt.buffer_dtype,
+                                        device=w.device))
+                continue
+            sel = tiles.index_select(0, torch.from_numpy(idx).to(w.device))
+            bufs.append(_to_buffer(fmt, sel, tile))
+        return cls(tuple(bufs), cls_map, cls.make_slots(cls_map), tile,
+                   (int(w.shape[0]), int(w.shape[1])), fset)
+
+    def padded_dense(self) -> torch.Tensor:
+        """Padded fp32 matrix assembled tile by tile from the class
+        arrays."""
+        mt, nt = self.cls.shape
+        t = self.tile
+        dev = self.tiles[0].device
+        out = torch.zeros((mt * nt, t, t), dtype=torch.float32, device=dev)
+        flat_cls = self.cls.reshape(-1)
+        flat_slot = self.slot.reshape(-1)
+        for code, buf in enumerate(self.tiles):
+            idx = np.nonzero(flat_cls == code)[0]
+            if not len(idx):
+                continue
+            out[torch.from_numpy(idx).to(dev)] = buf.index_select(
+                0, torch.from_numpy(flat_slot[idx].astype(np.int64)).to(
+                    dev)).float()
+        return out.reshape(mt, nt, t, t).permute(0, 2, 1, 3).reshape(
+            mt * t, nt * t)
+
+    def to_dense(self) -> torch.Tensor:
+        return self.padded_dense()[: self.shape[0], : self.shape[1]]
+
+    def to_mpmatrix(self) -> MPMatrix:
+        return MPMatrix.from_dense(self.to_dense(), self.cls, self.tile,
+                                   self.fset)
+
+    def storage_bytes(self) -> int:
+        return int(sum(buf.numel() * self.fset.bytes_of(code)
+                       + buf.shape[0] * self.fset.meta_bytes_of(code)
+                       for code, buf in enumerate(self.tiles)))
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +307,7 @@ class KSplitWeight:
         for code in fset.codes:
             idx = torch.from_numpy(parts[code]).to(w.device)
             rows = wp.index_select(0, idx)
-            bufs.append(fset.fmt(code).to_buffer(rows, tile=tile))
+            bufs.append(_to_buffer(fset.fmt(code), rows, tile))
         return cls(tuple(bufs), k_cls, tile, (k, n), fset)
 
     def to_dense(self) -> torch.Tensor:
@@ -255,8 +364,8 @@ class NSplitWeight:
         start = 0
         for code in fset.class_order:
             stop = start + cols[code]
-            bufs[code] = fset.fmt(code).to_buffer(
-                wp[:, start:stop].contiguous(), tile=tile)
+            bufs[code] = _to_buffer(fset.fmt(code),
+                                    wp[:, start:stop].contiguous(), tile)
             start = stop
         return cls(tuple(bufs), n_cls, tile, (k, n), fset)
 

@@ -14,12 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.formats import SplitFormat
 from repro_torch.core.layout import MPMatrix, dot_at, expand_map
 
 
 def _class_dot(ad: torch.Tensor, bd: torch.Tensor, fmt) -> torch.Tensor:
     """One C-class dense dot at the class's operational precision:
-    operands rounded to the compute dtype, upcast, multiplied in fp32."""
+    operands rounded to the compute dtype, upcast, multiplied in fp32;
+    split compound formats expand to their slices² pair products."""
+    if isinstance(fmt, SplitFormat):
+        from repro_torch.split.recovery import split_dot_general
+        return split_dot_general(ad, bd, fmt)
     return dot_at(ad, bd, fmt)
 
 

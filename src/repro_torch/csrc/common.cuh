@@ -1,7 +1,9 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, loads that
 // upcast any storage dtype to fp32 exactly, rounding to a compute dtype,
 // and stores that round fp32 into a storage dtype with the reference's
-// semantics (round-to-nearest-even; fp8 e4m3 overflow -> NaN).
+// semantics (round-to-nearest-even; fp8 e4m3 overflow -> NaN, fp8 e5m2
+// and fp16 overflow -> inf).  Built without fast math, so no conversion
+// here flushes a subnormal to zero.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,6 +59,35 @@ __device__ __forceinline__ float round_to(float v, int ct) {
   return v;
 }
 
+// fp32 -> fp8 e5m2 bits, round-to-nearest-even, overflow to +-inf, NaN
+// to NaN: the integer algorithm of PyTorch's c10::Float8_e5m2 (so the
+// kernels round bit for bit like torch's and the reference's casts).
+__device__ __forceinline__ unsigned char e5m2_bits(float f) {
+  const unsigned int fp32_inf = 255u << 23;
+  const unsigned int fp8_max = 143u << 23;     // 2^16: rounds past 57344
+  const unsigned int denorm_mask = 134u << 23;
+  unsigned int bits = __float_as_uint(f);
+  const unsigned int sign = bits & 0x80000000u;
+  bits ^= sign;
+  unsigned char r;
+  if (bits >= fp8_max) {
+    r = bits > fp32_inf ? 0x7F : 0x7C;
+  } else if (bits < (113u << 23)) {             // below 2^-14: subnormal
+    const float d = __fadd_rn(__uint_as_float(bits), __uint_as_float(denorm_mask));
+    r = static_cast<unsigned char>(__float_as_uint(d) - denorm_mask);
+  } else {
+    const unsigned int odd = (bits >> 21) & 1u;
+    bits += (static_cast<unsigned int>(15 - 127) << 23) + 0xFFFFFu + odd;
+    r = static_cast<unsigned char>(bits >> 21);
+  }
+  return r | static_cast<unsigned char>(sign >> 24);
+}
+
+// The exact fp32 value of fp8 e5m2 bits (e5m2 is the top byte of fp16).
+__device__ __forceinline__ float e5m2_value(unsigned char b) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(b << 8)));
+}
+
 // Largest |v| that fp8 e4m3 rounds to a finite value (448 = max finite;
 // 464 rounds half-to-even down to it); above it the reference gives NaN.
 #define E4M3_NAN_ABOVE 464.0f
@@ -80,8 +111,7 @@ __device__ __forceinline__ void store_any(void* p, int dt, long long i, float v)
                     __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3));
       break;
     default:
-      reinterpret_cast<unsigned char*>(p)[i] = static_cast<unsigned char>(
-          __nv_cvt_float_to_fp8(v, __NV_NOSAT, __NV_E5M2));
+      reinterpret_cast<unsigned char*>(p)[i] = e5m2_bits(v);
       break;
   }
 }

@@ -1,0 +1,110 @@
+// Grouped GEMM over compact class-sorted tiles (CompactMPMatrix),
+// hand-written for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/grouped_gemm.py
+// (grouped_mp_gemm -> _grouped_class_call -> pallas_call, body _kernel):
+//
+//     C = A . B
+//
+// A and B arrive as one compact tile array per format (tiles[code] of
+// shape [n_code, t, t]) with class and slot maps; the output C map names
+// each C tile's class, and C comes back as one compact array per class,
+// slots in row-major order within the class (CompactMPMatrix.make_slots).
+// Each C tile is computed at its class's compute dtype (receiver-side
+// conversion), accumulated in fp32, and integer classes get one absmax
+// quantize-dequantize per tile.
+//
+// The TPU kernel fetched one candidate tile from every format buffer at
+// every k step and routed mismatched classes to an appended zero tile,
+// because a BlockSpec fetch cannot be skipped.  Here a block reads each
+// A(i,k) and B(k,j) tile once, from the array and slot its class maps
+// name: the bytes moved are the storage bytes.
+//
+// What bounds it on an H100: at 4096^3, t = 128 it does 137 GFLOP
+// against ~0.2 GB of compact tiles, so it is bound by operations, on
+// the fp32 pipes (the simple tile dot of tile_dot.cuh).
+//
+// Design: ONE launch for all output classes over a host-built work list
+// of (i, j, class, output slot), one block per C tile, the accumulator in
+// registers over the k loop.
+
+#include "tile_dot.cuh"
+
+constexpr int GR_MAX_NF = 3;
+
+struct GroupedArgs {
+  const void* a[GR_MAX_NF];   // [n_code, t, t] compact A tiles per code
+  const void* b[GR_MAX_NF];   // [n_code, t, t] compact B tiles per code
+  void* o[GR_MAX_NF];         // [n_out_code, t, t] outputs per code
+  const int* pa;              // [mt, kt] class map of A
+  const int* a_slot;          // [mt, kt] slot of each A tile in its array
+  const int* pb;              // [kt, nt]
+  const int* b_slot;          // [kt, nt]
+  const int* work;            // [n_work][4]: i, j, class, output slot
+  int adt[GR_MAX_NF];         // tile dtype codes
+  int bdt[GR_MAX_NF];
+  int odt[GR_MAX_NF];
+  int comp[GR_MAX_NF];        // compute dtype code per class
+  int qmax[GR_MAX_NF];        // > 0: per-tile-scaled integer class
+  int nf;
+  int kt, nt;
+  int n_work;
+};
+
+namespace {
+
+template <int T>
+__global__ void __launch_bounds__(Geo<T>::NTH)
+grouped_gemm_kernel(const GroupedArgs a) {
+  using G = Geo<T>;
+  __shared__ float smem[G::SIMPLE_SMEM / 4];
+  __shared__ float red[(G::NTH + 31) / 32];
+  constexpr long long TT = static_cast<long long>(T) * T;
+
+  const int* w = a.work + 4 * static_cast<long long>(blockIdx.x);
+  const int i = w[0], j = w[1], cls = w[2], slot = w[3];
+  const int tx = threadIdx.x % G::TDX, ty = threadIdx.x / G::TDX;
+
+  float acc[G::TMR][G::TMC];
+#pragma unroll
+  for (int r = 0; r < G::TMR; ++r)
+#pragma unroll
+    for (int q = 0; q < G::TMC; ++q) acc[r][q] = 0.0f;
+
+  for (int kk = 0; kk < a.kt; ++kk) {
+    const int ca = a.pa[i * a.kt + kk], sa = a.a_slot[i * a.kt + kk];
+    const int cb = a.pb[kk * a.nt + j], sb = a.b_slot[kk * a.nt + j];
+    dot_simple<T>(acc, smem, a.a[ca], a.adt[ca], sa * TT, T, a.b[cb], a.bdt[cb], sb * TT, T,
+                  a.comp[cls]);
+  }
+  if (a.qmax[cls] > 0) quantize_tile<T>(acc, a.qmax[cls], red);   // uniform per block
+
+  void* O = a.o[cls];
+  const int odt = a.odt[cls];
+#pragma unroll
+  for (int r = 0; r < G::TMR; ++r)
+#pragma unroll
+    for (int q = 0; q < G::TMC; ++q)
+      store_any(O, odt, slot * TT + (ty + G::TDY * r) * T + tx + G::TDX * q, acc[r][q]);
+}
+
+}  // namespace
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = ok).
+extern "C" int grouped_gemm_launch(const GroupedArgs* args, int tile, int device,
+                                   void* stream) {
+  const GroupedArgs a = *args;
+  if (a.nf < 1 || a.nf > GR_MAX_NF || a.kt < 1 || a.nt < 1 || a.n_work < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 16: grouped_gemm_kernel<16><<<a.n_work, Geo<16>::NTH, 0, st>>>(a); break;
+    case 32: grouped_gemm_kernel<32><<<a.n_work, Geo<32>::NTH, 0, st>>>(a); break;
+    case 64: grouped_gemm_kernel<64><<<a.n_work, Geo<64>::NTH, 0, st>>>(a); break;
+    case 128: grouped_gemm_kernel<128><<<a.n_work, Geo<128>::NTH, 0, st>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -21,18 +21,17 @@
 //
 // Design: one block per C tile, looping over k (blocks run in parallel in
 // any order, so the TPU's sequential k grid axis becomes this loop and the
-// accumulator stays in registers).  The block is a TD x TD thread grid,
-// TD = min(t, 32); each thread owns a (t/TD) x (t/TD) micro-tile, rows
-// ty + TD r, columns tx + TD c, so a warp stores 32 consecutive columns.  For each
-// k tile the block reads the A and B tiles only from the buffer their
-// class maps name (bit-identical to the reference's sum of upcasts, where
-// the other buffers are zero), rounds them to the C class's compute dtype
-// while staging a (t x 32) / (32 x t) slice in shared memory, and runs a
-// sequential fp32 FMA chain.  The epilogue reduces the tile's absmax
-// across the block for integer classes (NaN-propagating, like the
-// reference's max).  wgmma/TMA and tensor-core classes come later.
+// accumulator stays in registers).  For each k tile the block reads the A
+// and B tiles only from the buffer their class maps name (bit-identical to
+// the reference's sum of upcasts, where the other buffers are zero) and
+// runs tile_dot.cuh's dot_simple: operands rounded to the C class's
+// compute dtype while staged in shared memory, one sequential fp32 FMA
+// chain per element.  The epilogue is tile_dot.cuh's too (alpha/beta,
+// the integer classes' NaN-propagating absmax quantize-dequantize, the
+// per-class store), shared with the split kernel.  wgmma/TMA and
+// tensor-core classes come later.
 
-#include "common.cuh"
+#include "tile_dot.cuh"
 
 constexpr int TL_MAX_NF = 3;
 
@@ -57,116 +56,36 @@ struct TileArgs {
 
 namespace {
 
-__device__ __forceinline__ float nanmax(float m, float v) {
-  return (isnan(v) || v > m) ? v : m;   // NaN wins, as in the reference
-}
-
 template <int T>
-__global__ void __launch_bounds__(T < 32 ? T * T : 1024)
+__global__ void __launch_bounds__(Geo<T>::NTH)
 mp_gemm_tile_kernel(const TileArgs a) {
-  constexpr int TD = T < 32 ? T : 32;    // thread grid edge
-  constexpr int NTH = TD * TD;
-  constexpr int TM = T / TD;             // micro-tile edge
-  constexpr int BK = T < 32 ? T : 32;    // k slice staged per step
-  __shared__ float As[T][BK + 1];
-  __shared__ float Bs[BK][T + 1];
-  __shared__ float red[(NTH + 31) / 32];
+  using G = Geo<T>;
+  __shared__ float smem[G::SIMPLE_SMEM / 4];
+  __shared__ float red[(G::NTH + 31) / 32];
 
   const int j = blockIdx.x, i = blockIdx.y;
   const int nt = a.N / T, kt = a.K / T;
-  const int tx = threadIdx.x % TD, ty = threadIdx.x / TD;
   const int cls = a.pc[i * nt + j];
-  const int ct = a.comp[cls];
 
-  float acc[TM][TM];
+  float acc[G::TMR][G::TMC];
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
+  for (int r = 0; r < G::TMR; ++r)
 #pragma unroll
-    for (int q = 0; q < TM; ++q) acc[r][q] = 0.0f;
+    for (int q = 0; q < G::TMC; ++q) acc[r][q] = 0.0f;
 
   for (int kk = 0; kk < kt; ++kk) {
     const int ca = a.pa[i * kt + kk];
     const int cb = a.pb[kk * nt + j];
-    const void* A = a.a[ca];
-    const void* B = a.b[cb];
-    const int adt = a.adt[ca], bdt = a.bdt[cb];
-    for (int ks = 0; ks < T; ks += BK) {
-      const long long k0 = static_cast<long long>(kk) * T + ks;
-      for (int e = threadIdx.x; e < T * BK; e += NTH) {
-        const int r = e / BK, q = e % BK;
-        const long long idx = (static_cast<long long>(i) * T + r) * a.K + k0 + q;
-        As[r][q] = round_to(load_any(A, adt, idx), ct);
-      }
-      for (int e = threadIdx.x; e < BK * T; e += NTH) {
-        const int r = e / T, q = e % T;
-        const long long idx = (k0 + r) * a.N + static_cast<long long>(j) * T + q;
-        Bs[r][q] = round_to(load_any(B, bdt, idx), ct);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < BK; ++k) {
-        float av[TM], bv[TM];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) av[r] = As[ty + TD * r][k];
-#pragma unroll
-        for (int q = 0; q < TM; ++q) bv[q] = Bs[k][tx + TD * q];
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int q = 0; q < TM; ++q)
-            acc[r][q] = __fmaf_rn(av[r], bv[q], acc[r][q]);
-      }
-      __syncthreads();
-    }
+    const long long a0 = static_cast<long long>(i) * T * a.K + static_cast<long long>(kk) * T;
+    const long long b0 = static_cast<long long>(kk) * T * a.N + static_cast<long long>(j) * T;
+    dot_simple<T>(acc, smem, a.a[ca], a.adt[ca], a0, a.K, a.b[cb], a.bdt[cb], b0, a.N,
+                  a.comp[cls]);
   }
 
-  // epilogue: alpha*acc + beta*C (C read from its class's buffer)
-  const void* C = a.c[cls];
-  const int cdt = a.cdt[cls];
-  float amax = 0.0f;
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int q = 0; q < TM; ++q) {
-      const long long idx = (static_cast<long long>(i) * T + ty + TD * r) * a.N
-                            + static_cast<long long>(j) * T + tx + TD * q;
-      const float cv = load_any(C, cdt, idx);
-      acc[r][q] = __fadd_rn(__fmul_rn(a.alpha, acc[r][q]), __fmul_rn(a.beta, cv));
-      amax = nanmax(amax, fabsf(acc[r][q]));
-    }
-
-  const int qmax = a.qmax[cls];
-  if (qmax > 0) {   // uniform across the block: the tile has one class
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = nanmax(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
-    __syncthreads();
-    amax = red[0];
-    for (int w = 1; w < (NTH + 31) / 32; ++w) amax = nanmax(amax, red[w]);
-    const float fq = static_cast<float>(qmax);
-    const float scale = amax > 0.0f ? __fdiv_rn(amax, fq) : 1.0f;
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int q = 0; q < TM; ++q) {
-        float v = rintf(__fdiv_rn(acc[r][q], scale));
-        v = v < -fq ? -fq : (v > fq ? fq : v);   // NaN stays NaN
-        acc[r][q] = __fmul_rn(v, scale);
-      }
-  }
-
-#pragma unroll 1
-  for (int code = 0; code < a.nf; ++code) {
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int q = 0; q < TM; ++q) {
-        const long long idx = (static_cast<long long>(i) * T + ty + TD * r) * a.N
-                              + static_cast<long long>(j) * T + tx + TD * q;
-        store_any(a.o[code], a.odt[code], idx, code == cls ? acc[r][q] : 0.0f);
-      }
-  }
+  const long long c0 = static_cast<long long>(i) * T * a.N + static_cast<long long>(j) * T;
+  axpby_c<T>(acc, a.c[cls], a.cdt[cls], c0, a.N, a.alpha, a.beta);
+  if (a.qmax[cls] > 0) quantize_tile<T>(acc, a.qmax[cls], red);   // uniform per block
+  store_classes<T>(acc, a.o, a.odt, a.nf, cls, c0, a.N);
 }
 
 }  // namespace
@@ -183,10 +102,10 @@ extern "C" int mp_gemm_tile_launch(const TileArgs* args, int tile, int device,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(a.N / tile, a.M / tile);
   switch (tile) {
-    case 16: mp_gemm_tile_kernel<16><<<grid, 16 * 16, 0, st>>>(a); break;
-    case 32: mp_gemm_tile_kernel<32><<<grid, 32 * 32, 0, st>>>(a); break;
-    case 64: mp_gemm_tile_kernel<64><<<grid, 32 * 32, 0, st>>>(a); break;
-    case 128: mp_gemm_tile_kernel<128><<<grid, 32 * 32, 0, st>>>(a); break;
+    case 16: mp_gemm_tile_kernel<16><<<grid, Geo<16>::NTH, 0, st>>>(a); break;
+    case 32: mp_gemm_tile_kernel<32><<<grid, Geo<32>::NTH, 0, st>>>(a); break;
+    case 64: mp_gemm_tile_kernel<64><<<grid, Geo<64>::NTH, 0, st>>>(a); break;
+    case 128: mp_gemm_tile_kernel<128><<<grid, Geo<128>::NTH, 0, st>>>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

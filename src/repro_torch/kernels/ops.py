@@ -9,14 +9,19 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.layout import KSplitWeight, MPMatrix
+from repro_torch.core.layout import CompactMPMatrix, KSplitWeight, MPMatrix
 from repro_torch.kernels import _build
+from repro_torch.kernels import convert as _convert
+from repro_torch.kernels import grouped_gemm as _grouped
 from repro_torch.kernels import ksplit_gemm as _ksplit
 from repro_torch.kernels import mp_gemm_tile as _mp_tile
+from repro_torch.kernels import split_gemm as _split
 
 #: the kernel modules whose ``launches`` counters :func:`launch_counts`
 #: reports
-KERNELS = {"ksplit_gemm": _ksplit, "mp_gemm_tile": _mp_tile}
+KERNELS = {"ksplit_gemm": _ksplit, "mp_gemm_tile": _mp_tile,
+           "split_gemm": _split, "grouped_gemm": _grouped,
+           "convert": _convert}
 
 
 def launch_counts() -> dict[str, int]:
@@ -45,6 +50,32 @@ def mp_gemm(a: MPMatrix, b: MPMatrix, c: MPMatrix,
         a.bufs, b.bufs, c.bufs, a.cls, b.cls, c.cls, tile=a.tile,
         specs=_mp_tile.format_specs(a.fset), alpha=alpha, beta=beta)
     return MPMatrix(tuple(o_bufs), c.cls, c.tile, c.shape, c.fset)
+
+
+def split_mp_gemm(a: MPMatrix, b: MPMatrix, c: MPMatrix,
+                  alpha: float = 1.0, beta: float = 0.0) -> MPMatrix:
+    """Split-accumulation GEMM via the split kernel: split C classes
+    expand to slices² low-precision passes, fp32-accumulated in
+    ``slice_pair_order`` (see ``repro_torch.split``)."""
+    from repro_torch.split.recovery import split_format_specs
+    if not (a.fset == b.fset == c.fset):
+        raise ValueError("split_mp_gemm operands must share a format set")
+    o_bufs = _split.split_gemm_tile_multi(
+        a.bufs, b.bufs, c.bufs, a.cls, b.cls, c.cls, tile=a.tile,
+        specs=split_format_specs(a.fset), alpha=alpha, beta=beta)
+    return MPMatrix(tuple(o_bufs), c.cls, c.tile, c.shape, c.fset)
+
+
+def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
+                    c_cls) -> CompactMPMatrix:
+    """Compact class-sorted grouped GEMM (one launch for all C
+    classes)."""
+    return _grouped.grouped_mp_gemm(a, b, c_cls)
+
+
+def convert_tiles(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """Elementwise dtype conversion via the convert kernel."""
+    return _convert.convert(x, out_dtype)
 
 
 def ksplit_matmul_kernel(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:

@@ -13,7 +13,12 @@ paths:
 * ``ksplit_torch``— the plain gathering KSplit path: one fp32 dot per
                     class on rounded fp32 copies of x and w;
 * ``ksplit_cuda`` — the ksplit CUDA kernel: one launch, weight storage
-                    bytes read once.
+                    bytes read once;
+* ``split``       — the split CUDA kernel: the tile kernel's traffic, and
+                    ``slices²`` dots for every split C tile;
+* ``grouped``     — the grouped CUDA kernel on compact operands: storage
+                    bytes read once, plus the executor's conversions of
+                    the MPMatrix operands to and from compact tiles.
 
 Every port path multiplies on the fp32 pipes today (operands rounded to
 the compute dtype, then fp32 FMA), so compute is priced at the device's
@@ -26,14 +31,14 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet
+from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet, SplitFormat
 from repro_torch.tune.device import DeviceSpec
 
 #: every execution path the dispatcher can route to
-PATHS = ("ref", "tile", "ksplit_torch", "ksplit_cuda")
+PATHS = ("ref", "tile", "ksplit_torch", "ksplit_cuda", "grouped", "split")
 
 #: paths that launch the port's CUDA kernels
-KERNEL_PATHS = ("tile", "ksplit_cuda")
+KERNEL_PATHS = ("tile", "ksplit_cuda", "grouped", "split")
 
 #: tile edges the tile kernel is compiled for
 TILE_SIZES = (16, 32, 64, 128)
@@ -122,6 +127,23 @@ class GemmProblem:
         """Bytes/elem of all per-format buffers of an MPMatrix together."""
         return float(sum(self._elem_bytes(c) for c in self.fset.codes))
 
+    def c_fraction(self, code: int) -> float:
+        """Share of C tiles in class ``code``."""
+        fset = self.fset
+        if code == fset.high:
+            return self.c_high
+        if code == fset.low8:
+            return self.c_low8
+        return 1.0 - self.c_high - self.c_low8
+
+
+def split_c_classes(prob: GemmProblem) -> tuple[int, ...]:
+    """C classes of ``prob`` in a split compound format — classes only the
+    ``ref`` oracle and the ``split`` path compute correctly."""
+    fset = prob.fset
+    return tuple(c for c in prob.c_classes
+                 if isinstance(fset.fmt(c), SplitFormat))
+
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
@@ -152,9 +174,21 @@ def validate_plan(plan: GemmPlan, prob: GemmProblem,
     if plan.path in KERNEL_PATHS and not dev.kernels:
         bad.append(f"{plan.path} needs the CUDA kernels (sm_90a), not "
                    f"{dev.kind}")
-    if plan.path == "tile" and t not in TILE_SIZES:
-        bad.append(f"tile kernel is built for tiles {TILE_SIZES}, not {t}")
+    if plan.path in ("tile", "split", "grouped") and t not in TILE_SIZES:
+        bad.append(f"{plan.path} kernel is built for tiles {TILE_SIZES}, "
+                   f"not {t}")
+    if plan.path in ("tile", "grouped") and split_c_classes(prob):
+        bad.append(f"split-compound C classes need the split path (the "
+                   f"{plan.path} dot would drop the recovery slices)")
+    if plan.path == "split" and not split_c_classes(prob):
+        bad.append("split path needs at least one split-compound C class "
+                   "(use the tile path otherwise)")
+    if plan.path == "grouped" and not (prob.alpha_one and prob.beta_zero):
+        bad.append("grouped path computes C=A·B (alpha=1, beta=0)")
     if plan.path in ("ksplit_torch", "ksplit_cuda"):
+        if any(isinstance(f, SplitFormat) for f in prob.fset.formats()):
+            bad.append("ksplit paths compute at the B-class dtype and do "
+                       "not support split compound formats")
         if not prob.b_k_constant:
             bad.append("ksplit paths need B map constant along N")
         if len(prob.c_classes) != 1:
@@ -168,6 +202,12 @@ def validate_plan(plan: GemmPlan, prob: GemmProblem,
     return bad
 
 
+def _slices(prob: GemmProblem, code: int) -> int:
+    """Slices of class ``code``'s format (1 for a simple format)."""
+    fmt = prob.fset.fmt(code)
+    return fmt.slices if isinstance(fmt, SplitFormat) else 1
+
+
 def predict_time(plan: GemmPlan, prob: GemmProblem, dev: DeviceSpec) -> dict:
     """Roofline score; ``total_s`` is the rank key."""
     m, n, k = prob.m, prob.n, prob.k
@@ -178,14 +218,26 @@ def predict_time(plan: GemmPlan, prob: GemmProblem, dev: DeviceSpec) -> dict:
     s = prob.stream_bytes_per_elem()
     n_cls = len(prob.c_classes)
     if plan.path == "ref":
-        dots, launches = n_cls, 8 + 6 * n_cls
+        dots, launches = sum(_slices(prob, c) ** 2
+                             for c in prob.c_classes), 8 + 6 * n_cls
         # every buffer read, dense fp32 copies, rounded copies per class,
         # the output re-encoded into nf buffers
         hbm = ((m * k + k * n + m * n) * (s + 4.0)
                + n_cls * (m * k + k * n + 3 * m * n) * 8.0 + m * n * s)
-    elif plan.path == "tile":
+    elif plan.path in ("tile", "split"):
+        # a split C tile runs slices² dots, a simple one one dot
         dots, launches = 1, 1
+        if plan.path == "split":
+            dots = sum(prob.c_fraction(c) * _slices(prob, c) ** 2
+                       for c in prob.c_classes)
         hbm = a_bytes + b_bytes + c_bytes + m * n * s
+    elif plan.path == "grouped":
+        # kernel: compact storage bytes once; executor: A and B from their
+        # buffers to dense fp32 to compact tiles, C from compact tiles to
+        # dense fp32 to its per-format buffers (~a dozen torch ops)
+        dots, launches = 1, 12
+        hbm = (a_bytes + b_bytes + c_bytes
+               + (m * k + k * n) * (s + 12.0) + m * n * (8.0 + s))
     elif plan.path == "ksplit_torch":
         b_classes = 1 + int(prob.b_high > 0) + int(prob.b_low8 > 0)
         dots, launches = 1, 6 * b_classes

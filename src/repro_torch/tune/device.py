@@ -3,7 +3,8 @@ of ``repro.tune.device``).
 
 A ``DeviceSpec`` holds what the cost model and plan validator need about
 one device kind.  ``gpu-h100`` is the device the port's CUDA kernels are
-built for (``sm_90a``); other kinds run the plain PyTorch paths.  Numbers
+built for (``sm_90a``): every card of compute capability 9.0 gets it,
+whatever its name; other cards run the plain PyTorch paths.  Numbers
 are published peaks (NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 989
 TFLOP/s dense bf16, 67 TFLOP/s fp32 outside the tensor cores); they feed
 a relative roofline, not a measurement.
@@ -53,8 +54,8 @@ DEVICE_TABLE: dict[str, DeviceSpec] = {
         fp32_tflops=0.2, launch_overhead_s=2e-5, kernels=False),
 }
 
-#: substrings of ``torch.cuda.get_device_name`` -> table key
-_KIND_PATTERNS = (("h100", "gpu-h100"), ("a100", "gpu-a100"))
+#: compute capability the kernels are built for (``sm_90a``)
+KERNEL_CAPABILITY = (9, 0)
 
 
 def detect_device(device: torch.device | str | None = None) -> DeviceSpec:
@@ -78,9 +79,9 @@ def detect_device(device: torch.device | str | None = None) -> DeviceSpec:
 
 @functools.lru_cache(maxsize=None)
 def _cuda_kind(index: int) -> str:
-    """Table key of CUDA device ``index`` (a card's name never changes)."""
-    name = torch.cuda.get_device_name(index).lower()
-    for pat, key in _KIND_PATTERNS:
-        if pat in name:
-            return key
+    """Table key of CUDA device ``index``: ``gpu-h100`` for a Hopper card
+    (compute capability 9.0, what ``sm_90a`` runs on — H100, H200, GH200
+    alike), the plain-path spec for any other card."""
+    if tuple(torch.cuda.get_device_capability(index)) == KERNEL_CAPABILITY:
+        return "gpu-h100"
     return "gpu-a100"

@@ -4,10 +4,12 @@ and the plan registry (twin of ``repro.tune.dispatch``).
 Every execution path is registered behind one entry point; a resolved
 ``GemmPlan`` (explicit argument > in-memory registry > persisted cache >
 cost-model best) picks the path.  On ``gpu-h100`` the cost model routes
-``mp_matmul`` to the ``tile`` CUDA kernel and every sorted-map KSplit
-linear to the ``ksplit_cuda`` kernel at every M (the kernel masks ragged
-rows itself, and its fixed summation order makes a row's result the same
-at any M); on other devices the plain PyTorch paths run.
+``mp_matmul`` to the ``tile`` CUDA kernel (the ``split`` kernel when C
+has split compound classes) and every sorted-map KSplit linear to the
+``ksplit_cuda`` kernel at every M (the kernel masks ragged rows itself,
+and its fixed summation order makes a row's result the same at any M);
+on other devices the plain PyTorch paths run.  The refinement solver
+prefetches every plan it can need (``resolve_solve_plans``).
 
 Counters (in :func:`repro_torch.obs.metrics_registry`):
 
@@ -17,13 +19,15 @@ Counters (in :func:`repro_torch.obs.metrics_registry`):
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterable
 
 import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.layout import KSplitWeight, MPMatrix, ksplit_matmul
+from repro_torch.core.layout import (CompactMPMatrix, KSplitWeight, MPMatrix,
+                                     ksplit_matmul)
 from repro_torch.core.mp_gemm import mp_gemm_ref
 from repro_torch.kernels import ops
 from repro_torch.tune import search as S
@@ -69,6 +73,10 @@ def dispatch_counts(op: str | None = None) -> dict[str, int]:
 
 def clear_registry() -> None:
     _REGISTRY.clear()
+
+
+def register_plan(key: str, plan: GemmPlan) -> None:
+    _REGISTRY[key] = plan
 
 
 def warm_registry(cache: S.PlanCache | None = None) -> int:
@@ -131,6 +139,19 @@ def _exec_tile(a, b, c, alpha, beta):
     return ops.mp_gemm(a, b, c, alpha=alpha, beta=beta)
 
 
+def _exec_split(a, b, c, alpha, beta):
+    return ops.split_mp_gemm(a, b, c, alpha=alpha, beta=beta)
+
+
+def _exec_grouped(a, b, c, alpha, beta):
+    t = a.tile
+    ac = CompactMPMatrix.from_dense(a.to_dense(), a.cls, t, a.fset)
+    bc = CompactMPMatrix.from_dense(b.to_dense(), b.cls, t, b.fset)
+    out = ops.grouped_mp_gemm(ac, bc, c.cls)
+    dense = out.to_dense()[: c.shape[0], : c.shape[1]]
+    return MPMatrix.from_dense(dense, c.cls, t, c.fset)
+
+
 def _ksplit_weight(b: MPMatrix) -> KSplitWeight:
     return KSplitWeight.from_dense(b.to_dense(), b.cls[:, 0], b.tile, b.fset)
 
@@ -161,6 +182,8 @@ _EXECUTORS = {
     "tile": _exec_tile,
     "ksplit_torch": _exec_ksplit_torch,
     "ksplit_cuda": _exec_ksplit_cuda,
+    "grouped": _exec_grouped,
+    "split": _exec_split,
 }
 assert set(_EXECUTORS) == set(PATHS)
 
@@ -318,3 +341,63 @@ def resolve_plans_for_buckets(params_by_tag: dict, buckets
                 out[(tag, m)] = tune_linear_params(params_by_tag[tag],
                                                    m_hint=m)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Refinement-solver integration (op = "solve")
+# ---------------------------------------------------------------------------
+
+#: GEMM paths valid for every map structure the solver can produce (ksplit
+#: paths need a K-constant B map, which trailing updates never have);
+#: ``split`` serves the compute-higher escalation mode
+SOLVE_PATHS = ("ref", "tile", "grouped", "split")
+
+
+def solve_gemm_problem(pa: np.ndarray, tile: int, nrhs_t: int,
+                       fset) -> GemmProblem:
+    """Plan-key problem of the refinement residual GEMM ``A·X``: A carries
+    the map ``pa``; X and the output are uniform-HIGH ``[kt, nrhs_t]`` /
+    ``[mt, nrhs_t]``.  Solver problems carry ``op="solve"``."""
+    pa = np.asarray(pa)
+    pb = np.full((pa.shape[1], nrhs_t), fset.high, np.int8)
+    pc = np.full((pa.shape[0], pb.shape[1]), fset.high, np.int8)
+    return dataclasses.replace(
+        GemmProblem.from_maps(pa, pb, pc, tile, fset=fset), op="solve")
+
+
+def resolve_solve_plans(a_maps, tile: int, fset, *, nrhs: int,
+                        paths: Iterable[str] = SOLVE_PATHS,
+                        dev: DeviceSpec | None = None) -> dict:
+    """Escalation-ladder plan prefetch for the refinement solver: for
+    every rung of ``a_maps`` (rung 0 = the starting map) a plan for the
+    residual GEMM ``A·X`` and for each blocked-LU trailing update, all
+    loaded into the registry under ``op="solve"`` keys (cost model only,
+    never measuring).  Returns ``{("residual", rung): plan, ("trail",
+    step, rung): plan, "keys": [...]}``; the solver passes these plans
+    explicitly, so a solve issues no fresh resolution after this call."""
+    dev = dev or detect_device()
+    if nrhs % tile:
+        raise ValueError(f"nrhs={nrhs} must be a multiple of tile={tile}")
+    rt = nrhs // tile
+    book: dict = {}
+    keys: list[str] = []
+    for rung, pa in enumerate(a_maps):
+        pa = np.asarray(pa)
+        mt, kt = pa.shape
+        prob = solve_gemm_problem(pa, tile, rt, fset)
+        book[("residual", rung)] = resolve_plan(prob, dev, paths)[0]
+        keys.append(S.plan_key(dev, prob))
+        # blocked-LU trailing updates: step k multiplies L21 (map column k)
+        # by U12 (map row k) into the [mt-k-1, kt-k-1] trailing block
+        for k in range(min(mt, kt) - 1):
+            pl = pa[k + 1:, k:k + 1]
+            pu = pa[k:k + 1, k + 1:]
+            tprob = dataclasses.replace(
+                GemmProblem.from_maps(
+                    pl, pu, np.full((pl.shape[0], pu.shape[1]), fset.high,
+                                    np.int8), tile, fset=fset),
+                op="solve")
+            book[("trail", k, rung)] = resolve_plan(tprob, dev, paths)[0]
+            keys.append(S.plan_key(dev, tprob))
+    book["keys"] = keys
+    return book

@@ -204,14 +204,19 @@ def test_bridge_tensor_bits():
 
 
 def test_import_leaves_jax_and_reference_out():
-    """``import repro_torch`` (every module) imports neither jax nor the
-    JAX package — checked in a fresh interpreter."""
+    """``import repro_torch`` (every module, ``repro_torch.split``,
+    ``repro_torch.solve`` and ``repro_torch.launch.solve`` among them)
+    imports neither jax nor the JAX package — checked in a fresh
+    interpreter."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('repro_torch.split', 'repro_torch.solve', "
+        "'repro_torch.launch.solve'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -1,15 +1,16 @@
-"""Port parity: the two kernels of ``repro_torch`` — their plain PyTorch
-versions against the JAX package's Pallas kernels run as its own tests run
-them (``interpret=True`` on CPU), at tiles 16 and 32 — plus the wrappers'
-routing and checks.  The CUDA kernels themselves run only on a card: those
-tests are marked ``gpu`` and skip here.
+"""Port parity: the ksplit, tile and convert kernels of ``repro_torch`` —
+their plain PyTorch versions against the JAX package's Pallas kernels run
+as its own tests run them (``interpret=True`` on CPU), at tiles 16 and 32
+— plus the wrappers' routing and checks.  (The split and grouped kernels
+have their own files.)  The CUDA kernels themselves run only on a card:
+those tests are marked ``gpu`` and skip here.
 
 Tolerances.  Both packages multiply the same operands rounded to the same
 compute dtype, so every product is exact in fp32 and only the order of the
 fp32 sums differs; two orders of a K-term sum differ by at most
 ``2·K·2^-24·Σ|x·w|`` per element.  Outputs then stored in a narrower
 format may differ by one rounding of that format, integer C tiles by one
-quantization step.
+quantization step.  Convert is held bit for bit, NaN as NaN.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -231,3 +232,115 @@ def test_tile_kernel_matches_plain_on_card(cuda):
         kd = sum(o.float().cpu() for o in outs)
         pd = sum(o.float() for o in plain)
         assert _within(pm, maps, 32, kd, pd, 1.5, 0.5) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# convert
+# ---------------------------------------------------------------------------
+
+_CONVERT = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16),
+            (jnp.float16, torch.float16),
+            (jnp.float8_e4m3fn, torch.float8_e4m3fn),
+            (jnp.float8_e5m2, torch.float8_e5m2)]
+
+
+def _convert_input(seed=0):
+    """fp32 over 1e-12..1e6 plus the rounding edges of every target: e4m3
+    overflow (NaN above 464), fp16 and e5m2 overflow to inf, subnormals,
+    ±inf, NaN."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((64, 96))
+         * 10.0 ** rng.uniform(-12, 6, (64, 96))).astype(np.float32)
+    edges = [0.0, -0.0, 448.0, 464.0, 464.01, -480.0, 1e3, 57344.0,
+             61439.99, 61440.0, 65504.0, 65520.0, 1e5, np.inf, -np.inf,
+             np.nan, 2.0 ** -16, 2.0 ** -17, 3 * 2.0 ** -17, 2.0 ** -24,
+             2.0 ** -25, 3 * 2.0 ** -25, 2.0 ** -133, 3e38]
+    x.reshape(-1)[:len(edges)] = edges
+    return x
+
+
+def _same_bits(j, p: torch.Tensor) -> bool:
+    """Bit-equal where the reference holds a number, NaN where it holds
+    NaN (NaN payloads differ between the frameworks)."""
+    j = np.asarray(j)
+    ints = {1: (np.uint8, torch.uint8), 2: (np.uint16, torch.int16),
+            4: (np.uint32, torch.int32)}[j.itemsize]
+    nan = np.isnan(j.astype(np.float32))
+    pb = p.view(ints[1]).numpy().view(ints[0])
+    return bool(np.array_equal(np.isnan(p.float().numpy()), nan)
+                and np.array_equal(j.view(ints[0])[~nan], pb[~nan]))
+
+
+@pytest.mark.parametrize("jdt,pdt", _CONVERT)
+def test_convert_plain_matches_reference_bit_for_bit(jdt, pdt):
+    from repro.kernels import ops as JO
+    from repro.kernels import ref as KR
+    from repro_torch.kernels import convert as PC
+    x = _convert_input()
+    plain = PC.convert_plain(torch.from_numpy(x), pdt)
+    assert plain.dtype == pdt and tuple(plain.shape) == x.shape
+    assert _same_bits(KR.convert_ref(jnp.asarray(x), jdt), plain)
+    # ... and the Pallas kernel as the reference's own tests run it
+    y = JO.convert_tiles(jnp.asarray(x), jdt, bm=32, bn=32)
+    assert _same_bits(y, plain)
+    before = PC.launches
+    assert torch.equal(ops.convert_tiles(torch.from_numpy(x), pdt).view(
+        torch.uint8), plain.view(torch.uint8))
+    assert PC.launches == before
+
+
+@pytest.mark.gpu
+def test_convert_kernel_matches_plain_on_card(cuda):
+    from repro_torch.kernels import convert as PC
+    x = torch.from_numpy(_convert_input(1))
+    for _, pdt in _CONVERT:
+        before = PC.launches
+        got = PC.convert(x.to(cuda), pdt).cpu()
+        assert PC.launches == before + 1
+        want = PC.convert_plain(x, pdt)
+        nan = torch.isnan(want.float())
+        ints = {1: torch.uint8, 2: torch.int16,
+                4: torch.int32}[want.element_size()]
+        assert torch.equal(torch.isnan(got.float()), nan)
+        assert torch.equal(got.view(ints)[~nan], want.view(ints)[~nan])
+
+
+def test_layout_storage_cast_on_cpu_is_the_plain_cast():
+    """On CPU tensors the layouts' storage cast is the format's own
+    (``to_buffer``) and launches nothing."""
+    from repro_torch.kernels import convert as PC
+    fs = PF.DEFAULT_FORMATS
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy((rng.standard_normal((64, 64)) * 300).astype(
+        np.float32))
+    cls = rng.integers(0, len(fs), (4, 4)).astype(np.int8)
+    before = PC.launches
+    m = PL.MPMatrix.from_dense(w, cls, 16, fs)
+    assert PC.launches == before
+    sel = torch.from_numpy(PL.expand_map(cls, 16))
+    for code in fs.codes:
+        masked = torch.where(sel == code, w, torch.zeros_like(w))
+        want = fs.fmt(code).to_buffer(masked, tile=16)
+        assert torch.equal(torch.isnan(m.bufs[code].float()),
+                           torch.isnan(want.float()))
+        assert torch.equal(m.bufs[code].float().nan_to_num(),
+                           want.float().nan_to_num())
+
+
+@pytest.mark.gpu
+def test_layout_storage_cast_on_card_runs_convert(cuda):
+    """On the card MPMatrix/CompactMPMatrix storage casts launch the
+    convert kernel and store the CPU layout's bits."""
+    from repro_torch.kernels import convert as PC
+    fs = PF.DEFAULT_FORMATS
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy((rng.standard_normal((256, 256)) * 300).astype(
+        np.float32))
+    cls = rng.integers(0, len(fs), (2, 2)).astype(np.int8)
+    before = PC.launches
+    for layout in (PL.MPMatrix, PL.CompactMPMatrix):
+        got = layout.from_dense(w.to(cuda), cls, 128, fs).to_dense().cpu()
+        want = layout.from_dense(w, cls, 128, fs).to_dense()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert PC.launches > before
