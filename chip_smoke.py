@@ -7,15 +7,19 @@ NVIDIA H100.
 Phases (each raises on failure, so a failing run never exits 0):
 
 1. print the card (``nvidia-smi`` name and power limit) and the device
-   spec dispatch resolves for it (must be ``gpu-h100``), and build the
-   five CUDA kernels from ``src/repro_torch/csrc`` (nvcc in parallel);
+   spec dispatch resolves for it (must be ``gpu-h100``), build the five
+   CUDA kernels from ``src/repro_torch/csrc`` (nvcc in parallel), print
+   every kernel's registers and spills from ptxas, and read the SASS of
+   the tile and grouped libraries (``cuobjdump -sass``): each must hold
+   ``HGMMA`` (wgmma) instructions;
 2. hold each kernel to its plain PyTorch version on the card: the ksplit
    kernel at the served InternLM2-1.8B shapes (m = 1 and 4) and at
-   m = 4096, the tile kernel at M = N = K = 1024 and 4096, t = 128, over
-   four class mixes and one integer-class format set; the split kernel at
-   4096³, t = 128, for split2_fp16 and split3_e5m2 C classes and a mix
-   with an int8 class, plus its slices bit for bit (B = I); the grouped
-   kernel at 4096³, t = 128, 50D50S; the convert kernel at 8192² into
+   m = 4096, the tile kernel at M = N = K = 1024 and 4096 and the grouped
+   kernel at 4096³, both at t = 64 and 128, over four class mixes and one
+   integer-class format set, and both on e4m3-overflow NaN, inf·0 and
+   subnormal operands; the split kernel at 4096³, t = 128, for
+   split2_fp16 and split3_e5m2 C classes and a mix with an int8 class,
+   plus its slices bit for bit (B = I); the convert kernel at 8192² into
    every output dtype, bit for bit;
 3. ``mp_matmul`` at 1024³ through dispatch: the plan must be ``tile``
    (``split`` with split C classes), the kernel must launch, and the
@@ -35,10 +39,17 @@ Phases (each raises on failure, so a failing run never exits 0):
    mid-solve plan resolution, on its kernel and the convert kernel (the
    layouts' storage casts); each solve's last step-0 trailing update and
    last residual GEMM are replayed through their kernel and its plain
-   version.  The same three solves at n = 1024 on the card and on the
-   CPU (plain versions) must take the same decisions;
+   version; every tile and grouped launch must take the path its C
+   map's classes call for (the solve's C maps are uniform HIGH, fp32, as
+   in the reference, so its GEMMs run the fp32 path).  The same three
+   solves at n = 1024 on the card and on the CPU (plain versions) must
+   take the same decisions;
 6. time each kernel (CUDA events, median) beside its bound, its plain
-   version and one PyTorch call computing the same function.
+   version and one PyTorch call computing the same function; the tile
+   and grouped kernels at 4096³ under three maps (0D100S, 50D50S,
+   100D0S: each must take the tensor-core path exactly where C has
+   bf16-class tiles) and at the solve's trailing-update and residual
+   shapes and maps.
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -70,6 +81,8 @@ SERVED_KN = ((2048, 2048), (2048, 1024), (2048, 8192), (2048, 92544))
 KSPLIT_BIG = (4096, 2048, 8192)
 TILE_SIZES = (1024, 4096)
 TILE = 128
+#: tile edges of the tile and grouped checks (the staged dot's two)
+CHECK_TILES = (64, 128)
 DEVICE = "cuda"
 #: the split and grouped kernel checks and timings (M = N = K)
 SPLIT_SIZE = 4096
@@ -215,20 +228,41 @@ TILE_MIXES = (
 )
 
 
-def tile_case(size, t, fkey, hi, q, gen, seed0=1):
+def gemm_case(m, k, n, t, fkey, hi, q, gen, seed0=1, scale=None,
+              high=()):
+    """MPMatrix A [m, k], B [k, n], C [m, n] from seeded normal values
+    (``scale(values, index)`` may reshape A's and B's first), each under
+    its own ratio map, or uniform HIGH for the operand indices in
+    ``high``; returns (format set, (A, B, C), maps)."""
     import torch
     from repro_torch.core.formats import FormatSet
     from repro_torch.core.layout import MPMatrix
     from repro_torch.core.precision import Policy, make_map
     fs = FormatSet.from_key(fkey)
     mats, maps = [], []
-    for s in range(3):
-        v = torch.randn((size, size), generator=gen, device=DEVICE)
-        p = make_map((size, size), t, Policy("ratio", hi, q, seed=seed0 + s),
-                     fset=fs)
+    for s, shape in enumerate(((m, k), (k, n), (m, n))):
+        v = torch.randn(shape, generator=gen, device=DEVICE)
+        if scale is not None and s < 2:
+            v = scale(v, s)
+        p = (np.full((shape[0] // t, shape[1] // t), fs.high, np.int8)
+             if s in high else
+             make_map(shape, t, Policy("ratio", hi, q, seed=seed0 + s),
+                      fset=fs))
         mats.append(MPMatrix.from_dense(v, p, t, fs))
         maps.append(p)
     return fs, mats, maps
+
+
+def tile_case(size, t, fkey, hi, q, gen, seed0=1):
+    return gemm_case(size, size, size, t, fkey, hi, q, gen, seed0)
+
+
+def zero_c(C):
+    """C's map and format set with zero values (the grouped kernel's C)."""
+    import torch
+    from repro_torch.core.layout import MPMatrix
+    return MPMatrix.from_dense(torch.zeros(C.shape, device=DEVICE), C.cls,
+                               C.tile, C.fset)
 
 
 def kernel_vs_plain(path, A, B, C, alpha=1.0, beta=0.0):
@@ -237,7 +271,8 @@ def kernel_vs_plain(path, A, B, C, alpha=1.0, beta=0.0):
     (max |kernel - plain|, worst ratio to the summation-order allowance
     ``order_allowance`` of the tile or split module).  The grouped kernel
     takes the operands as CompactMPMatrix, as dispatch's grouped path
-    does, and computes C = A·B."""
+    does, and computes C = A·B.  NaN in both counts as equal, NaN in one
+    only as an infinite error."""
     import torch
     from repro_torch.core.layout import CompactMPMatrix
     from repro_torch.kernels import grouped_gemm as GG
@@ -284,18 +319,63 @@ def kernel_vs_plain(path, A, B, C, alpha=1.0, beta=0.0):
 
 def check_tile(gen) -> dict:
     out = {}
-    for size in TILE_SIZES:
-        for label, fkey, hi, q in TILE_MIXES:
-            fs, (A, B, C), maps = tile_case(size, TILE, fkey, hi, q, gen)
-            err, ratio = kernel_vs_plain("tile", A, B, C, 1.5, 0.5)
-            print(f"tile {size}^3 t={TILE} {label} [{fkey}]: "
-                  f"max|kernel-plain| {err:.3e}, worst/allowance "
-                  f"{ratio:.3e} (2*K*2^-24*(|a||A||B|+|b||C|) + one output "
-                  "rounding or quantization step)")
-            if not ratio <= 1.0:
-                fail(f"tile {size} {label} outside tolerance")
-            out[(size, label)] = err
-            del A, B, C
+    for t in CHECK_TILES:
+        for size in TILE_SIZES:
+            for label, fkey, hi, q in TILE_MIXES:
+                fs, (A, B, C), maps = tile_case(size, t, fkey, hi, q, gen)
+                err, ratio = kernel_vs_plain("tile", A, B, C, 1.5, 0.5)
+                print(f"tile {size}^3 t={t} {label} [{fkey}]: "
+                      f"max|kernel-plain| {err:.3e}, worst/allowance "
+                      f"{ratio:.3e} (2*K*2^-24*(|a||A||B|+|b||C|) + one "
+                      "output rounding or quantization step)")
+                if not ratio <= 1.0:
+                    fail(f"tile {size} t={t} {label} outside tolerance")
+                out[(t, size, label)] = err
+                del A, B, C
+    return out
+
+
+def edge_scale(kind):
+    """The ``scale`` of an edge case: e4m3 overflow (|a| = 1000 in every
+    class: NaN where A's tile is fp8_e4m3), inf·0 (rows of A at ±inf
+    against rows of B at 0), subnormal operands (A scaled by 1e-39, so
+    bf16 and fp32 subnormals in A and subnormal products)."""
+    def scale(v, s):
+        if kind == "e4m3-overflow" and s == 0:
+            v[::7, ::5] = 1e3
+        elif kind == "inf*0":
+            if s == 0:
+                v[1, :] = float("inf")
+                v[5, 3] = -float("inf")
+            else:
+                v[3, :] = 0.0
+                v[:, 2] = 0.0
+        elif kind == "subnormal" and s == 0:
+            v = v * 1e-39
+        return v
+    return scale
+
+
+def check_edges(gen) -> dict:
+    """Tile and grouped kernels on the edge cases of ``edge_scale`` at
+    each checked tile edge, mix 30D40S30Q (fp32, bf16, fp8 C tiles), C = 0
+    and beta = 0 so subnormal sums reach the outputs: NaN where the plain
+    version has NaN and nowhere else, the rest within the allowance."""
+    out = {}
+    for t in CHECK_TILES:
+        for kind in ("e4m3-overflow", "inf*0", "subnormal"):
+            fs, (A, B, C), _ = gemm_case(2 * t, 3 * t, 2 * t, t,
+                                         "fp8_e4m3+bf16+fp32", 0.3, 0.3, gen,
+                                         seed0=71, scale=edge_scale(kind))
+            C = zero_c(C)
+            for path in ("tile", "grouped"):
+                err, ratio = kernel_vs_plain(path, A, B, C)
+                print(f"edge {kind} {path} t={t}: max|kernel-plain| "
+                      f"{err:.3e}, worst/allowance {ratio:.3e} (NaN as NaN)")
+                if not ratio <= 1.0:
+                    fail(f"{path} kernel on {kind} at t={t} outside "
+                         "tolerance or NaN elsewhere than the plain version")
+                out[(path, t, kind)] = err
     return out
 
 
@@ -356,38 +436,24 @@ def check_split(gen) -> dict:
     return out
 
 
-def grouped_case(size, t, gen, seed0=41):
-    """Compact A, B and a C map at 50D50S on the default format set, plus
-    the same operands as MPMatrix (for the allowance)."""
-    import torch
-    from repro_torch.core.formats import DEFAULT_FORMATS as FS
-    from repro_torch.core.layout import CompactMPMatrix, MPMatrix
-    from repro_torch.core.precision import Policy, make_map
-    maps = [make_map((size, size), t, Policy("ratio", 0.5, 0.0,
-                                             seed=seed0 + s), fset=FS)
-            for s in range(3)]
-    dense = [torch.randn((size, size), generator=gen, device=DEVICE)
-             for _ in range(2)]
-    comp = [CompactMPMatrix.from_dense(d, p, t, FS)
-            for d, p in zip(dense, maps)]
-    mp = [MPMatrix.from_dense(d, p, t, FS) for d, p in zip(dense, maps)]
-    return comp, mp, maps
-
-
 def check_grouped(gen) -> dict:
-    import torch
-    from repro_torch.core.layout import MPMatrix
-    size, t = SPLIT_SIZE, TILE
-    _, (Am, Bm), maps = grouped_case(size, t, gen)
-    C = MPMatrix.from_dense(torch.zeros((size, size), device=DEVICE),
-                            maps[2], t, Am.fset)
-    err, ratio = kernel_vs_plain("grouped", Am, Bm, C)
-    print(f"grouped {size}^3 t={t} 50D50S: max|kernel-plain| {err:.3e}, "
-          f"worst/allowance {ratio:.3e} (2*K*2^-24*|A||B| + one output "
-          "rounding); one launch for every output class")
-    if not ratio <= 1.0:
-        fail("grouped kernel outside tolerance")
-    return {"err": err}
+    """The grouped kernel over every TILE_MIXES map at each checked tile
+    edge, C = A·B into compact class arrays."""
+    out = {}
+    size = SPLIT_SIZE
+    for t in CHECK_TILES:
+        for label, fkey, hi, q in TILE_MIXES:
+            fs, (A, B, C), _ = tile_case(size, t, fkey, hi, q, gen, seed0=41)
+            err, ratio = kernel_vs_plain("grouped", A, B, zero_c(C))
+            print(f"grouped {size}^3 t={t} {label} [{fkey}]: max|kernel-"
+                  f"plain| {err:.3e}, worst/allowance {ratio:.3e} (2*K*"
+                  "2^-24*|A||B| + one output rounding or quantization "
+                  "step); one launch for every output class")
+            if not ratio <= 1.0:
+                fail(f"grouped {size} t={t} {label} outside tolerance")
+            out[(t, label)] = err
+            del A, B, C
+    return out
 
 
 def convert_input(gen):
@@ -689,11 +755,16 @@ class SolveSpy:
     def __init__(self, n: int):
         from repro_torch.tune import dispatch as D
         self.D, self.real, self.n, self.seen = D, D.mp_matmul, n, {}
+        #: dispatch path -> the kernel paths its C maps call for
+        self.paths: dict[str, set] = {}
 
     def __enter__(self):
         def spy(a, b, c=None, *, alpha=1.0, beta=0.0, plan=None):
             if plan is None:
                 fail("the solve ran a GEMM without a prefetched plan")
+            if plan.path in ("tile", "grouped"):
+                self.paths.setdefault(plan.path, set()).update(
+                    expected_paths(c.cls, a.tile, a.fset))
             if a.shape[1] == self.n:
                 self.seen["residual"] = (a, b, c, alpha, beta, plan.path)
             elif a.shape[0] == self.n - a.tile:
@@ -738,6 +809,7 @@ def solve_phase() -> dict:
                 rep = solve(a, b, cfg, device=DEVICE)
             sync()
             launches = ops.launch_counts()
+            path_counts = ops.path_launch_counts()
         d1 = D.dispatch_counts()
         paths = {p: v - d0.get(p, 0) for p, v in d1.items()
                  if v != d0.get(p, 0)}
@@ -757,7 +829,8 @@ def solve_phase() -> dict:
               f"copies {rep.trail_copy_seconds:.2f} s ({share:.1%}); "
               f"sweeps {[round(v, 3) for v in rep.sweep_seconds]} s; fresh "
               f"resolutions {rep.fresh_resolutions}; dispatch {paths}; "
-              f"kernel launches {launches}")
+              f"kernel launches {launches}; launches per path "
+              f"{path_counts}")
         if label == "store":
             idle = 1 - busy["busy_s"] / rep.total_seconds
             print(f"solve store, profiled: device busy {busy['busy_s']:.3f} s "
@@ -779,6 +852,12 @@ def solve_phase() -> dict:
         for k in (kernel, "convert"):
             if launches[k] < 1:
                 fail(f"solve {label} never launched the {k} kernel")
+        for path, name in (("tile", "mp_gemm_tile"),
+                           ("grouped", "grouped_gemm")):
+            took = {p for p, v in path_counts[name].items() if v}
+            if took != spy.paths.get(path, set()):
+                fail(f"solve {label}: {name} took the paths {took}, its C "
+                     f"maps call for {spy.paths.get(path, set())}")
         if label == "split" and (set(paths) != {"split"} or any(
                 v for k, v in launches.items()
                 if k not in (kernel, "convert"))):
@@ -794,6 +873,7 @@ def solve_phase() -> dict:
                 fail(f"solve {label}: the {path} kernel's {kind} GEMM is "
                      "outside tolerance")
         out[label] = {"launches": launches[kernel],
+                      "paths": path_counts.get(kernel),
                       "convert_launches": launches["convert"],
                       "seconds": rep.total_seconds}
         del spy
@@ -883,39 +963,6 @@ def time_ksplit(gen, policy) -> list[dict]:
     return rows
 
 
-def time_tile(gen) -> dict:
-    import torch
-    from repro_torch.core.precision import map_storage_bytes
-    from repro_torch.kernels import mp_gemm_tile as MT
-    size, t = TILE_SIZES[-1], TILE
-    fs, (A, B, C), maps = tile_case(size, t, "fp8_e4m3+bf16+fp32", 0.5, 0.0,
-                                    gen, seed0=21)
-    specs = MT.format_specs(fs)
-    run = lambda: MT.mp_gemm_tile_multi(   # noqa: E731
-        A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs)
-    ms = time_ms(run, iters=10)
-    plain_ms = time_ms(lambda: MT.mp_gemm_tile_plain(
-        A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs), iters=5)
-    a16 = A.to_dense().to(torch.bfloat16)
-    b16 = B.to_dense().to(torch.bfloat16)
-    lib_ms = time_ms(lambda: torch.matmul(a16, b16), iters=10)
-    pc = maps[2]
-    nbytes = (sum(map_storage_bytes(p, t, fs) for p in maps)
-              + sum(size * size * torch.empty((), dtype=s[1]).element_size()
-                    for s in specs))
-    ops_s = sum(2.0 * int((pc == c).sum()) * t * t * size
-                / peak_for(fs.fmt(int(c)).compute_dtype)
-                for c in np.unique(pc))
-    bound_ms = max(nbytes / PEAK_BYTES_S, ops_s) * 1e3
-    by = "bytes" if nbytes / PEAK_BYTES_S >= ops_s else "operations"
-    print(f"time tile {size}^3 t={t} 50D50S: kernel {ms:.3f} ms "
-          f"({2 * size ** 3 / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} "
-          f"ms ({by}), plain {plain_ms:.3f} ms, torch.matmul bf16 "
-          f"{lib_ms:.3f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": lib_ms}
-
-
 def _ops_bound_s(pc, t, k, fs) -> float:
     """Σ over C classes of 2·(class tiles)·t²·K·slices² over the peak of
     the dtype the class's passes run on (fp32 67, bf16/fp16 989 TFLOP/s)."""
@@ -959,26 +1006,108 @@ def time_split(gen) -> dict:
             "bound_by": by, "library_ms": lib_ms}
 
 
-def time_grouped(gen) -> dict:
+#: phase 6's maps of the 4096³ tile and grouped timings (label,
+#: ratio_high on fp8_e4m3+bf16+fp32); one torch.matmul computes the same
+#: function at 0D100S (bf16) and 100D0S (fp32, TF32 off), at 50D50S
+#: neither does
+TIME_MAPS = (("0D100S", 0.0), ("50D50S", 0.5), ("100D0S", 1.0))
+#: the solve's GEMM shapes at n = 8192, t = 128 (label, M, K, N, the
+#: operands whose map is uniform HIGH): the step-0 trailing update (L and
+#: U panels under the operator's map, C uniform HIGH) and the residual (A
+#: under the operator's map, X and C uniform HIGH), as ``solve/refine.py``
+#: builds them; timed under the solve's start and end maps
+SOLVE_SHAPES = (("trailing", 8064, 128, 8064, (2,)),
+                ("residual", 8192, 8192, 128, (1, 2)))
+SOLVE_MAPS = (("0D100S", 0.0), ("5D95S", 0.05))
+
+
+def expected_paths(pc, t, fs) -> set:
+    """The paths the C tiles of map ``pc`` must take at tile edge t."""
     import torch
+    if t < 64:
+        return {"simple"}
+    return {"tensor_core" if fs.fmt(int(c)).compute_dtype in (
+        torch.bfloat16, torch.float16) else "fp32" for c in np.unique(pc)}
+
+
+def time_tile_grouped(gen) -> dict:
+    """The tile and grouped kernels at 4096³ under TIME_MAPS and at the
+    SOLVE_SHAPES under SOLVE_MAPS, t = 128: kernel, plain version and
+    torch.matmul (bf16 and fp32) times, the bound, and the paths the
+    launches took (each must match the C map's classes)."""
+    import torch
+    from repro_torch.core.layout import CompactMPMatrix
     from repro_torch.core.precision import map_storage_bytes
     from repro_torch.kernels import grouped_gemm as GG
-    size, t = SPLIT_SIZE, TILE
-    (A, B), (Am, Bm), maps = grouped_case(size, t, gen, seed0=61)
-    ms = time_ms(lambda: GG.grouped_mp_gemm(A, B, maps[2]), iters=10)
-    plain_ms = time_ms(lambda: GG.grouped_gemm_plain(A, B, maps[2]),
-                       iters=5)
-    a16 = Am.to_dense().to(torch.bfloat16)
-    b16 = Bm.to_dense().to(torch.bfloat16)
-    lib_ms = time_ms(lambda: torch.matmul(a16, b16), iters=10)
-    nbytes = (A.storage_bytes() + B.storage_bytes()
-              + map_storage_bytes(maps[2], t, A.fset))
-    bound_ms, by = _bound(nbytes, _ops_bound_s(maps[2], t, size, A.fset))
-    print(f"time grouped {size}^3 t={t} 50D50S: kernel {ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({by}), plain {plain_ms:.3f} ms, torch.matmul "
-          f"bf16 {lib_ms:.3f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": lib_ms}
+    from repro_torch.kernels import mp_gemm_tile as MT
+    from repro_torch.kernels import ops
+    t, size = TILE, SPLIT_SIZE
+    cases = ([("4096^3", size, size, size, (), lab, hi)
+              for lab, hi in TIME_MAPS]
+             + [(shape, m, k, n, high, lab, hi)
+                for shape, m, k, n, high in SOLVE_SHAPES
+                for lab, hi in SOLVE_MAPS])
+    rows = {}
+    for shape, m, k, n, high, label, hi in cases:
+        fs, (A, B, C), maps = gemm_case(m, k, n, t, "fp8_e4m3+bf16+fp32", hi,
+                                        0.0, gen, seed0=21, high=high)
+        specs = MT.format_specs(fs)
+        ac = CompactMPMatrix.from_dense(A.to_dense(), A.cls, t, fs)
+        bc = CompactMPMatrix.from_dense(B.to_dense(), B.cls, t, fs)
+        runs = {
+            "tile": (lambda: MT.mp_gemm_tile_multi(
+                A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs),
+                lambda: MT.mp_gemm_tile_plain(
+                    A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs)),
+            "grouped": (lambda: GG.grouped_mp_gemm(ac, bc, C.cls),
+                        lambda: GG.grouped_gemm_plain(ac, bc, C.cls))}
+        ops.reset_launch_counts()
+        for run, _ in runs.values():
+            run()
+        sync()
+        taken = ops.path_launch_counts()
+        want = expected_paths(maps[2], t, fs)
+        for name in ("mp_gemm_tile", "grouped_gemm"):
+            got = {p for p, v in taken[name].items() if v}
+            if got != want:
+                fail(f"{name} at {shape} {label} took the paths {got}, not "
+                     f"{want}")
+        a16, b16 = A.to_dense().to(torch.bfloat16), B.to_dense().to(
+            torch.bfloat16)
+        a32, b32 = A.to_dense(), B.to_dense()
+        lib16 = time_ms(lambda: torch.matmul(a16, b16), iters=10)
+        lib32 = time_ms(lambda: torch.matmul(a32, b32), iters=10)
+        # one torch.matmul computes the same function where every C tile
+        # has one compute dtype: bf16 (0D100S) or fp32 (100D0S, and the
+        # solve shapes, whose C is uniform HIGH)
+        same_dt = ("fp32" if want == {"fp32"} else
+                   "bf16" if label == "0D100S" and not high else None)
+        same = {"fp32": lib32, "bf16": lib16}.get(same_dt)
+        ops_s = _ops_bound_s(maps[2], t, k, fs)
+        out_es = sum(torch.empty((), dtype=sp[1]).element_size()
+                     for sp in specs)
+        nbytes = {
+            "tile": (sum(map_storage_bytes(p, t, fs) for p in maps)
+                     + m * n * out_es),
+            "grouped": (ac.storage_bytes() + bc.storage_bytes()
+                        + map_storage_bytes(maps[2], t, fs))}
+        for kern, (run, plain) in runs.items():
+            ms = time_ms(run, iters=10)
+            plain_ms = time_ms(plain, iters=3)
+            bound_ms, by = _bound(nbytes[kern], ops_s)
+            print(f"time {kern} {shape} {m}x{k}x{n} t={t} {label}: kernel "
+                  f"{ms:.4f} ms ({2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s), "
+                  f"bound {bound_ms:.4f} ms ({by}, {nbytes[kern] / 1e6:.1f} "
+                  f"MB), plain {plain_ms:.4f} ms, torch.matmul bf16 "
+                  f"{lib16:.4f} ms, fp32 (TF32 off) {lib32:.4f} ms"
+                  + (f" (same function: {same_dt})" if same_dt else
+                     " (yardsticks, not the same function)")
+                  + f"; paths {sorted(want)}")
+            rows[(kern, shape, label)] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": same}
+        del A, B, C, ac, bc, a16, b16, a32, b32
+    return rows
 
 
 def time_convert(gen) -> dict:
@@ -1001,6 +1130,51 @@ def time_convert(gen) -> dict:
         rows[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": by, "library_ms": lib_ms}
     return rows[torch.bfloat16]
+
+
+def ptxas_rows(log: str) -> list[str]:
+    """One 'kernel<t>: registers, spill stores/loads' line per entry
+    function of a ptxas -v report."""
+    import re
+    rows, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            # a template kernel's mangled name: ...<length><name>ILi<t>E
+            name, spill = m.group(1)[:60], ""
+            k = re.search(r"ILi(\d+)E", m.group(1))
+            head = m.group(1)[:k.start()] if k else ""
+            for n in range(1, len(head)):
+                if head[:-n].endswith(str(n)) and not head[-n].isdigit():
+                    name = f"{head[-n:]}<{k.group(1)}>"
+                    break
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return rows
+
+
+def check_sass(libs: dict) -> dict:
+    """The tile and grouped libraries must hold wgmma: HGMMA instructions
+    in their SASS (``cuobjdump -sass``).  Returns name -> count."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    counts = {}
+    for name in ("mp_gemm_tile", "grouped_gemm"):
+        sass = subprocess.run([tool, "-sass", libs[name]],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        counts[name] = sass.count("HGMMA")
+        print(f"sass {name}: {counts[name]} HGMMA instructions")
+        if not counts[name]:
+            fail(f"the {name} library has no HGMMA (wgmma) instruction")
+    return counts
 
 
 def main() -> None:
@@ -1034,19 +1208,19 @@ def main() -> None:
              "kernels would not run")
 
     t0 = time.perf_counter()
-    ops.ensure_built()
+    libs = ops.ensure_built()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, in parallel)")
     for name, info in _build.BUILD_INFO.items():
-        regs = [ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"build {name}: " + " | ".join(regs[:8]))
+        print(f"build {name}: " + " | ".join(ptxas_rows(info["log"])))
+    check_sass(libs)
 
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
     policy = Policy(kind="ratio", ratio_high=0.5)   # InternLM2's default
     ks_err = check_ksplit(gen, policy)
     tile_err = check_tile(gen)
+    gr_err = check_grouped(gen)
+    edge_err = check_edges(gen)
     split_err = check_split(gen)
-    gr = check_grouped(gen)
     cv_err = check_convert(gen)
     check_mp_matmul(gen)
     check_mp_matmul_split(gen)
@@ -1056,9 +1230,8 @@ def main() -> None:
     sol = solve_phase()
     parity_phase()
     ks_rows = time_ksplit(gen, policy)
-    tl = time_tile(gen)
+    tg = time_tile_grouped(gen)
     sp = time_split(gen)
-    gt = time_grouped(gen)
     cv = time_convert(gen)
 
     main_row = next(r for r in ks_rows if (r["m"], r["n"]) == (4, 8192))
@@ -1075,10 +1248,9 @@ def main() -> None:
          "source": "src/repro_torch/csrc/mp_gemm_tile.cu",
          "replaces": "src/repro/kernels/mp_gemm_tile.py:121",
          "launches": sol["store"]["launches"],
-         "max_abs_err": max(tile_err.values()),
-         "ms": tl["ms"], "plain_ms": tl["plain_ms"],
-         "bound_ms": tl["bound_ms"], "bound_by": tl["bound_by"],
-         "library_ms": tl["library_ms"]},
+         "max_abs_err": max(*tile_err.values(), *(
+             v for (path, _, _), v in edge_err.items() if path == "tile")),
+         **tg[("tile", "4096^3", "0D100S")]},
         {"name": "split_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/split_gemm.cu",
          "replaces": "src/repro/kernels/split_gemm.py:117",
@@ -1088,7 +1260,9 @@ def main() -> None:
          "source": "src/repro_torch/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:119",
          "launches": sol["grouped"]["launches"],
-         "max_abs_err": gr["err"], **gt},
+         "max_abs_err": max(*gr_err.values(), *(
+             v for (path, _, _), v in edge_err.items() if path == "grouped")),
+         **tg[("grouped", "4096^3", "0D100S")]},
         # the layouts' storage casts on the card: every solve's operands
         {"name": "convert", "route": "cuda",
          "source": "src/repro_torch/csrc/convert.cu",

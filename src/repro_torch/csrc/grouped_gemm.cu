@@ -20,13 +20,20 @@
 // A(i,k) and B(k,j) tile once, from the array and slot its class maps
 // name: the bytes moved are the storage bytes.
 //
-// What bounds it on an H100: at 4096^3, t = 128 it does 137 GFLOP
-// against ~0.2 GB of compact tiles, so it is bound by operations, on
-// the fp32 pipes (the simple tile dot of tile_dot.cuh).
+// What bounds it on an H100: operations.  At 4096^3, t = 128 it does 137
+// GFLOP against ~0.2 GB of compact tiles: the tensor cores (989 TFLOP/s)
+// for bf16/fp16 compute classes (fp8 storage classes compute in bf16),
+// the fp32 FMA pipes (67 TFLOP/s) for fp32 and integer classes.
 //
 // Design: ONE launch for all output classes over a host-built work list
 // of (i, j, class, output slot), one block per C tile, the accumulator in
-// registers over the k loop.
+// registers over the k loop.  At t = 64 and 128 a block runs
+// tile_dot.cuh's staged dot (cp.async of operands already in the compute
+// dtype, conversion of the others on the way, wgmma for bf16/fp16
+// classes, an fp32 FMA register tile otherwise) and its vector epilogue
+// into the class's compact slot; a compact tile is one contiguous t x t
+// block, so every row of a stage's slice is whole 16-byte chunks.  At t =
+// 16 and 32 (wgmma needs 64 rows) it keeps the simple dot.
 
 #include "tile_dot.cuh"
 
@@ -88,10 +95,54 @@ grouped_gemm_kernel(const GroupedArgs a) {
       store_any(O, odt, slot * TT + (ty + G::TDY * r) * T + tx + G::TDX * q, acc[r][q]);
 }
 
+// Stage s of C tile (i, j): the compact A tile (i, kk) and B tile (kk, j)
+// of k tile kk = s * BK / T, from the array and slot their classes name.
+template <int T>
+struct GroupedSource {
+  const GroupedArgs& a;
+  int i, j;
+  __device__ Codes codes(int s) const {
+    const int kk = s * Big<T>::BK / T;
+    return {a.pa[i * a.kt + kk], a.a_slot[i * a.kt + kk], a.pb[kk * a.nt + j],
+            a.b_slot[kk * a.nt + j]};
+  }
+  __device__ void operands(int s, const Codes& c, Opnd& x, Opnd& y) const {
+    constexpr long long TT = static_cast<long long>(T) * T;
+    const int ko = s * Big<T>::BK % T;
+    x = {a.a[c.ca], a.adt[c.ca], c.sa * TT + ko, T};
+    y = {a.b[c.cb], a.bdt[c.cb], c.sb * TT + ko * T, T};
+  }
+};
+
+template <int T>
+__global__ void __launch_bounds__(Big<T>::NTH, 1)
+grouped_gemm_staged(const GroupedArgs a) {
+  extern __shared__ unsigned char smem[];
+  constexpr long long TT = static_cast<long long>(T) * T;
+  const int* w = a.work + 4 * static_cast<long long>(blockIdx.x);
+  const int i = w[0], j = w[1], cls = w[2], slot = w[3];
+  float* out = tile_dot_staged<T>(smem, a.kt * (T / Big<T>::BK), a.comp[cls],
+                                  GroupedSource<T>{a, i, j});
+  store_tile<T>(out, nullptr, 0, 0, 0, 1.0f, 0.0f, a.qmax[cls], a.o, a.odt, a.nf, cls,
+                slot * TT, T, false);
+}
+
+template <int T>
+int launch_staged(const GroupedArgs& a, int smem, cudaStream_t st) {
+  if (smem != Big<T>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(grouped_gemm_staged<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  grouped_gemm_staged<T><<<a.n_work, Big<T>::NTH, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = ok).
-extern "C" int grouped_gemm_launch(const GroupedArgs* args, int tile, int device,
+// Launch on `stream`; `smem` is the staged dot's dynamic shared memory
+// (kernels/mp_gemm_tile.py's launch plan; ignored at t < 64).  Returns the
+// cudaError_t of the launch (0 = ok).
+extern "C" int grouped_gemm_launch(const GroupedArgs* args, int tile, int smem, int device,
                                    void* stream) {
   const GroupedArgs a = *args;
   if (a.nf < 1 || a.nf > GR_MAX_NF || a.kt < 1 || a.nt < 1 || a.n_work < 1)
@@ -102,8 +153,8 @@ extern "C" int grouped_gemm_launch(const GroupedArgs* args, int tile, int device
   switch (tile) {
     case 16: grouped_gemm_kernel<16><<<a.n_work, Geo<16>::NTH, 0, st>>>(a); break;
     case 32: grouped_gemm_kernel<32><<<a.n_work, Geo<32>::NTH, 0, st>>>(a); break;
-    case 64: grouped_gemm_kernel<64><<<a.n_work, Geo<64>::NTH, 0, st>>>(a); break;
-    case 128: grouped_gemm_kernel<128><<<a.n_work, Geo<128>::NTH, 0, st>>>(a); break;
+    case 64: return launch_staged<64>(a, smem, st);
+    case 128: return launch_staged<128>(a, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -14,22 +14,29 @@
 // writes alpha*acc + beta*C into the buffer of C's class and zeros into
 // the others, integer classes after a per-tile absmax quantize-dequantize.
 //
-// What bounds it on an H100: at M = N = K = 4096 and t = 128 it does
+// What bounds it on an H100: operations.  At M = N = K = 4096 it does
 // 2*M*N*K = 137 GFLOP against ~0.3 GB of buffers, far above the card's
-// ridge point, so it is bound by operations — fp32 FMA for fp32-class
-// tiles (this kernel runs every class on the fp32 pipes).
+// ridge point: a bf16/fp16-class C tile (fp8 storage classes compute in
+// bf16) is bound by the tensor cores (989 TFLOP/s dense), an fp32 or
+// integer-class tile by the fp32 FMA pipes (67 TFLOP/s; TF32 is not
+// allowed).  The solve's GEMMs have fp32-class C, so they are bound by
+// fp32 operations, at its trailing update (K = t) with the bytes of C
+// written into every class buffer close behind.
 //
 // Design: one block per C tile, looping over k (blocks run in parallel in
 // any order, so the TPU's sequential k grid axis becomes this loop and the
 // accumulator stays in registers).  For each k tile the block reads the A
 // and B tiles only from the buffer their class maps name (bit-identical to
-// the reference's sum of upcasts, where the other buffers are zero) and
-// runs tile_dot.cuh's dot_simple: operands rounded to the C class's
-// compute dtype while staged in shared memory, one sequential fp32 FMA
-// chain per element.  The epilogue is tile_dot.cuh's too (alpha/beta,
-// the integer classes' NaN-propagating absmax quantize-dequantize, the
-// per-class store), shared with the split kernel.  wgmma/TMA and
-// tensor-core classes come later.
+// the reference's sum of upcasts, where the other buffers are zero).  At
+// t = 64 and 128 it runs tile_dot.cuh's staged dot: operands already in
+// the C class's compute dtype by cp.async straight into shared memory,
+// the others converted on the way, then wgmma on the tensor cores for a
+// bf16/fp16 class or an 8 x 8 register tile of fp32 FMAs otherwise; the
+// epilogue (alpha/beta with C read by vector loads, the integer classes'
+// absmax quantize-dequantize, 8-element vector stores into every class
+// buffer) goes through shared memory.  At t = 16 and 32 (wgmma needs 64
+// rows) it keeps the simple dot and epilogue it shares with the split
+// kernel.
 
 #include "tile_dot.cuh"
 
@@ -88,10 +95,52 @@ mp_gemm_tile_kernel(const TileArgs a) {
   store_classes<T>(acc, a.o, a.odt, a.nf, cls, c0, a.N);
 }
 
+// Stage s of C tile (i, j): the A tile (i, kk) and B tile (kk, j) of k
+// tile kk = s * BK / T, from the dense buffers their classes name.
+template <int T>
+struct TileSource {
+  const TileArgs& a;
+  int i, j;
+  __device__ Codes codes(int s) const {
+    const int kk = s * Big<T>::BK / T;
+    return {a.pa[i * (a.K / T) + kk], 0, a.pb[kk * (a.N / T) + j], 0};
+  }
+  __device__ void operands(int s, const Codes& c, Opnd& x, Opnd& y) const {
+    const int kk = s * Big<T>::BK / T, ko = s * Big<T>::BK % T;
+    x = {a.a[c.ca], a.adt[c.ca], static_cast<long long>(i) * T * a.K + kk * T + ko, a.K};
+    y = {a.b[c.cb], a.bdt[c.cb], (static_cast<long long>(kk) * T + ko) * a.N + j * T, a.N};
+  }
+};
+
+template <int T>
+__global__ void __launch_bounds__(Big<T>::NTH, 1)
+mp_gemm_tile_staged(const TileArgs a) {
+  extern __shared__ unsigned char smem[];
+  const int j = blockIdx.x, i = blockIdx.y;
+  const int cls = a.pc[i * (a.N / T) + j];
+  float* out = tile_dot_staged<T>(smem, a.K / Big<T>::BK, a.comp[cls],
+                                  TileSource<T>{a, i, j});
+  const long long c0 = static_cast<long long>(i) * T * a.N + static_cast<long long>(j) * T;
+  store_tile<T>(out, a.c[cls], a.cdt[cls], c0, a.N, a.alpha, a.beta, a.qmax[cls], a.o, a.odt,
+                a.nf, cls, c0, a.N, true);
+}
+
+template <int T>
+int launch_staged(const TileArgs& a, int smem, cudaStream_t st) {
+  if (smem != Big<T>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(mp_gemm_tile_staged<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mp_gemm_tile_staged<T><<<dim3(a.N / T, a.M / T), Big<T>::NTH, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = ok).
-extern "C" int mp_gemm_tile_launch(const TileArgs* args, int tile, int device,
+// Launch on `stream`; `smem` is the staged dot's dynamic shared memory
+// (kernels/mp_gemm_tile.py's launch plan; ignored at t < 64).  Returns the
+// cudaError_t of the launch (0 = ok).
+extern "C" int mp_gemm_tile_launch(const TileArgs* args, int tile, int smem, int device,
                                    void* stream) {
   const TileArgs a = *args;
   if (a.nf < 1 || a.nf > TL_MAX_NF || a.M % tile || a.K % tile || a.N % tile ||
@@ -104,8 +153,8 @@ extern "C" int mp_gemm_tile_launch(const TileArgs* args, int tile, int device,
   switch (tile) {
     case 16: mp_gemm_tile_kernel<16><<<grid, Geo<16>::NTH, 0, st>>>(a); break;
     case 32: mp_gemm_tile_kernel<32><<<grid, Geo<32>::NTH, 0, st>>>(a); break;
-    case 64: mp_gemm_tile_kernel<64><<<grid, Geo<64>::NTH, 0, st>>>(a); break;
-    case 128: mp_gemm_tile_kernel<128><<<grid, Geo<128>::NTH, 0, st>>>(a); break;
+    case 64: return launch_staged<64>(a, smem, st);
+    case 128: return launch_staged<128>(a, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

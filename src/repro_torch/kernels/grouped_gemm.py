@@ -28,6 +28,10 @@ from repro_torch.kernels import mp_gemm_tile as _tile
 #: launches of the CUDA kernel by :func:`grouped_mp_gemm`
 launches = 0
 
+#: per path (``mp_gemm_tile.PATHS``), launches by :func:`grouped_mp_gemm`
+#: in which at least one C tile took it
+path_launches = dict.fromkeys(_tile.PATHS, 0)
+
 #: tile edges the kernel is compiled for
 TILE_SIZES = _tile.TILE_SIZES
 
@@ -138,6 +142,8 @@ def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
                                torch.float16) \
                     or buf_dtype not in _build.DTYPE_CODES:
                 raise TypeError(f"spec ({compute}, {buf_dtype}) unsupported")
+        _tile.check_aligned((*a.tiles, *b.tiles), t)
+        plan = _tile.launch_plan(t, specs)
         work = work_list(c_cls, len(fset))
         counts = np.bincount(work[:, 2], minlength=len(fset))
         outs = tuple(torch.empty((int(cnt), t, t), dtype=s[1], device=dev0)
@@ -160,10 +166,13 @@ def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
         dev, stream = _build.cuda_args(a.tiles[0])
         lib = _build.load("grouped_gemm", [ctypes.POINTER(_Args),
                                            ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p])
-        err = lib.grouped_gemm_launch(ctypes.byref(args), t, dev, stream)
+                                           ctypes.c_int, ctypes.c_void_p])
+        err = lib.grouped_gemm_launch(ctypes.byref(args), t, plan["smem"],
+                                      dev, stream)
         _build.check_launch("grouped_gemm", err)
         launches += 1
+        for p in _tile.paths_taken(plan, c_cls):
+            path_launches[p] += 1
     return CompactMPMatrix(tuple(outs), c_cls,
                            CompactMPMatrix.make_slots(c_cls), t,
                            (mt * t, nt * t), fset)

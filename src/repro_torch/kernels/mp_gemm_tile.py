@@ -11,7 +11,9 @@ fp32; the result lands in the buffer of C's class (zeros in the others),
 integer classes after a per-tile symmetric absmax quantize-dequantize.
 
 ``FormatSpec`` rows are ``(compute_dtype, buffer_dtype, qmax_or_None)``,
-one per class code (:func:`format_specs`).
+one per class code (:func:`format_specs`).  :func:`launch_plan` says which
+path of the kernel each C class takes and how much shared memory a block
+needs; the grouped kernel shares it.
 """
 from __future__ import annotations
 
@@ -30,6 +32,18 @@ launches = 0
 #: tile edges the kernel is compiled for
 TILE_SIZES = (16, 32, 64, 128)
 
+#: tile edges that run the staged dot of ``csrc/tile_dot.cuh`` (wgmma
+#: needs 64 rows); smaller tiles keep the simple fp32 dot
+STAGED_TILES = (64, 128)
+
+#: the kernel's paths: wgmma on the tensor cores, the staged fp32 FMA
+#: register tile, the simple fp32 dot of t < 64
+PATHS = ("tensor_core", "fp32", "simple")
+
+#: per path, launches by :func:`mp_gemm_tile_multi` in which at least one
+#: C tile took it
+path_launches = dict.fromkeys(PATHS, 0)
+
 _MAX_NF = 3
 
 
@@ -39,6 +53,43 @@ def format_specs(fset: FormatSet) -> tuple:
         (f.compute_dtype, f.buffer_dtype,
          int(f.qmax) if f.per_tile_scaled else None)
         for f in fset.formats())
+
+
+def staged_smem_bytes(tile: int) -> int:
+    """Dynamic shared memory of a staged-dot block (``Big<T>::SMEM`` of
+    ``csrc/tile_dot.cuh``, which the launch refuses to differ from): 1 KB
+    of alignment slack, six compute slots of a bf16/fp16 A slice and B
+    slice (64 deep; the fp32 path uses the same bytes as two fp32 slots)
+    and 64 bytes of reduction scratch."""
+    return 1024 + 6 * 2 * tile * 64 * 2 + 64
+
+
+def launch_plan(tile: int, specs: tuple) -> dict:
+    """How the kernel runs at ``tile`` over the class rows ``specs``:
+    threads per block, dynamic shared memory (0 for the simple dot), and
+    per class code the path a C tile of that class takes."""
+    if tile not in TILE_SIZES:
+        raise ValueError(f"tile {tile} not in the kernel's {TILE_SIZES}")
+    if tile not in STAGED_TILES:
+        return {"threads": min(tile, 32) ** 2, "smem": 0,
+                "paths": ("simple",) * len(specs)}
+    return {"threads": 256 if tile == 128 else 128,
+            "smem": staged_smem_bytes(tile),
+            "paths": tuple("tensor_core" if compute in (torch.bfloat16,
+                                                        torch.float16)
+                           else "fp32" for compute, _, _ in specs)}
+
+
+def paths_taken(plan: dict, c_map) -> set:
+    """The paths the C tiles of class map ``c_map`` take under ``plan``."""
+    return {plan["paths"][int(c)] for c in np.unique(c_map)}
+
+
+def check_aligned(tensors, tile: int) -> None:
+    """The staged dot copies 16-byte chunks: every buffer must start on a
+    16-byte boundary."""
+    if tile in STAGED_TILES and any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("buffers must start on a 16-byte boundary")
 
 
 def quantize_tiles(x: torch.Tensor, tile: int, qmax: int) -> torch.Tensor:
@@ -205,6 +256,8 @@ def mp_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
         if compute not in (torch.float32, torch.bfloat16, torch.float16) \
                 or buf_dtype not in _build.DTYPE_CODES:
             raise TypeError(f"spec ({compute}, {buf_dtype}) unsupported")
+    check_aligned((*a_bufs, *b_bufs, *c_bufs), tile)
+    plan = launch_plan(tile, specs)
     maps = [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(dev0)
             for p in (pa, pb, pc)]
     outs = tuple(torch.empty((m, n), dtype=s[1], device=dev0) for s in specs)
@@ -222,8 +275,12 @@ def mp_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
     a.alpha, a.beta = float(alpha), float(beta)
     dev, stream = _build.cuda_args(a_bufs[0])
     lib = _build.load("mp_gemm_tile", [ctypes.POINTER(_Args), ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p])
-    err = lib.mp_gemm_tile_launch(ctypes.byref(a), tile, dev, stream)
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p])
+    err = lib.mp_gemm_tile_launch(ctypes.byref(a), tile, plan["smem"], dev,
+                                  stream)
     _build.check_launch("mp_gemm_tile", err)
     launches += 1
+    for p in paths_taken(plan, pc):
+        path_launches[p] += 1
     return outs

@@ -29,9 +29,18 @@ def launch_counts() -> dict[str, int]:
     return {name: mod.launches for name, mod in KERNELS.items()}
 
 
+def path_launch_counts() -> dict[str, dict[str, int]]:
+    """Per kernel with several paths (tile, grouped), launches in which
+    at least one C tile took each path, since the last reset."""
+    return {name: dict(mod.path_launches) for name, mod in KERNELS.items()
+            if hasattr(mod, "path_launches")}
+
+
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+        if hasattr(mod, "path_launches"):
+            mod.path_launches = dict.fromkeys(mod.path_launches, 0)
 
 
 def ensure_built() -> dict[str, str]:

@@ -20,10 +20,13 @@ paths:
                     bytes read once, plus the executor's conversions of
                     the MPMatrix operands to and from compact tiles.
 
-Every port path multiplies on the fp32 pipes today (operands rounded to
-the compute dtype, then fp32 FMA), so compute is priced at the device's
-fp32 rate; the registry's per-format pass costs describe tensor-core
-paths the port has not built yet.
+Compute is priced by where each path multiplies.  The tile and grouped
+kernels run a C tile of a bf16 or fp16 compute class on the tensor cores
+at t = 64 and 128 (``low_tflops``) and every other C tile on the fp32
+FMA pipes (``fp32_tflops``), as ``kernels.mp_gemm_tile.launch_plan``
+says; ``tile_flops_s`` sums that per C class.  The split, ksplit and
+plain paths multiply on the fp32 pipes (rounded operands, fp32 FMA; TF32
+is off), so they are priced at the fp32 rate.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet, SplitFormat
+from repro_torch.kernels import mp_gemm_tile as _tile
 from repro_torch.tune.device import DeviceSpec
 
 #: every execution path the dispatcher can route to
@@ -208,6 +212,21 @@ def _slices(prob: GemmProblem, code: int) -> int:
     return fmt.slices if isinstance(fmt, SplitFormat) else 1
 
 
+def tile_flops_s(prob: GemmProblem, dev: DeviceSpec) -> float:
+    """Seconds of multiply-adds of the tile and grouped kernels: each C
+    class's share of ``2·m·n·k`` at the rate of the unit the kernel's
+    launch plan runs its tiles on (tensor cores or fp32 pipes)."""
+    flops = 2.0 * prob.m * prob.n * prob.k
+    paths = (_tile.launch_plan(prob.tile, _tile.format_specs(prob.fset))[
+        "paths"] if prob.tile in _tile.TILE_SIZES else ())
+    total = 0.0
+    for c in prob.c_classes:
+        tc = c < len(paths) and paths[c] == "tensor_core"
+        rate = dev.low_tflops if tc else dev.fp32_tflops
+        total += flops * prob.c_fraction(c) / (rate * 1e12)
+    return total
+
+
 def predict_time(plan: GemmPlan, prob: GemmProblem, dev: DeviceSpec) -> dict:
     """Roofline score; ``total_s`` is the rank key."""
     m, n, k = prob.m, prob.n, prob.k
@@ -246,7 +265,8 @@ def predict_time(plan: GemmPlan, prob: GemmProblem, dev: DeviceSpec) -> dict:
     else:   # ksplit_cuda
         dots, launches = 1, 1
         hbm = a_bytes + b_bytes + m * n * 4.0
-    compute_s = flops * dots / (dev.fp32_tflops * 1e12)
+    compute_s = (tile_flops_s(prob, dev) if plan.path in ("tile", "grouped")
+                 else flops * dots / (dev.fp32_tflops * 1e12))
     hbm_s = hbm / (dev.hbm_gbps * 1e9)
     overhead_s = dev.launch_overhead_s * launches
     return {"compute_s": compute_s, "hbm_s": hbm_s,

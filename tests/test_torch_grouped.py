@@ -238,32 +238,71 @@ def test_grouped_solve_matches_reference(monkeypatch, tmp_path):
     assert pr.fresh_resolutions == 0
 
 
+#: the card checks' format sets and (ratio_high, ratio_low8, edge case)
+#: rows: the five mixes, then e4m3-overflow NaN, inf·0 and subnormal
+#: operands on a mix with every class
+CARD_SETS = SETS[:4] + ("fp8_e4m3+fp16+fp32",)
+CARD_CASES = ((0.0, 0.0, None), (0.5, 0.0, None), (1.0, 0.0, None),
+              (0.4, 0.2, None), (0.4, 0.3, None),
+              (0.3, 0.3, "e4m3-overflow"), (0.3, 0.3, "inf*0"),
+              (0.3, 0.3, "subnormal"))
+
+
+def _card_operands(m, k, n, edge, seed=15):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    if edge == "e4m3-overflow":
+        a[::7, ::5] = 1e3
+    elif edge == "inf*0":
+        a[1, :] = np.inf
+        a[5, 3] = -np.inf
+        b[3, :] = 0.0
+        b[:, 2] = 0.0
+    elif edge == "subnormal":
+        a *= np.float32(1e-39)
+    return a, b
+
+
 @pytest.mark.gpu
-def test_grouped_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("case", CARD_CASES)
+@pytest.mark.parametrize("key", CARD_SETS)
+@pytest.mark.parametrize("t", PG.TILE_SIZES)
+def test_grouped_kernel_matches_plain_on_card(t, key, case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel)")
-    t = 32
-    for key in SETS[:4]:
-        rng = np.random.default_rng(15)
-        a = rng.standard_normal((64, 96)).astype(np.float32)
-        b = rng.standard_normal((96, 64)).astype(np.float32)
-        pa = _map((64, 96), t, key, (0.4, 0.3), 16)
-        pb = _map((96, 64), t, key, (0.4, 0.3), 17)
-        pc_ = _map((64, 64), t, key, (0.4, 0.3), 18)
-        _, ca = _compact(a, pa, t, key)
-        _, cb = _compact(b, pb, t, key)
-        cuda = [PL.CompactMPMatrix(tuple(x.cuda() for x in c.tiles), c.cls,
-                                   c.slot, t, c.shape, c.fset)
-                for c in (ca, cb)]
-        before = PG.launches
-        out = PG.grouped_mp_gemm(*cuda, pc_)
-        assert PG.launches == before + 1
-        plain = PG.grouped_gemm_plain(ca, cb, pc_)
-        want = PL.CompactMPMatrix(plain, pc_, out.slot, t, out.shape,
-                                  ca.fset).to_dense()
-        got = out.to_dense().cpu()
-        am, bm = ca.to_mpmatrix(), cb.to_mpmatrix()
-        zero = tuple(torch.zeros((64, 64), dtype=x.dtype) for x in am.bufs)
-        allow = PMT.order_allowance(am.bufs, bm.bufs, zero, pc_, want,
-                                    tile=t, specs=PMT.format_specs(am.fset))
-        assert PMT.within(got, want, allow)[1] <= 1.0
+    hi, q, edge = case
+    m, k, n = 2 * t, 3 * t, 2 * t
+    a, b = _card_operands(m, k, n, edge)
+    pa = _map((m, k), t, key, (hi, q), 16)
+    pb = _map((k, n), t, key, (hi, q), 17)
+    pc_ = _map((m, n), t, key, (hi, q), 18)
+    _, ca = _compact(a, pa, t, key)
+    _, cb = _compact(b, pb, t, key)
+    cuda = [PL.CompactMPMatrix(tuple(x.cuda() for x in c.tiles), c.cls,
+                               c.slot, t, c.shape, c.fset)
+            for c in (ca, cb)]
+    before = PG.launches
+    out = PG.grouped_mp_gemm(*cuda, pc_)
+    assert PG.launches == before + 1
+    plain = PG.grouped_gemm_plain(ca, cb, pc_)
+    want = PL.CompactMPMatrix(plain, pc_, out.slot, t, out.shape,
+                              ca.fset).to_dense()
+    got = out.to_dense().cpu()
+    am, bm = ca.to_mpmatrix(), cb.to_mpmatrix()
+    zero = tuple(torch.zeros((m, n), dtype=x.dtype) for x in am.bufs)
+    allow = PMT.order_allowance(am.bufs, bm.bufs, zero, pc_, want,
+                                tile=t, specs=PMT.format_specs(am.fset))
+    # NaN as NaN: equal where both have it, infinite error where one does
+    assert PMT.within(got, want, allow)[1] <= 1.0
+
+
+def test_grouped_launch_plan_is_the_tile_kernels():
+    """The grouped kernel runs the tile kernel's staged dot: the same
+    launch plan, and its own per-path counters."""
+    fs = PF.FormatSet.from_key(SETS[0])
+    for t in PG.TILE_SIZES:
+        plan = PMT.launch_plan(t, PMT.format_specs(fs))
+        assert plan["paths"] == ((("tensor_core", "tensor_core", "fp32"))
+                                 if t >= 64 else ("simple",) * 3)
+    assert set(PG.path_launches) == set(PMT.PATHS)

@@ -25,6 +25,7 @@ from repro.kernels import mp_gemm_tile as JMT
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import formats as PF
 from repro_torch.core import layout as PL
+from repro_torch.core import precision as PP
 from repro_torch.kernels import ksplit_gemm as PK
 from repro_torch.kernels import mp_gemm_tile as PMT
 from repro_torch.kernels import ops
@@ -218,20 +219,113 @@ def test_ksplit_kernel_matches_plain_on_card(cuda):
         assert np.all(np.abs((y - plain).numpy()) <= bound)
 
 
+#: the card checks' format sets: operand storage fp32, bf16, fp16, e4m3
+#: and e5m2 into bf16, fp16, fp32 and int8_pt C classes
+CARD_SETS = ("fp8_e4m3+bf16+fp32", "fp8_e4m3+fp16+fp32",
+             "fp8_e5m2+fp16+fp32", "int8_pt+bf16+fp32")
+#: (ratio_high, ratio_low8, edge case): the five mixes, then the edge
+#: cases on a mix with every class
+CARD_CASES = ((0.0, 0.0, None), (0.5, 0.0, None), (1.0, 0.0, None),
+              (0.4, 0.2, None), (0.4, 0.3, None),
+              (0.3, 0.3, "e4m3-overflow"), (0.3, 0.3, "inf*0"),
+              (0.3, 0.3, "subnormal"))
+
+
+def card_operands(shape, edge, seed=0):
+    """Dense A, B, C (numpy fp32) for a card check: standard normal, then
+    the edge case — |a| = 1000 (NaN in an e4m3 tile), rows of A at ±inf
+    against rows of B at 0 (inf·0), or A scaled to bf16/fp32 subnormals
+    with C = 0."""
+    rng = np.random.default_rng(seed)
+    m, k, n = shape
+    a, b, c = (rng.standard_normal(s).astype(np.float32)
+               for s in ((m, k), (k, n), (m, n)))
+    if edge == "e4m3-overflow":
+        a[::7, ::5] = 1e3
+    elif edge == "inf*0":
+        a[1, :] = np.inf
+        a[5, 3] = -np.inf
+        b[3, :] = 0.0
+        b[:, 2] = 0.0
+    elif edge == "subnormal":
+        a *= np.float32(1e-39)
+        c[:] = 0.0
+    return a, b, c
+
+
 @pytest.mark.gpu
-def test_tile_kernel_matches_plain_on_card(cuda):
-    for key in SETS:
-        _, pm, maps, _ = _tile_case(key, 32, (64, 96, 64), (0.4, 0.3))
-        specs = PMT.format_specs(pm[0].fset)
-        outs = PMT.mp_gemm_tile_multi(
-            *[tuple(b.to(cuda) for b in x.bufs) for x in pm], *maps,
-            tile=32, specs=specs, alpha=1.5, beta=0.5)
-        plain = PMT.mp_gemm_tile_plain(
-            pm[0].bufs, pm[1].bufs, pm[2].bufs, *maps, tile=32, specs=specs,
-            alpha=1.5, beta=0.5)
-        kd = sum(o.float().cpu() for o in outs)
-        pd = sum(o.float() for o in plain)
-        assert _within(pm, maps, 32, kd, pd, 1.5, 0.5) <= 1.0
+@pytest.mark.parametrize("case", CARD_CASES)
+@pytest.mark.parametrize("key", CARD_SETS)
+@pytest.mark.parametrize("t", PMT.TILE_SIZES)
+def test_tile_kernel_matches_plain_on_card(cuda, t, key, case):
+    hi, q, edge = case
+    fs = PF.FormatSet.from_key(key)
+    dense = card_operands((2 * t, 3 * t, 2 * t), edge)
+    maps = [PP.make_map(d.shape, t, PP.Policy("ratio", hi, q, seed=i),
+                        fset=fs) for i, d in enumerate(dense)]
+    pm = [PL.MPMatrix.from_dense(torch.from_numpy(d), p, t, fs)
+          for d, p in zip(dense, maps)]
+    specs = PMT.format_specs(fs)
+    beta = 0.0 if edge == "subnormal" else 0.5
+    before = PMT.launches
+    outs = PMT.mp_gemm_tile_multi(
+        *[tuple(b.to(cuda) for b in x.bufs) for x in pm], *maps, tile=t,
+        specs=specs, alpha=1.5, beta=beta)
+    assert PMT.launches == before + 1
+    plain = PMT.mp_gemm_tile_plain(
+        pm[0].bufs, pm[1].bufs, pm[2].bufs, *maps, tile=t, specs=specs,
+        alpha=1.5, beta=beta)
+    kd = sum(o.float().cpu() for o in outs)
+    pd = sum(o.float() for o in plain)
+    # NaN counts as equal where both have it, as an infinite error where
+    # only one does
+    assert _within(pm, maps, t, kd, pd, 1.5, beta) <= 1.0
+
+
+@pytest.mark.parametrize("key", CARD_SETS + ("int4_pt+bf16+fp32",
+                                             "fp8_e5m2+bf16+fp32",
+                                             "fp16+split2_fp16"))
+@pytest.mark.parametrize("t", PMT.TILE_SIZES)
+def test_launch_plan_takes_tensor_cores_for_bf16_fp16_classes(t, key):
+    """The kernel's path per C class: wgmma exactly for a bf16 or fp16
+    compute class at t >= 64, the staged fp32 FMA path for the others
+    there, the simple dot below 64; shared memory within an H100 block's
+    227 KB."""
+    fs = PF.FormatSet.from_key(key)
+    specs = PMT.format_specs(fs)
+    plan = PMT.launch_plan(t, specs)
+    for (compute, _, _), path in zip(specs, plan["paths"]):
+        if t < 64:
+            assert path == "simple"
+        elif compute in (torch.bfloat16, torch.float16):
+            assert path == "tensor_core"
+        else:
+            assert path == "fp32"
+    assert 0 <= plan["smem"] <= 227 * 1024   # what an H100 block may use
+    assert plan["smem"] == (PMT.staged_smem_bytes(t) if t >= 64 else 0)
+    assert plan["threads"] == {16: 256, 32: 1024, 64: 128, 128: 256}[t]
+    codes = np.arange(len(specs)).reshape(1, -1)
+    assert PMT.paths_taken(plan, codes) == set(plan["paths"])
+
+
+def test_path_counters_stay_zero_on_cpu():
+    """On CPU tensors the wrappers run their plain versions: no launch,
+    no path counted."""
+    _, pm, maps, _ = _tile_case(SETS[0], 64, (128, 128, 64), (0.4, 0.3))
+    ops.reset_launch_counts()
+    ops.mp_gemm(*pm, alpha=1.0, beta=0.5)
+    counts = ops.path_launch_counts()
+    assert set(counts) == {"mp_gemm_tile", "grouped_gemm"}
+    assert all(v == 0 for c in counts.values() for v in c.values())
+    assert set(counts["mp_gemm_tile"]) == set(PMT.PATHS)
+
+
+def test_staged_tiles_need_16_byte_aligned_buffers():
+    x = torch.zeros(65, dtype=torch.float32)
+    PMT.check_aligned((x[:64],), 64)
+    PMT.check_aligned((x[1:],), 32)        # the simple dot takes any
+    with pytest.raises(ValueError):
+        PMT.check_aligned((x[1:],), 64)
 
 
 # ---------------------------------------------------------------------------

@@ -77,6 +77,53 @@ def test_h100_routes_mp_matmul_to_the_tile_kernel(size, mix):
     assert plan.path == "tile"
 
 
+@pytest.mark.parametrize("t", [16, 32, 64, 128])
+@pytest.mark.parametrize("mix", [(0.0, 0.0), (0.5, 0.0), (1.0, 0.0),
+                                 (0.4, 0.2)])
+def test_tile_and_grouped_compute_priced_by_the_unit_each_class_runs_on(
+        t, mix):
+    """The tile and grouped kernels run a bf16/fp16-compute C tile on the
+    tensor cores at t = 64 and 128, every other one on the fp32 pipes:
+    the cost model prices each C tile's 2·t²·K at that unit's peak.  The
+    split path stays on the fp32 pipes."""
+    dev = DV.DEVICE_TABLE["gpu-h100"]
+    size = 512
+    maps = [make_map((size, size), t, Policy("ratio", *mix, seed=s))
+            for s in range(3)]
+    prob = CM.GemmProblem.from_maps(*maps, t)
+    fp32_tiles = int((maps[2] == DEFAULT_FORMATS.high).sum())
+    tc_tiles = maps[2].size - fp32_tiles   # bf16 and fp8 (bf16 compute)
+    if t < 64:
+        tc_tiles, fp32_tiles = 0, maps[2].size
+    per_tile = 2.0 * t * t * size
+    want = per_tile * (tc_tiles / (dev.low_tflops * 1e12)
+                       + fp32_tiles / (dev.fp32_tflops * 1e12))
+    for path in ("tile", "grouped"):
+        got = CM.predict_time(CM.GemmPlan(path, t, t, t), prob,
+                              dev)["compute_s"]
+        assert got == pytest.approx(want, rel=1e-9)
+    split = CM.predict_time(CM.GemmPlan("split", t, t, t), prob, dev)
+    assert split["compute_s"] == pytest.approx(
+        2.0 * size ** 3 / (dev.fp32_tflops * 1e12), rel=1e-9)
+
+
+@pytest.mark.parametrize("t", [64, 128])
+@pytest.mark.parametrize("shape", [(8064, 128, 8064), (8192, 8192, 128),
+                                   (4096, 4096, 4096)])
+@pytest.mark.parametrize("hi", [0.0, 0.05, 0.5, 1.0])
+def test_h100_keeps_the_solve_shapes_on_the_tile_kernel(t, shape, hi):
+    """Cheaper tensor-core classes change no routing: the solve's GEMM
+    shapes still resolve to the tile kernel among the solve's paths."""
+    m, k, n = shape
+    maps = [make_map(sh, t, Policy("ratio", hi, 0.0, seed=s))
+            for s, sh in enumerate(((m, k), (k, n), (m, n)))]
+    for beta in (0.0, 1.0):
+        prob = CM.GemmProblem.from_maps(*maps, t, alpha=-1.0, beta=beta)
+        plan, _ = D.resolve_plan(prob, DV.DEVICE_TABLE["gpu-h100"],
+                                 D.SOLVE_PATHS)
+        assert plan.path == "tile"
+
+
 def test_tile_kernel_only_for_its_tile_sizes():
     prob = _mp_prob(64, 8)
     bad = CM.validate_plan(CM.GemmPlan("tile", 8, 8, 8), prob,
