@@ -10,17 +10,21 @@ Phases (each raises on failure, so a failing run never exits 0):
    spec dispatch resolves for it (must be ``gpu-h100``), build the five
    CUDA kernels from ``src/repro_torch/csrc`` (nvcc in parallel), print
    every kernel's registers and spills from ptxas, and read the SASS of
-   the tile and grouped libraries (``cuobjdump -sass``): each must hold
-   ``HGMMA`` (wgmma) instructions;
+   the tile, grouped and split libraries (``cuobjdump -sass``): each must
+   hold ``HGMMA`` (wgmma) instructions;
 2. hold each kernel to its plain PyTorch version on the card: the ksplit
-   kernel at the served InternLM2-1.8B shapes (m = 1 and 4) and at
+   kernel at the served InternLM2-1.8B shapes (m = 1 and 4, rows bitwise
+   equal across m and across two forced launch geometries) and at
    m = 4096, the tile kernel at M = N = K = 1024 and 4096 and the grouped
    kernel at 4096³, both at t = 64 and 128, over four class mixes and one
    integer-class format set, and both on e4m3-overflow NaN, inf·0 and
-   subnormal operands; the split kernel at 4096³, t = 128, for
+   subnormal operands; the split kernel at 4096³, t = 64 and 128, for
    split2_fp16 and split3_e5m2 C classes and a mix with an int8 class,
-   plus its slices bit for bit (B = I); the convert kernel at 8192² into
-   every output dtype, bit for bit;
+   on the same edge operands, plus its slices bit for bit (B = I), and
+   its slice pass alone against its plain version on both operands, bit
+   for bit, at each of those cases and at the solve's residual shape; the
+   convert kernel at 8192² into every output dtype, bit for
+   bit;
 3. ``mp_matmul`` at 1024³ through dispatch: the plan must be ``tile``
    (``split`` with split C classes), the kernel must launch, and the
    result must sit inside the registry-derived error bounds against numpy
@@ -43,13 +47,17 @@ Phases (each raises on failure, so a failing run never exits 0):
    map's classes call for (the solve's C maps are uniform HIGH, fp32, as
    in the reference, so its GEMMs run the fp32 path).  The same three
    solves at n = 1024 on the card and on the CPU (plain versions) must
-   take the same decisions;
-6. time each kernel (CUDA events, median) beside its bound, its plain
-   version and one PyTorch call computing the same function; the tile
+   take the same decisions; every split-solve launch runs one slice
+   pass;
+6. time each kernel (CUDA events, median, the stream held while the
+   call is enqueued, and also unheld) beside its bound, its plain
+   version (unheld) and one PyTorch call computing the same function; the tile
    and grouped kernels at 4096³ under three maps (0D100S, 50D50S,
    100D0S: each must take the tensor-core path exactly where C has
    bf16-class tiles) and at the solve's trailing-update and residual
-   shapes and maps.
+   shapes and maps; the split kernel at 4096³ under split2 and split3
+   50D50S and at the solve's two shapes with uniform split2 C; the ksplit
+   kernel at every served shape, also at one block per column strip.
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -125,24 +133,84 @@ def peak_for(dtype) -> float:
     return PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
 
 
-def time_ms(fn, iters: int = 20, flush=None) -> float:
-    """Median of per-launch CUDA-event times (warm-up first; ``flush``
-    runs between launches, outside the timed span)."""
+#: device cycles the stream is held before each timed launch (~2.5 ms
+#: at the H100's clock): longer than any kernel wrapper's host work, so
+#: the launch is queued before the first event is reached
+HOLD_CYCLES = 5_000_000
+
+
+def event_ms(fn, iters: int = 20, flush=None,
+             hold: bool = True) -> tuple[float, float]:
+    """Median of per-call CUDA-event times (warm-up first; ``flush`` runs
+    between calls, outside the timed span; the garbage collector is off
+    while timing), and the share of calls whose hold lasted.  With
+    ``hold`` the stream is held busy (``torch.cuda._sleep``) before the
+    first event while the host enqueues the call, so the span holds the
+    call's device work and not its host time (a Python wrapper takes
+    tens of us, longer than a decode-width kernel); the hold lasted if
+    the first event was still pending when the call returned, and the
+    median is over those calls only (a call that waits on the stream ends
+    every hold early; a host stall, some).  Without ``hold`` the span
+    also holds the host time the call spends after the first event."""
+    import gc
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        if flush is not None:
-            flush()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+    times, lasted = [], []
+    gc.disable()
+    try:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            if hold:
+                torch.cuda._sleep(HOLD_CYCLES)
+            e0.record()
+            fn()
+            ok = not (hold and e0.query())
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+            lasted.append(ok)
+    finally:
+        gc.enable()
+    kept = [v for v, ok in zip(times, lasted) if ok] or times
+    return float(np.median(kept)), sum(lasted) / iters
+
+
+def time_ms(fn, iters: int = 20, flush=None, hold: bool = True) -> float:
+    """:func:`event_ms`'s median; fails if the hold did not last in at
+    least half the calls (the call waits on the stream, so its time
+    would hold host work).  Kernels and single library calls are timed
+    held; the plain versions, which wait on the stream for host-side maps
+    and launch many kernels, are timed unheld: their host time is part
+    of a call."""
+    ms, lasted = event_ms(fn, iters, flush, hold)
+    if lasted < 0.5:
+        fail(f"a timed call's hold lasted in {lasted:.0%} of {iters} "
+             "calls: the call waits on the stream, and its time would "
+             "hold host work")
+    return ms
+
+
+def device_ms(fn, kernel: str, iters: int = 20, flush=None) -> float:
+    """Mean device time per call of the kernels whose name holds
+    ``kernel``, from ``torch.profiler`` (``flush`` between calls): the
+    kernel's own duration, with neither the host's enqueue time nor the
+    launch latency that an event pair around one launch can take in."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if kernel in e.key) / iters / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +242,31 @@ def ksplit_within(x, ws, y_kernel, y_plain) -> tuple[float, float]:
     return float(err.max()), float((err / (bound + 1e-30)).max())
 
 
+def ksplit_args(ws):
+    fs = ws.fset
+    return ([ws.bufs[c] for c in fs.class_order],
+            [fs.fmt(c) for c in fs.class_order])
+
+
+def check_geometries(x, ws) -> str:
+    """The ksplit kernel at its chosen geometry and at one block per
+    strip (zsplit 1) must give the same bits; returns both."""
+    import torch
+    from repro_torch.kernels import ksplit_gemm as K
+    bufs, fmts = ksplit_args(ws)
+    m, k = x.shape
+    n = bufs[0].shape[1]
+    chosen = K.choose_geometry(m, n, k)
+    single = K.Geometry(K.rows_per_block(m), 1)
+    ya = K.ksplit_gemm_at(x, bufs, fmts, chosen)
+    yb = K.ksplit_gemm_at(x, bufs, fmts, single)
+    sync()
+    if not torch.equal(ya, yb):
+        fail(f"ksplit m={m} K={k} N={n}: geometry {chosen} and {single} "
+             "give different bits")
+    return f"{chosen} == {single} bitwise"
+
+
 def check_ksplit(gen, policy) -> dict:
     import torch
     from repro_torch.kernels import ksplit_gemm as K
@@ -184,18 +277,16 @@ def check_ksplit(gen, policy) -> dict:
             x, ws = ksplit_case(4, k, n, gen, policy)
             y4 = ops.ksplit_matmul_kernel(x, ws)
             y = ops.ksplit_matmul_kernel(x[:m].contiguous(), ws)
-            fs = ws.fset
-            yp = K.ksplit_gemm_plain(
-                x[:m], [ws.bufs[c] for c in fs.class_order],
-                [fs.fmt(c) for c in fs.class_order])
+            yp = K.ksplit_gemm_plain(x[:m], *ksplit_args(ws))
             sync()
             err, ratio = ksplit_within(x[:m], ws, y, yp)
             if not torch.equal(y, y4[:m]):
                 fail(f"ksplit m={m} k={k} n={n}: rows differ from the m=4 "
                      "launch (batch invariance)")
+            geo = check_geometries(x[:m].contiguous(), ws)
             print(f"ksplit m={m} K={k} N={n}: max|kernel-plain| {err:.3e}, "
                   f"worst/bound {ratio:.3e} (bound 2*K*2^-24*sum|x*w|), "
-                  "rows bitwise equal to the m=4 launch")
+                  f"rows bitwise equal to the m=4 launch; geometries {geo}")
             if not ratio <= 1.0:
                 fail(f"ksplit m={m} K={k} N={n} outside tolerance")
             out[(m, k, n)] = err
@@ -203,15 +294,15 @@ def check_ksplit(gen, policy) -> dict:
     x, ws = ksplit_case(mb, kb, nb, gen, policy)
     y = ops.ksplit_matmul_kernel(x, ws)
     y4 = ops.ksplit_matmul_kernel(x[:4].contiguous(), ws)
-    fs = ws.fset
-    yp = K.ksplit_gemm_plain(x, [ws.bufs[c] for c in fs.class_order],
-                             [fs.fmt(c) for c in fs.class_order])
+    y1 = ops.ksplit_matmul_kernel(x[:1].contiguous(), ws)
+    yp = K.ksplit_gemm_plain(x, *ksplit_args(ws))
     sync()
     err, ratio = ksplit_within(x, ws, y, yp)
-    if not torch.equal(y[:4], y4):
-        fail(f"ksplit m={mb}: first rows differ from the m=4 launch")
+    if not (torch.equal(y[:4], y4) and torch.equal(y[:1], y1)):
+        fail(f"ksplit m={mb}: first rows differ from the m=1 / m=4 launches")
     print(f"ksplit m={mb} K={kb} N={nb}: max|kernel-plain| {err:.3e}, "
-          f"worst/bound {ratio:.3e}, rows 0-3 bitwise equal to m=4")
+          f"worst/bound {ratio:.3e}, rows 0-3 bitwise equal to m=4 and row "
+          "0 to m=1")
     if not ratio <= 1.0:
         fail(f"ksplit m={mb} outside tolerance")
     out[KSPLIT_BIG] = err
@@ -388,52 +479,117 @@ SPLIT_MIXES = (
 
 
 def check_split(gen) -> dict:
-    """The split kernel against its plain version over the SPLIT_MIXES,
-    then its slices bit for bit: with B = I and C = 0 every dot is exact,
-    so a split C tile's output is the fp32 sum of A's slices, bitwise."""
+    """The split kernel against its plain version over the SPLIT_MIXES and
+    on the edge operands of ``edge_scale`` at each checked tile edge, then
+    its slices bit for bit: with B = I and C = 0 every dot is exact, so a
+    split C tile's output is the fp32 sum of A's slices, bitwise.  The
+    slice pass alone is held to its plain version on every case's
+    operands and at the solve's residual shape (:func:`check_slices`)."""
     import torch
     from repro_torch.core.formats import FormatSet, split_slices
     from repro_torch.core.layout import MPMatrix
+    from repro_torch.kernels import ops
     from repro_torch.kernels import split_gemm as SG
     from repro_torch.split import recombine, split_format_specs
     out = {}
-    size, t = SPLIT_SIZE, TILE
-    for label, fkey, hi, q in SPLIT_MIXES:
-        fs, (A, B, C), maps = tile_case(size, t, fkey, hi, q, gen, seed0=31)
-        err, ratio = kernel_vs_plain("split", A, B, C, 1.5, 0.5)
-        print(f"split {size}^3 t={t} {label} [{fkey}]: max|kernel-plain| "
-              f"{err:.3e}, worst/allowance {ratio:.3e} (split classes: "
-              "2*K*s^2*2^-24*(|a|*sum|A slices|*sum|B slices|+|b||C|) + "
-              "two split round trips; others as the tile kernel)")
-        if not ratio <= 1.0:
-            fail(f"split {label} outside tolerance")
-        out[label] = err
-        del A, B, C
-    for fkey in ("fp8_e4m3+bf16+split2_fp16", "fp8_e4m3+bf16+split3_e5m2"):
-        fs = FormatSet.from_key(fkey)
-        mt = size // t
-        a = torch.randn((size, size), generator=gen, device=DEVICE) * (
-            10.0 ** torch.randint(-7, 4, (size, 1), generator=gen,
-                                  device=DEVICE).float())
-        hi = np.full((mt, mt), fs.high, np.int8)
-        A = MPMatrix.from_dense(a, hi, t, fs)
-        B = MPMatrix.from_dense(torch.eye(size, device=DEVICE), hi, t, fs)
-        C = MPMatrix.from_dense(torch.zeros((size, size), device=DEVICE),
-                                hi, t, fs)
-        specs = split_format_specs(fs)
-        ok = SG.split_gemm_tile_multi(A.bufs, B.bufs, C.bufs, hi, hi, hi,
-                                      tile=t, specs=specs)
-        f = fs.fmt(fs.high)
-        want = recombine(split_slices(A.bufs[fs.high], f.slices,
-                                      f.slice_dtype))
-        sync()
-        same = torch.equal(ok[fs.high], want)
-        print(f"split slices {f.name} {size}^2 (B = I, |A| over 1e-7..1e3): "
-              f"kernel output == recombine(split_slices(A)) bitwise: {same}")
-        if not same:
-            fail(f"split kernel's {f.name} slices differ from split_slices")
-        del a, A, B, C, ok, want
+    size = SPLIT_SIZE
+    ops.reset_launch_counts()
+    for t in CHECK_TILES:
+        for label, fkey, hi, q in SPLIT_MIXES:
+            fs, (A, B, C), maps = tile_case(size, t, fkey, hi, q, gen,
+                                            seed0=31)
+            err, ratio = kernel_vs_plain("split", A, B, C, 1.5, 0.5)
+            out[("slices", t, label)] = check_slices(A, B, C,
+                                                     f"{size}^3 {label}")
+            print(f"split {size}^3 t={t} {label} [{fkey}]: max|kernel-plain| "
+                  f"{err:.3e}, worst/allowance {ratio:.3e} (split classes: "
+                  "2*K*s^2*2^-24*(|a|*sum|A slices|*sum|B slices|+|b||C|) + "
+                  "two split round trips; others as the tile kernel)")
+            if not ratio <= 1.0:
+                fail(f"split {label} t={t} outside tolerance")
+            out[(t, label)] = err
+            del A, B, C
+        for fkey in ("fp8_e4m3+bf16+split2_fp16", "fp8_e4m3+bf16+split3_e5m2"):
+            for kind in ("e4m3-overflow", "inf*0", "subnormal"):
+                fs, (A, B, C), _ = gemm_case(2 * t, 3 * t, 2 * t, t, fkey,
+                                             0.3, 0.3, gen, seed0=71,
+                                             scale=edge_scale(kind))
+                err, ratio = kernel_vs_plain("split", A, B, zero_c(C))
+                out[("slices", t, kind, fkey)] = check_slices(
+                    A, B, C, f"edge {kind} [{fkey}]")
+                print(f"edge {kind} split t={t} [{fkey}]: max|kernel-plain| "
+                      f"{err:.3e}, worst/allowance {ratio:.3e} (NaN as NaN)")
+                if not ratio <= 1.0:
+                    fail(f"split kernel on {kind} at t={t} [{fkey}] outside "
+                         "tolerance or NaN elsewhere than the plain version")
+                out[(t, kind, fkey)] = err
+        for fkey in ("fp8_e4m3+bf16+split2_fp16", "fp8_e4m3+bf16+split3_e5m2"):
+            fs = FormatSet.from_key(fkey)
+            mt = size // t
+            a = torch.randn((size, size), generator=gen, device=DEVICE) * (
+                10.0 ** torch.randint(-7, 4, (size, 1), generator=gen,
+                                      device=DEVICE).float())
+            hm = np.full((mt, mt), fs.high, np.int8)
+            A = MPMatrix.from_dense(a, hm, t, fs)
+            B = MPMatrix.from_dense(torch.eye(size, device=DEVICE), hm, t, fs)
+            C = MPMatrix.from_dense(torch.zeros((size, size), device=DEVICE),
+                                    hm, t, fs)
+            ok = SG.split_gemm_tile_multi(A.bufs, B.bufs, C.bufs, hm, hm, hm,
+                                          tile=t,
+                                          specs=split_format_specs(fs))
+            f = fs.fmt(fs.high)
+            want = recombine(split_slices(A.bufs[fs.high], f.slices,
+                                          f.slice_dtype))
+            sync()
+            same = torch.equal(ok[fs.high], want)
+            print(f"split slices {f.name} {size}^2 t={t} (B = I, |A| over "
+                  f"1e-7..1e3): kernel output == recombine(split_slices(A)) "
+                  f"bitwise: {same}")
+            if not same:
+                fail(f"split kernel's {f.name} slices differ from "
+                     f"split_slices at t={t}")
+            del a, A, B, C, ok, want
+    # the solve's residual shape under its end map, C and X uniform split2
+    fs, (A, B, C), _ = gemm_case(SOLVE_N, SOLVE_N, TILE, TILE,
+                                 "fp8_e4m3+bf16+split2_fp16", 0.05, 0.0, gen,
+                                 seed0=91, high=(1, 2))
+    out[("slices", "residual")] = check_slices(
+        A, B, C, f"solve residual {SOLVE_N}x{SOLVE_N}.{SOLVE_N}x{TILE} 5D95S")
+    print(f"split checks: {SG.launches} launches, {SG.prep_launches} slice "
+          "passes")
     return out
+
+
+def check_slices(A, B, C, label) -> float:
+    """The split kernel's slice pass alone (``slice_operands``) for every
+    split class of A's format set against its plain version
+    (``slice_operand_plain``) on both operands, bit for bit (NaN as NaN),
+    so max |kernel - plain| over the other slices is 0.0, returned."""
+    import torch
+    from repro_torch.kernels import split_gemm as SG
+    from repro_torch.split import split_format_specs
+    fs, t = A.fset, A.tile
+    specs = split_format_specs(fs)
+    for code, spec in enumerate(specs):
+        if spec[3] < 2:
+            continue
+        got = SG.slice_operands(A.bufs, B.bufs, C.bufs, A.cls, B.cls, C.cls,
+                                tile=t, specs=specs, code=code)
+        st = SG.slice_store_dtype(spec)
+        for name, M, kern in (("A", A, got[0]), ("B", B, got[1])):
+            want = SG.slice_operand_plain(M.bufs, M.cls, t, spec[3], spec[4],
+                                          st)
+            nan = torch.isnan(kern) & torch.isnan(want)
+            same = bool(((kern.view(torch.int16) == want.view(torch.int16))
+                         | nan).all())
+            print(f"split slice pass {label} t={t} {fs.fmt(code).name} "
+                  f"{name} {tuple(kern.shape)}: == slice_operand_plain "
+                  f"bitwise (NaN as NaN): {same}")
+            if not same:
+                fail(f"the slice pass's {name} slices at {label} t={t} "
+                     "differ from slice_operand_plain")
+        del got
+    return 0.0
 
 
 def check_grouped(gen) -> dict:
@@ -685,12 +841,13 @@ def profile_decode(cfg, params, steps: int = 5) -> dict:
         print(f"profile decode step (batch {B}): wall {wall_ms:.2f} ms; "
               "the profiler saw no device time: busy share not measured")
         return {"wall_ms": wall_ms, "busy_ms": None}
+    ksplit_ms = sum(ms for name, ms in rows if "ksplit" in name)
     print(f"profile decode step (batch {B}): wall {wall_ms:.2f} ms, device "
           f"busy {busy_ms:.2f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.1%}")
+          f"{1 - busy_ms / wall_ms:.1%}; ksplit kernel {ksplit_ms:.3f} ms")
     for name, ms in rows[:8]:
         print(f"profile   {ms:8.3f} ms/step  {name[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ksplit_ms": ksplit_ms}
 
 
 def param_bytes(params) -> int:
@@ -810,6 +967,7 @@ def solve_phase() -> dict:
             sync()
             launches = ops.launch_counts()
             path_counts = ops.path_launch_counts()
+            prep = ops.KERNELS["split_gemm"].prep_launches
         d1 = D.dispatch_counts()
         paths = {p: v - d0.get(p, 0) for p, v in d1.items()
                  if v != d0.get(p, 0)}
@@ -863,6 +1021,13 @@ def solve_phase() -> dict:
                 if k not in (kernel, "convert"))):
             fail(f"the split solve ran GEMMs off the split kernel: {paths}, "
                  f"{launches}")
+        if label == "split":
+            print(f"solve split: {prep} slice passes for "
+                  f"{launches[kernel]} split launches (every C map is "
+                  "uniform split2)")
+            if prep != launches[kernel]:
+                fail("the split solve's launches did not each run one "
+                     "slice pass")
         for kind in ("trailing", "residual"):
             A, B, C, alpha, beta, path = spy.seen[kind]
             e, ratio = kernel_vs_plain(path, A, B, C, alpha, beta)
@@ -875,6 +1040,7 @@ def solve_phase() -> dict:
         out[label] = {"launches": launches[kernel],
                       "paths": path_counts.get(kernel),
                       "convert_launches": launches["convert"],
+                      "prep_launches": prep,
                       "seconds": rep.total_seconds}
         del spy
     return out
@@ -941,8 +1107,16 @@ def time_ksplit(gen, policy) -> list[dict]:
         bufs = [ws.bufs[c] for c in fs.class_order]
         fmts = [fs.fmt(c) for c in fs.class_order]
         ms = time_ms(lambda: ops.ksplit_matmul_kernel(x, ws), flush=flush)
+        span_ms = time_ms(lambda: ops.ksplit_matmul_kernel(x, ws),
+                          flush=flush, hold=False)
+        geom = K.choose_geometry(m, n, k)
+        single = K.Geometry(K.rows_per_block(m), 1)
+        one_ms = time_ms(lambda: K.ksplit_gemm_at(x, bufs, fmts, single),
+                         flush=flush)
+        dev_ms = device_ms(lambda: ops.ksplit_matmul_kernel(x, ws), "ksplit",
+                           flush=flush)
         plain_ms = time_ms(lambda: K.ksplit_gemm_plain(x, bufs, fmts),
-                           iters=5, flush=flush)
+                           iters=5, flush=flush, hold=False)
         wb = torch.randn((k, n), generator=gen, device=DEVICE).to(
             torch.bfloat16)
         lib_ms = time_ms(lambda: torch.matmul(x, wb), flush=flush)
@@ -953,12 +1127,14 @@ def time_ksplit(gen, policy) -> list[dict]:
                     for b, f in zip(bufs, fmts))
         bound_ms = max(nbytes / PEAK_BYTES_S, ops_s) * 1e3
         by = "bytes" if nbytes / PEAK_BYTES_S >= ops_s else "operations"
-        print(f"time ksplit m={m} K={k} N={n}: kernel {ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), plain "
-              f"{plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms")
+        print(f"time ksplit m={m} K={k} N={n}: kernel {ms:.4f} ms at "
+              f"{geom} (unheld {span_ms:.4f} ms; device {dev_ms:.4f} ms; "
+              f"{one_ms:.4f} ms at zsplit 1), bound {bound_ms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), "
+              f"plain {plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms")
         rows.append({"m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": by,
-                     "library_ms": lib_ms})
+                     "library_ms": lib_ms, "device_ms": dev_ms,
+                     "span_ms": span_ms})
         del x, ws, bufs, wb
     return rows
 
@@ -980,30 +1156,93 @@ def _bound(nbytes, ops_s) -> tuple[float, str]:
     return max(nbytes / PEAK_BYTES_S, ops_s) * 1e3, by
 
 
+#: the split timings (label, M, K, N, format-set key, ratio_high, the
+#: operands whose map is uniform HIGH): 4096³ under split2 and split3
+#: 50D50S, and the split solve's two GEMM shapes at n = 8192 (A under the
+#: start map 0D100S, C and the residual's X uniform split2)
+SPLIT_TIMES = (
+    ("split2 50D50S", 4096, 4096, 4096, "fp8_e4m3+bf16+split2_fp16", 0.5, ()),
+    ("split3 50D50S", 4096, 4096, 4096, "fp8_e4m3+bf16+split3_e5m2", 0.5, ()),
+    ("trailing split2 C", 8064, 128, 8064, "fp8_e4m3+bf16+split2_fp16", 0.0,
+     (2,)),
+    ("residual split2 C", 8192, 8192, 128, "fp8_e4m3+bf16+split2_fp16", 0.0,
+     (1, 2)))
+
+
 def time_split(gen) -> dict:
+    """The split kernel at each SPLIT_TIMES case, t = 128: kernel (its
+    slice pass included), plain version and fp32 torch.matmul (TF32 off)
+    times beside the bound.  Returns label -> row; the first is the
+    kernels line's."""
     import torch
     from repro_torch.core.precision import map_storage_bytes
     from repro_torch.kernels import split_gemm as SG
     from repro_torch.split import split_format_specs
-    size, t = SPLIT_SIZE, TILE
-    label, fkey, hi, q = SPLIT_MIXES[0]
-    fs, (A, B, C), maps = tile_case(size, t, fkey, hi, q, gen, seed0=51)
-    specs = split_format_specs(fs)
-    ms = time_ms(lambda: SG.split_gemm_tile_multi(
-        A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs), iters=10)
-    plain_ms = time_ms(lambda: SG.split_gemm_plain(
-        A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs), iters=3)
-    a32, b32 = A.to_dense(), B.to_dense()
-    lib_ms = time_ms(lambda: torch.matmul(a32, b32), iters=10)
-    nbytes = (sum(map_storage_bytes(p, t, fs) for p in maps)
-              + sum(size * size * torch.empty((), dtype=sp[2]).element_size()
-                    for sp in specs))
-    bound_ms, by = _bound(nbytes, _ops_bound_s(maps[2], t, size, fs))
-    print(f"time split {size}^3 t={t} {label}: kernel {ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({by}), plain {plain_ms:.3f} ms, "
-          f"torch.matmul fp32 (TF32 off) {lib_ms:.3f} ms")
+    t = TILE
+    rows = {}
+    for label, m, k, n, fkey, hi, high in SPLIT_TIMES:
+        fs, (A, B, C), maps = gemm_case(m, k, n, t, fkey, hi, 0.0, gen,
+                                        seed0=51, high=high)
+        specs = split_format_specs(fs)
+        run = lambda: SG.split_gemm_tile_multi(  # noqa: E731
+            A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs)
+        ms = time_ms(run, iters=10)
+        span_ms = time_ms(run, iters=10, hold=False)
+        prep_ms = device_ms(run, "split_slices", iters=5)
+        gemm_ms = device_ms(run, "split_gemm_staged", iters=5)
+        plain_ms = time_ms(lambda: SG.split_gemm_plain(
+            A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs), iters=3,
+            hold=False)
+        a32, b32 = A.to_dense(), B.to_dense()
+        lib_ms = time_ms(lambda: torch.matmul(a32, b32), iters=10)
+        nbytes = (sum(map_storage_bytes(p, t, fs) for p in maps)
+                  + sum(m * n * torch.empty((), dtype=sp[2]).element_size()
+                        for sp in specs))
+        bound_ms, by = _bound(nbytes, _ops_bound_s(maps[2], t, k, fs))
+        print(f"time split {label} {m}x{k}x{n} t={t}: kernel {ms:.4f} ms "
+              f"(unheld {span_ms:.4f} ms; device: slice pass {prep_ms:.4f} ms, GEMM {gemm_ms:.4f} "
+              f"ms), bound {bound_ms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), "
+              f"plain {plain_ms:.4f} ms, torch.matmul fp32 (TF32 off) "
+              f"{lib_ms:.4f} ms")
+        rows[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": by, "library_ms": lib_ms}
+        if label == SPLIT_TIMES[0][0]:
+            rows["slice pass"] = time_slice_pass(A, B, C, maps, fs, specs)
+        del A, B, C, a32, b32
+    return rows
+
+
+def time_slice_pass(A, B, C, maps, fs, specs) -> dict:
+    """The split kernel's slice pass alone (``slice_operands``, the first
+    split class) beside its bound and its plain version on both operands;
+    no PyTorch call computes it."""
+    import torch
+    from repro_torch.core.precision import map_storage_bytes
+    from repro_torch.kernels import split_gemm as SG
+    t = A.tile
+    code = next(c for c, sp in enumerate(specs) if sp[3] > 1)
+    spec = specs[code]
+    st = SG.slice_store_dtype(spec)
+    run = lambda: SG.slice_operands(  # noqa: E731
+        A.bufs, B.bufs, C.bufs, *maps, tile=t, specs=specs, code=code)
+    ms = time_ms(run, iters=10)
+    span_ms = time_ms(run, iters=10, hold=False)
+    plain_ms = time_ms(lambda: [SG.slice_operand_plain(
+        M.bufs, M.cls, t, spec[3], spec[4], st) for M in (A, B)], iters=3,
+        hold=False)
+    elems = A.shape[0] * A.shape[1] + B.shape[0] * B.shape[1]
+    nbytes = (map_storage_bytes(maps[0], t, fs)
+              + map_storage_bytes(maps[1], t, fs)
+              + spec[3] * elems * torch.empty((), dtype=st).element_size())
+    # per element and slice: one subtraction and one rounding, fp32 pipes
+    bound_ms, by = _bound(nbytes, 2.0 * spec[3] * elems / PEAK_FP32_FLOPS)
+    print(f"time split slice pass {A.shape[0]}x{A.shape[1]} and "
+          f"{B.shape[0]}x{B.shape[1]} t={t} {fs.fmt(code).name}: kernel "
+          f"{ms:.4f} ms (unheld {span_ms:.4f} ms), bound {bound_ms:.4f} ms "
+          f"({by}, {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, no "
+          "library call")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": lib_ms}
+            "bound_by": by, "library_ms": None}
 
 
 #: phase 6's maps of the 4096³ tile and grouped timings (label,
@@ -1093,10 +1332,12 @@ def time_tile_grouped(gen) -> dict:
                         + map_storage_bytes(maps[2], t, fs))}
         for kern, (run, plain) in runs.items():
             ms = time_ms(run, iters=10)
-            plain_ms = time_ms(plain, iters=3)
+            span_ms = time_ms(run, iters=10, hold=False)
+            plain_ms = time_ms(plain, iters=3, hold=False)
             bound_ms, by = _bound(nbytes[kern], ops_s)
             print(f"time {kern} {shape} {m}x{k}x{n} t={t} {label}: kernel "
-                  f"{ms:.4f} ms ({2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s), "
+                  f"{ms:.4f} ms ({2.0 * m * n * k / ms / 1e9:.1f} TFLOP/s; "
+                  f"unheld {span_ms:.4f} ms), "
                   f"bound {bound_ms:.4f} ms ({by}, {nbytes[kern] / 1e6:.1f} "
                   f"MB), plain {plain_ms:.4f} ms, torch.matmul bf16 "
                   f"{lib16:.4f} ms, fp32 (TF32 off) {lib32:.4f} ms"
@@ -1120,12 +1361,14 @@ def time_convert(gen) -> dict:
     rows = {}
     for dt in CV.OUT_DTYPES:
         ms = time_ms(lambda: CV.convert(x, dt))
-        plain_ms = time_ms(lambda: CV.convert_plain(x, dt))
+        span_ms = time_ms(lambda: CV.convert(x, dt), hold=False)
+        plain_ms = time_ms(lambda: CV.convert_plain(x, dt), hold=False)
         lib_ms = time_ms(lambda: x.to(dt))
         nbytes = x.numel() * (4 + torch.empty((), dtype=dt).element_size())
         bound_ms, by = _bound(nbytes, 0.0)
         print(f"time convert {CONVERT_SIZE}^2 fp32 -> {dt}: kernel "
-              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), plain "
+              f"{ms:.4f} ms (unheld {span_ms:.4f} ms), bound {bound_ms:.4f} "
+              f"ms ({by}), plain "
               f"{plain_ms:.4f} ms, x.to(dtype) {lib_ms:.4f} ms")
         rows[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": by, "library_ms": lib_ms}
@@ -1161,12 +1404,13 @@ def ptxas_rows(log: str) -> list[str]:
 
 
 def check_sass(libs: dict) -> dict:
-    """The tile and grouped libraries must hold wgmma: HGMMA instructions
-    in their SASS (``cuobjdump -sass``).  Returns name -> count."""
+    """The tile, grouped and split libraries must hold wgmma: HGMMA
+    instructions in their SASS (``cuobjdump -sass``).  Returns name ->
+    count."""
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     counts = {}
-    for name in ("mp_gemm_tile", "grouped_gemm"):
+    for name in ("mp_gemm_tile", "grouped_gemm", "split_gemm"):
         sass = subprocess.run([tool, "-sass", libs[name]],
                               capture_output=True, text=True,
                               timeout=300).stdout
@@ -1241,9 +1485,8 @@ def main() -> None:
          "replaces": "src/repro/kernels/ksplit_gemm.py:97",
          "launches": sv["launches"],
          "max_abs_err": max(ks_err.values()),
-         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-         "library_ms": main_row["library_ms"]},
+         **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}},
         {"name": "mp_gemm_tile", "route": "cuda",
          "source": "src/repro_torch/csrc/mp_gemm_tile.cu",
          "replaces": "src/repro/kernels/mp_gemm_tile.py:121",
@@ -1255,7 +1498,17 @@ def main() -> None:
          "source": "src/repro_torch/csrc/split_gemm.cu",
          "replaces": "src/repro/kernels/split_gemm.py:117",
          "launches": sol["split"]["launches"],
-         "max_abs_err": max(split_err.values()), **sp},
+         "max_abs_err": max(v for key, v in split_err.items()
+                            if key[0] != "slices"),
+         **sp[SPLIT_TIMES[0][0]]},
+        # the split kernel's slice pass, run before each GEMM at t >= 64
+        {"name": "split_slices", "route": "cuda",
+         "source": "src/repro_torch/csrc/split_gemm.cu",
+         "replaces": "src/repro/kernels/split_gemm.py:117",
+         "launches": sol["split"]["prep_launches"],
+         "max_abs_err": max(v for key, v in split_err.items()
+                            if key[0] == "slices"),
+         **sp["slice pass"]},
         {"name": "grouped_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:119",

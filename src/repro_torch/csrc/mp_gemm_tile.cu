@@ -95,23 +95,6 @@ mp_gemm_tile_kernel(const TileArgs a) {
   store_classes<T>(acc, a.o, a.odt, a.nf, cls, c0, a.N);
 }
 
-// Stage s of C tile (i, j): the A tile (i, kk) and B tile (kk, j) of k
-// tile kk = s * BK / T, from the dense buffers their classes name.
-template <int T>
-struct TileSource {
-  const TileArgs& a;
-  int i, j;
-  __device__ Codes codes(int s) const {
-    const int kk = s * Big<T>::BK / T;
-    return {a.pa[i * (a.K / T) + kk], 0, a.pb[kk * (a.N / T) + j], 0};
-  }
-  __device__ void operands(int s, const Codes& c, Opnd& x, Opnd& y) const {
-    const int kk = s * Big<T>::BK / T, ko = s * Big<T>::BK % T;
-    x = {a.a[c.ca], a.adt[c.ca], static_cast<long long>(i) * T * a.K + kk * T + ko, a.K};
-    y = {a.b[c.cb], a.bdt[c.cb], (static_cast<long long>(kk) * T + ko) * a.N + j * T, a.N};
-  }
-};
-
 template <int T>
 __global__ void __launch_bounds__(Big<T>::NTH, 1)
 mp_gemm_tile_staged(const TileArgs a) {
@@ -119,7 +102,7 @@ mp_gemm_tile_staged(const TileArgs a) {
   const int j = blockIdx.x, i = blockIdx.y;
   const int cls = a.pc[i * (a.N / T) + j];
   float* out = tile_dot_staged<T>(smem, a.K / Big<T>::BK, a.comp[cls],
-                                  TileSource<T>{a, i, j});
+                                  TileSource<T, TileArgs>{a, i, j});
   const long long c0 = static_cast<long long>(i) * T * a.N + static_cast<long long>(j) * T;
   store_tile<T>(out, a.c[cls], a.cdt[cls], c0, a.N, a.alpha, a.beta, a.qmax[cls], a.o, a.odt,
                 a.nf, cls, c0, a.N, true);

@@ -6,7 +6,7 @@
 // fp32) and src/repro/kernels/grouped_gemm.py (_kernel).  Two designs
 // live here.
 //
-// The staged dot (t = 64 and 128; the tile and grouped kernels).  What
+// The staged dot (t = 64 and 128; the tile, grouped and split kernels).  What
 // bounds it on an H100 is operations: 2*t^2*K per C tile, on the tensor
 // cores (989 TFLOP/s dense) for a bf16 or fp16 compute class, on the fp32
 // FMA pipes (67 TFLOP/s) for an fp32 or integer class (TF32 is not
@@ -38,8 +38,8 @@
 //     quantize-dequantize over the whole tile, and 8-element vector
 //     stores into every class buffer.
 //
-// The simple dot (dot_simple, t = 16 and 32 of the tile and grouped
-// kernels, and the split kernel's non-split classes at every t): a 32 x 32
+// The simple dot (dot_simple, t = 16 and 32 of the tile, grouped and
+// split kernels): a 32 x 32
 // thread grid (t x t below 32); thread (ty, tx) owns rows ty + TDY*r and
 // columns tx + TDX*q of the tile; operands rounded to the compute dtype
 // into fp32 shared memory, one sequential fp32 FMA chain per element.
@@ -667,6 +667,25 @@ __device__ __forceinline__ void dot_mma(float (&acc)[Big<T>::ACC], unsigned char
   wgmma_wait<0>();
   fence_regs(acc);
 }
+
+// The source of stage s of C tile (i, j) over dense MPMatrix buffers (the
+// tile and split kernels): the A tile (i, kk) and B tile (kk, j) of k tile
+// kk = s * BK / T, from the buffers their classes name.  Args holds the
+// buffers a/b, their dtype codes adt/bdt, the class maps pa/pb and K, N.
+template <int T, class Args>
+struct TileSource {
+  const Args& a;
+  int i, j;
+  __device__ Codes codes(int s) const {
+    const int kk = s * Big<T>::BK / T;
+    return {a.pa[i * (a.K / T) + kk], 0, a.pb[kk * (a.N / T) + j], 0};
+  }
+  __device__ void operands(int s, const Codes& c, Opnd& x, Opnd& y) const {
+    const int kk = s * Big<T>::BK / T, ko = s * Big<T>::BK % T;
+    x = {a.a[c.ca], a.adt[c.ca], static_cast<long long>(i) * T * a.K + kk * T + ko, a.K};
+    y = {a.b[c.cb], a.bdt[c.cb], (static_cast<long long>(kk) * T + ko) * a.N + j * T, a.N};
+  }
+};
 
 // fp32 FMA path: thread (ty, tx) owns rows (i / 4) * 4*TY + 4*ty + i % 4
 // and columns (j / 4) * 4*TX + 4*tx + j % 4 of the tile.

@@ -21,6 +21,7 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,3 +127,12 @@ def cuda_args(t: torch.Tensor) -> tuple[int, int]:
     dev = t.device.index if t.device.index is not None \
         else torch.cuda.current_device()
     return dev, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def upload_int32(arr, device: torch.device) -> torch.Tensor:
+    """An int32 copy of host array ``arr`` on ``device``, queued on the
+    current stream without waiting for it: staged through pinned memory,
+    which the caching host allocator keeps until the copy has run (a
+    pageable copy would wait for all earlier work on the stream)."""
+    host = torch.from_numpy(np.ascontiguousarray(arr, np.int32))
+    return host.pin_memory().to(device, non_blocking=True)

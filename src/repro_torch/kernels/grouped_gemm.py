@@ -148,7 +148,7 @@ def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
         counts = np.bincount(work[:, 2], minlength=len(fset))
         outs = tuple(torch.empty((int(cnt), t, t), dtype=s[1], device=dev0)
                      for cnt, s in zip(counts, specs))
-        tabs = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev0)
+        tabs = [_build.upload_int32(x, dev0)
                 for x in (a.cls, a.slot, b.cls, b.slot, work)]
         args = _Args()
         codes = _build.DTYPE_CODES

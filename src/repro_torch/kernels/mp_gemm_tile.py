@@ -258,8 +258,7 @@ def mp_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
             raise TypeError(f"spec ({compute}, {buf_dtype}) unsupported")
     check_aligned((*a_bufs, *b_bufs, *c_bufs), tile)
     plan = launch_plan(tile, specs)
-    maps = [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(dev0)
-            for p in (pa, pb, pc)]
+    maps = [_build.upload_int32(p, dev0) for p in (pa, pb, pc)]
     outs = tuple(torch.empty((m, n), dtype=s[1], device=dev0) for s in specs)
     a = _Args()
     codes = _build.DTYPE_CODES

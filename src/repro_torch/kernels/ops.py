@@ -39,6 +39,8 @@ def path_launch_counts() -> dict[str, dict[str, int]]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+        if hasattr(mod, "prep_launches"):   # the split kernel's slice pass
+            mod.prep_launches = 0
         if hasattr(mod, "path_launches"):
             mod.path_launches = dict.fromkeys(mod.path_launches, 0)
 

@@ -12,6 +12,14 @@ summed in ``slice_pair_order``, and its store is the split round trip.
 
 Spec rows are ``split_format_specs(fset)``: ``(compute_dtype,
 dot_precision, buffer_dtype, slices, slice_dtype, qmax_or_None)``.
+
+At t = 64 and 128 the wrapper first runs the kernel's slice pass (one
+launch per split spec present, counted in ``prep_launches``): every A
+and B element, read from the buffer its tile's class names, is split
+into its slices, each stored in the class's compute dtype (exact there)
+in workspaces allocated here; the GEMM then runs the slice-pair passes
+on the tensor cores.  :func:`slice_operands` runs the pass alone and
+:func:`slice_operand_plain` is its plain version.
 """
 from __future__ import annotations
 
@@ -26,8 +34,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import mp_gemm_tile as _tile
 from repro_torch.split.recovery import slice_pair_order, split_store
 
-#: launches of the CUDA kernel by :func:`split_gemm_tile_multi`
+#: launches of the CUDA GEMM by :func:`split_gemm_tile_multi`
 launches = 0
+
+#: launches of the slice pass (t = 64 and 128, one per split spec present)
+prep_launches = 0
 
 #: tile edges the kernel is compiled for
 TILE_SIZES = _tile.TILE_SIZES
@@ -38,6 +49,34 @@ MAX_SLICES = 3
 
 _MAX_NF = 3
 _MAX_PAIRS = MAX_SLICES * MAX_SLICES
+
+
+def slice_store_dtype(spec: tuple) -> torch.dtype:
+    """The dtype the slice pass stores a split class's slices in: the
+    class's compute dtype, which must hold every slice exactly (fp16 for
+    fp16 slices; fp16 or bf16 for e5m2 slices, subnormals and inf
+    included)."""
+    compute, sdt = spec[0], spec[4]
+    if compute == torch.float16 or (compute == torch.bfloat16
+                                    and sdt == torch.float8_e5m2):
+        return compute
+    raise TypeError(f"{sdt} slices are not exact in compute dtype {compute}")
+
+
+def slice_operand_plain(bufs, cls_map, tile: int, slices: int,
+                        slice_dtype: torch.dtype,
+                        store_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the slice pass for one operand: every element
+    upcast from the buffer its tile's class names, split into ``slices``
+    ``slice_dtype`` slices (``split_slices``), each stored in
+    ``store_dtype``; returns ``[slices, rows, cols]``."""
+    cls = torch.from_numpy(expand_map(np.asarray(cls_map), tile).astype(
+        np.int64)).to(bufs[0].device)
+    x = bufs[0].float()
+    for code in range(1, len(bufs)):
+        x = torch.where(cls == code, bufs[code].float(), x)
+    return torch.stack([s.to(store_dtype)
+                        for s in split_slices(x, slices, slice_dtype)])
 
 
 def split_dot_ktiled(a32: torch.Tensor, b32: torch.Tensor, slices: int,
@@ -131,6 +170,8 @@ class _Args(ctypes.Structure):
                 ("b", ctypes.c_void_p * _MAX_NF),
                 ("c", ctypes.c_void_p * _MAX_NF),
                 ("o", ctypes.c_void_p * _MAX_NF),
+                ("sa", ctypes.c_void_p * _MAX_NF),
+                ("sb", ctypes.c_void_p * _MAX_NF),
                 ("pa", ctypes.c_void_p), ("pb", ctypes.c_void_p),
                 ("pc", ctypes.c_void_p),
                 ("adt", ctypes.c_int * _MAX_NF),
@@ -147,20 +188,12 @@ class _Args(ctypes.Structure):
                 ("alpha", ctypes.c_float), ("beta", ctypes.c_float)]
 
 
-def split_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
-                          specs: tuple, alpha: float = 1.0,
-                          beta: float = 0.0) -> tuple:
-    """C ← α·A·B + β·C with per-tile precision and split accumulation for
-    split C classes; returns one output buffer per class code.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (or
-    raise)."""
-    global launches
+def _prepare(a_bufs, b_bufs, c_bufs, pa, pb, pc, tile, specs, alpha, beta):
+    """Checks of a CUDA launch, then (argument block, output buffers,
+    device class maps); the maps must live until the launches that read
+    them are queued."""
     m, k, n = _tile._check(a_bufs, b_bufs, c_bufs, pa, pb, pc, tile, specs)
     dev0 = a_bufs[0].device
-    if dev0.type == "cpu":
-        return split_gemm_plain(a_bufs, b_bufs, c_bufs, pa, pb, pc,
-                                tile=tile, specs=specs, alpha=alpha,
-                                beta=beta)
     if not a_bufs[0].is_cuda:
         raise ValueError(f"unsupported device {dev0}")
     if tile not in TILE_SIZES:
@@ -172,15 +205,19 @@ def split_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
             raise TypeError(f"buffer dtype {b.dtype} unsupported")
         if not b.is_contiguous():
             raise ValueError("buffers must be contiguous")
-    for compute, _, buf_dtype, slices, sdt, _ in specs:
+    staged = tile in _tile.STAGED_TILES
+    for spec in specs:
+        compute, _, buf_dtype, slices, sdt, _ = spec
         if compute not in (torch.float32, torch.bfloat16, torch.float16) \
                 or buf_dtype not in _build.DTYPE_CODES:
             raise TypeError(f"spec ({compute}, {buf_dtype}) unsupported")
         if not 1 <= slices <= MAX_SLICES or (
                 slices > 1 and sdt not in SLICE_DTYPES):
             raise TypeError(f"split spec ({slices} x {sdt}) unsupported")
-    maps = [torch.from_numpy(np.ascontiguousarray(p, np.int32)).to(dev0)
-            for p in (pa, pb, pc)]
+        if staged and slices > 1:
+            slice_store_dtype(spec)
+    _tile.check_aligned((*a_bufs, *b_bufs, *c_bufs), tile)
+    maps = [_build.upload_int32(p, dev0) for p in (pa, pb, pc)]
     outs = tuple(torch.empty((m, n), dtype=s[2], device=dev0) for s in specs)
     a = _Args()
     codes = _build.DTYPE_CODES
@@ -197,10 +234,77 @@ def split_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
     a.pa, a.pb, a.pc = (t.data_ptr() for t in maps)
     a.nf, a.M, a.K, a.N = len(specs), m, k, n
     a.alpha, a.beta = float(alpha), float(beta)
+    return a, outs, maps
+
+
+def _slice_pass(a: _Args, f: int, spec: tuple, tile: int, dev0,
+                lib) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the slice pass of split class ``f`` into new workspaces
+    (A's slices ``[s, M, K]``, B's ``[s, K, N]``) and point the argument
+    block at them; they live until the GEMM (same stream) has read
+    them."""
+    global prep_launches
+    st = slice_store_dtype(spec)
+    sa = torch.empty((spec[3], a.M, a.K), dtype=st, device=dev0)
+    sb = torch.empty((spec[3], a.K, a.N), dtype=st, device=dev0)
+    a.sa[f], a.sb[f] = sa.data_ptr(), sb.data_ptr()
+    dev, stream = _build.cuda_args(sa)
+    err = lib.split_prep_launch(ctypes.byref(a), f, tile, dev, stream)
+    _build.check_launch("split_gemm slice pass", err)
+    prep_launches += 1
+    return sa, sb
+
+
+def slice_operands(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
+                   specs: tuple, code: int) -> tuple:
+    """The slice pass alone for split class ``code`` (CUDA tensors, t =
+    64 or 128): the slices of A ``[s, M, K]`` and of B ``[s, K, N]`` as
+    the GEMM reads them.  Its plain version is
+    :func:`slice_operand_plain`, per operand."""
+    if tile not in _tile.STAGED_TILES or specs[code][3] < 2:
+        raise ValueError(f"no slice pass for class {code} at t={tile}")
+    a, _, maps = _prepare(a_bufs, b_bufs, c_bufs, pa, pb, pc, tile, specs,
+                          1.0, 0.0)
+    return _slice_pass(a, code, specs[code], tile, a_bufs[0].device, _lib())
+
+
+def split_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
+                          specs: tuple, alpha: float = 1.0,
+                          beta: float = 0.0) -> tuple:
+    """C ← α·A·B + β·C with per-tile precision and split accumulation for
+    split C classes; returns one output buffer per class code.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    global launches
+    if a_bufs[0].device.type == "cpu":
+        _tile._check(a_bufs, b_bufs, c_bufs, pa, pb, pc, tile, specs)
+        return split_gemm_plain(a_bufs, b_bufs, c_bufs, pa, pb, pc,
+                                tile=tile, specs=specs, alpha=alpha,
+                                beta=beta)
+    a, outs, maps = _prepare(a_bufs, b_bufs, c_bufs, pa, pb, pc, tile,
+                             specs, alpha, beta)
+    lib = _lib()
+    # the slice pass, once per split spec among the C classes present
+    work = {}
+    if tile in _tile.STAGED_TILES:
+        for f in (int(c) for c in np.unique(pc) if specs[int(c)][3] > 1):
+            key = specs[f][3:5] + (specs[f][0],)
+            if key not in work:
+                work[key] = _slice_pass(a, f, specs[f], tile,
+                                        a_bufs[0].device, lib)
+            a.sa[f], a.sb[f] = (t.data_ptr() for t in work[key])
     dev, stream = _build.cuda_args(a_bufs[0])
-    lib = _build.load("split_gemm", [ctypes.POINTER(_Args), ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p])
     err = lib.split_gemm_launch(ctypes.byref(a), tile, dev, stream)
     _build.check_launch("split_gemm", err)
     launches += 1
     return outs
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("split_gemm", [ctypes.POINTER(_Args), ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p])
+    lib.split_prep_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.split_prep_launch.restype = ctypes.c_int
+    return lib

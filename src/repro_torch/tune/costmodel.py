@@ -14,19 +14,23 @@ paths:
                     class on rounded fp32 copies of x and w;
 * ``ksplit_cuda`` — the ksplit CUDA kernel: one launch, weight storage
                     bytes read once;
-* ``split``       — the split CUDA kernel: the tile kernel's traffic, and
-                    ``slices²`` dots for every split C tile;
+* ``split``       — the split CUDA kernel: the tile kernel's traffic, its
+                    slice pass's, and ``slices²`` passes for every split
+                    C tile;
 * ``grouped``     — the grouped CUDA kernel on compact operands: storage
                     bytes read once, plus the executor's conversions of
                     the MPMatrix operands to and from compact tiles.
 
-Compute is priced by where each path multiplies.  The tile and grouped
-kernels run a C tile of a bf16 or fp16 compute class on the tensor cores
-at t = 64 and 128 (``low_tflops``) and every other C tile on the fp32
-FMA pipes (``fp32_tflops``), as ``kernels.mp_gemm_tile.launch_plan``
-says; ``tile_flops_s`` sums that per C class.  The split, ksplit and
-plain paths multiply on the fp32 pipes (rounded operands, fp32 FMA; TF32
-is off), so they are priced at the fp32 rate.
+Compute is priced by where each path multiplies.  The tile, grouped and
+split kernels run a C tile of a bf16 or fp16 compute class on the tensor
+cores at t = 64 and 128 (``low_tflops``) and every other C tile on the
+fp32 FMA pipes (``fp32_tflops``), as ``kernels.mp_gemm_tile.launch_plan``
+says; a split C tile's compute class is its slices' (fp16 for
+split2_fp16, bf16 for split3_e5m2) and it does ``slices²`` passes.
+``tile_flops_s`` sums that per C class.  At t = 16 and 32 every C tile,
+split ones included, runs on the fp32 pipes.  The ksplit and plain paths
+multiply on the fp32 pipes (rounded operands, fp32 FMA; TF32 is off), so
+they are priced at the fp32 rate.
 """
 from __future__ import annotations
 
@@ -213,9 +217,10 @@ def _slices(prob: GemmProblem, code: int) -> int:
 
 
 def tile_flops_s(prob: GemmProblem, dev: DeviceSpec) -> float:
-    """Seconds of multiply-adds of the tile and grouped kernels: each C
-    class's share of ``2·m·n·k`` at the rate of the unit the kernel's
-    launch plan runs its tiles on (tensor cores or fp32 pipes)."""
+    """Seconds of multiply-adds of the tile, grouped and split kernels:
+    each C class's share of ``2·m·n·k``, times ``slices²`` for a split
+    class, at the rate of the unit the kernel's launch plan runs its
+    tiles on (tensor cores or fp32 pipes)."""
     flops = 2.0 * prob.m * prob.n * prob.k
     paths = (_tile.launch_plan(prob.tile, _tile.format_specs(prob.fset))[
         "paths"] if prob.tile in _tile.TILE_SIZES else ())
@@ -223,7 +228,8 @@ def tile_flops_s(prob: GemmProblem, dev: DeviceSpec) -> float:
     for c in prob.c_classes:
         tc = c < len(paths) and paths[c] == "tensor_core"
         rate = dev.low_tflops if tc else dev.fp32_tflops
-        total += flops * prob.c_fraction(c) / (rate * 1e12)
+        total += (flops * prob.c_fraction(c) * _slices(prob, c) ** 2
+                  / (rate * 1e12))
     return total
 
 
@@ -243,13 +249,18 @@ def predict_time(plan: GemmPlan, prob: GemmProblem, dev: DeviceSpec) -> dict:
         # the output re-encoded into nf buffers
         hbm = ((m * k + k * n + m * n) * (s + 4.0)
                + n_cls * (m * k + k * n + 3 * m * n) * 8.0 + m * n * s)
-    elif plan.path in ("tile", "split"):
-        # a split C tile runs slices² dots, a simple one one dot
+    elif plan.path == "tile":
         dots, launches = 1, 1
-        if plan.path == "split":
-            dots = sum(prob.c_fraction(c) * _slices(prob, c) ** 2
-                       for c in prob.c_classes)
         hbm = a_bytes + b_bytes + c_bytes + m * n * s
+    elif plan.path == "split":
+        # at t = 64 and 128 a slice pass writes the slices of A and B
+        # (2 bytes each) and the GEMM reads them back
+        staged = prob.tile in _tile.STAGED_TILES
+        sl = max((_slices(prob, c) for c in split_c_classes(prob)),
+                 default=0) if staged else 0
+        dots, launches = 1, 1 + int(sl > 0)
+        hbm = (a_bytes + b_bytes + c_bytes + m * n * s
+               + (m * k + k * n) * 4.0 * sl)
     elif plan.path == "grouped":
         # kernel: compact storage bytes once; executor: A and B from their
         # buffers to dense fp32 to compact tiles, C from compact tiles to
@@ -265,7 +276,8 @@ def predict_time(plan: GemmPlan, prob: GemmProblem, dev: DeviceSpec) -> dict:
     else:   # ksplit_cuda
         dots, launches = 1, 1
         hbm = a_bytes + b_bytes + m * n * 4.0
-    compute_s = (tile_flops_s(prob, dev) if plan.path in ("tile", "grouped")
+    compute_s = (tile_flops_s(prob, dev)
+                 if plan.path in ("tile", "grouped", "split")
                  else flops * dots / (dev.fp32_tflops * 1e12))
     hbm_s = hbm / (dev.hbm_gbps * 1e9)
     overhead_s = dev.launch_overhead_s * launches

@@ -12,6 +12,8 @@ fp32 sums differs; two orders of a K-term sum differ by at most
 format may differ by one rounding of that format, integer C tiles by one
 quantization step.  Convert is held bit for bit, NaN as NaN.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,6 +118,61 @@ def test_ksplit_wrapper_rejects_bad_operands():
         PK.ksplit_gemm_multi(xp[None], bufs, fmts)         # not 2-D
     with pytest.raises(ValueError):
         PK.ksplit_gemm_multi(xp, bufs, fmts[:2])           # formats short
+
+
+#: (K, N): the served InternLM2-1.8B linears, then narrow, ragged and
+#: deep ones
+GEOMETRY_KN = ((2048, 2048), (2048, 1024), (2048, 8192), (2048, 92544),
+               (8192, 2048), (64, 24), (96, 200), (200, 1000))
+
+
+def chunk_schedule(geom, k: int) -> list[tuple[int, int, int]]:
+    """Where the ksplit kernel computes each chunk partial under ``geom``:
+    per chunk c (in order), (block along K, warp, round), by the kernel's
+    own index arithmetic (``csrc/ksplit_gemm.cu``: ``c0 + warp`` per round
+    of 8 warps at zsplit 1; ``z * cpb + warp + round * 8`` above)."""
+    nch = -(-k // PK.CHUNK)
+    w = PK.WARPS
+    if geom.zsplit == 1:
+        return [(0, c % w, c // w) for c in range(nch)]
+    cpb = -(-nch // geom.zsplit)
+    return [(c // cpb, (c % cpb) % w, (c % cpb) // w) for c in range(nch)]
+
+
+@pytest.mark.parametrize("k,n", GEOMETRY_KN)
+def test_ksplit_geometry_never_changes_chunks_or_order(k, n):
+    """At every M the chooser's geometry, and the forced one-block-per-
+    strip one, compute each 64-k chunk partial exactly once, on one warp
+    of one block (the kernel's own index arithmetic); the chunk width is
+    the kernel's constant and no geometry field, and both reductions add
+    the partials in chunk order — so a row's bits depend on K and the
+    segments alone (the card run compares the two geometries' bits)."""
+    nch = -(-k // PK.CHUNK)
+    assert PK.CHUNK == 64
+    assert [f.name for f in dataclasses.fields(PK.Geometry)] == [
+        "ms", "zsplit"]
+    for m in [*range(1, 65), 96, 128, 255, 256, 512, 4096]:
+        g = PK.choose_geometry(m, n, k)
+        assert g.ms == PK.rows_per_block(m)
+        assert 1 <= g.zsplit <= nch
+        if g.zsplit > 1:
+            assert nch * m * n * 4 <= PK.MAX_WORKSPACE_BYTES
+        for geom in (g, PK.Geometry(g.ms, 1)):
+            sched = chunk_schedule(geom, k)
+            assert len(sched) == nch == len(set(sched))
+            assert all(0 <= z < geom.zsplit and 0 <= w < PK.WARPS
+                       for z, w, _ in sched)
+
+
+def test_ksplit_forced_geometry_needs_a_card():
+    _, xp, _, pw = _ksplit_case(SETS[0], [2, 2, 1, 0], 4, 16, 24,
+                                jnp.bfloat16)
+    bufs = [pw.bufs[c] for c in pw.fset.class_order]
+    fmts = [pw.fset.fmt(c) for c in pw.fset.class_order]
+    before = PK.launches
+    with pytest.raises(ValueError):
+        PK.ksplit_gemm_at(xp, bufs, fmts, PK.choose_geometry(4, 24, 64))
+    assert PK.launches == before
 
 
 def _tile_case(key, t, shape, ratios, seed=0):

@@ -195,6 +195,73 @@ def test_split_plain_matches_pallas(key, ratios):
     assert rep["ok"], rep
 
 
+#: slice dtype of a split format, torch -> jax
+_JSLICE = {torch.float16: jnp.float16, torch.float8_e5m2: jnp.float8_e5m2}
+
+
+@pytest.mark.parametrize("operand", [0, 1])
+@pytest.mark.parametrize("key,ratios", MIXES)
+def test_slice_pass_plain_is_split_slices_of_each_tiles_class(key, ratios,
+                                                              operand):
+    """The slice pass's plain version (what the kernel's pass writes at
+    t = 64 and 128) holds the reference's ``split_slices`` of the operand
+    upcast from the buffer each tile's class names, bit for bit (NaN as
+    NaN), each slice stored exactly in the split class's compute dtype;
+    values span 1e-7..1e4, so second and third slices reach the slice
+    dtypes' subnormals."""
+    rng = np.random.default_rng(11)
+    jfs, pfs = JF.FormatSet.from_key(key), PF.FormatSet.from_key(key)
+    shape = ((32, 48), (48, 32))[operand]
+    dense = (rng.standard_normal(shape) * 10.0 ** rng.uniform(-7, 4, shape)
+             ).astype(np.float32)
+    cls = JP.make_map(shape, T, JP.Policy("ratio", *ratios, seed=5),
+                      fset=jfs)
+    jm = JL.MPMatrix.from_dense(jnp.asarray(dense), cls, T, jfs)
+    pm = PL.MPMatrix.from_dense(torch.from_numpy(dense), cls, T, pfs)
+    for jb, pb in zip(jm.bufs, pm.bufs):
+        assert_same_bits(jb, pb)
+    spec = PR.split_format_specs(pfs)[pfs.high]
+    store = PS.slice_store_dtype(spec)
+    assert store == spec[0]
+    sel = PL.expand_map(cls, T)
+    x = np.zeros(shape, np.float32)
+    for code, b in enumerate(jm.bufs):
+        x = np.where(sel == code, np.asarray(b).astype(np.float32), x)
+    want = JF.split_slices(jnp.asarray(x), spec[3], _JSLICE[spec[4]])
+    got = PS.slice_operand_plain(pm.bufs, cls, T, spec[3], spec[4], store)
+    assert got.dtype == store and tuple(got.shape) == (spec[3], *shape)
+    for w, g in zip(want, got):
+        assert_same_bits(w, g.to(spec[4]))           # the slice itself
+        wf = np.asarray(w).astype(np.float32)
+        ok = ~np.isnan(wf)
+        np.testing.assert_array_equal(g.float().numpy()[ok], wf[ok])
+
+
+def test_slice_store_dtype_needs_exact_slices():
+    """fp16 slices are stored in fp16, e5m2 slices in bf16 or fp16; fp16
+    slices in bf16 would round, so that spec is refused."""
+    f16, bf16, e5m2 = torch.float16, torch.bfloat16, torch.float8_e5m2
+    assert PS.slice_store_dtype((f16, None, None, 2, f16, None)) == f16
+    assert PS.slice_store_dtype((bf16, None, None, 3, e5m2, None)) == bf16
+    assert PS.slice_store_dtype((f16, None, None, 3, e5m2, None)) == f16
+    with pytest.raises(TypeError):
+        PS.slice_store_dtype((bf16, None, None, 2, f16, None))
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+def test_slice_pass_alone_has_no_cpu_path(tile):
+    """``slice_operands`` launches the kernel's slice pass or raises: on
+    CPU tensors (no kernel) and at t < 64 (no pass) it refuses."""
+    pfs = PF.FormatSet.from_key("fp8_e4m3+bf16+split2_fp16")
+    cls = np.full((2, 2), pfs.high, np.int8)
+    mats = [PL.MPMatrix.from_dense(torch.ones((2 * tile, 2 * tile)), cls,
+                                   tile, pfs) for _ in range(3)]
+    specs = PR.split_format_specs(pfs)
+    with pytest.raises(ValueError, match="slice pass|device"):
+        PS.slice_operands(*(m.bufs for m in mats), cls, cls, cls,
+                          tile=tile, specs=specs, code=pfs.high)
+
+
 @pytest.mark.parametrize("key,ratios", MIXES[:3])
 def test_split_gemm_ref_agrees_with_plain(key, ratios):
     _, pm, maps, _ = _case(key, ratios, shape=(32, 32, 32), seed=3)

@@ -85,7 +85,8 @@ def test_tile_and_grouped_compute_priced_by_the_unit_each_class_runs_on(
     """The tile and grouped kernels run a bf16/fp16-compute C tile on the
     tensor cores at t = 64 and 128, every other one on the fp32 pipes:
     the cost model prices each C tile's 2·t²·K at that unit's peak.  The
-    split path stays on the fp32 pipes."""
+    split kernel runs its simple C tiles on the same staged dot, so the
+    split path prices them the same way."""
     dev = DV.DEVICE_TABLE["gpu-h100"]
     size = 512
     maps = [make_map((size, size), t, Policy("ratio", *mix, seed=s))
@@ -103,8 +104,60 @@ def test_tile_and_grouped_compute_priced_by_the_unit_each_class_runs_on(
                               dev)["compute_s"]
         assert got == pytest.approx(want, rel=1e-9)
     split = CM.predict_time(CM.GemmPlan("split", t, t, t), prob, dev)
-    assert split["compute_s"] == pytest.approx(
-        2.0 * size ** 3 / (dev.fp32_tflops * 1e12), rel=1e-9)
+    assert split["compute_s"] == pytest.approx(want, rel=1e-9)
+
+
+SPLIT_KEYS = ("fp8_e4m3+bf16+split2_fp16", "fp8_e4m3+bf16+split3_e5m2",
+              "int8_pt+bf16+split2_fp16")
+
+
+@pytest.mark.parametrize("t", [16, 32, 64, 128])
+@pytest.mark.parametrize("key", SPLIT_KEYS)
+@pytest.mark.parametrize("mix", [(0.0, 0.0), (0.5, 0.0), (1.0, 0.0),
+                                 (0.4, 0.2)])
+def test_split_classes_priced_as_slice_passes_by_unit(t, key, mix):
+    """A split C tile does slices² passes of 2·t²·K at its compute dtype
+    (fp16 for split2_fp16, bf16 for split3_e5m2): on the tensor cores at
+    t = 64 and 128, on the fp32 pipes below; its simple classes are
+    priced as the tile kernel prices them (fp32 and integer classes on
+    the fp32 pipes)."""
+    dev = DV.DEVICE_TABLE["gpu-h100"]
+    fs = FormatSet.from_key(key)
+    size = 512
+    maps = [make_map((size, size), t, Policy("ratio", *mix, seed=s),
+                     fset=fs) for s in range(3)]
+    prob = CM.GemmProblem.from_maps(*maps, t, fset=fs)
+    want = 0.0
+    for c in np.unique(maps[2]):
+        f = fs.fmt(int(c))
+        passes = getattr(f, "slices", 1) ** 2
+        tc = t >= 64 and f.compute_dtype in (torch.bfloat16, torch.float16)
+        rate = dev.low_tflops if tc else dev.fp32_tflops
+        want += (2.0 * t * t * size * int((maps[2] == c).sum()) * passes
+                 / (rate * 1e12))
+    got = CM.predict_time(CM.GemmPlan("split", t, t, t), prob, dev)
+    assert got["compute_s"] == pytest.approx(want, rel=1e-9)
+
+
+@pytest.mark.parametrize("t", [64, 128])
+@pytest.mark.parametrize("shape", [(8064, 128, 8064), (8192, 8192, 128),
+                                   (4096, 4096, 4096), (1024, 1024, 1024)])
+@pytest.mark.parametrize("key", SPLIT_KEYS[:2])
+@pytest.mark.parametrize("hi", [0.0, 0.5, 1.0])
+def test_split_pricing_moves_no_routing(t, shape, key, hi):
+    """With split passes priced on the tensor cores, GEMMs with split C
+    classes still resolve to the split kernel, among the solve's paths
+    and among mp_matmul's: cheaper passes move no routing decision in
+    these shapes (the ref oracle was dearer before and is now more so)."""
+    m, k, n = shape
+    fs = FormatSet.from_key(key)
+    maps = [make_map(sh, t, Policy("ratio", hi, 0.0, seed=s), fset=fs)
+            for s, sh in enumerate(((m, k), (k, n), (m, n)))]
+    maps[2][0, 0] = fs.high   # at least one split C tile
+    prob = CM.GemmProblem.from_maps(*maps, t, beta=1.0, fset=fs)
+    dev = DV.DEVICE_TABLE["gpu-h100"]
+    assert D.resolve_plan(prob, dev, D.SOLVE_PATHS)[0].path == "split"
+    assert D.resolve_plan(prob, dev)[0].path == "split"
 
 
 @pytest.mark.parametrize("t", [64, 128])
