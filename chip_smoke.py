@@ -22,9 +22,14 @@ Phases (each raises on failure, so a failing run never exits 0):
    split2_fp16 and split3_e5m2 C classes and a mix with an int8 class,
    on the same edge operands, plus its slices bit for bit (B = I), and
    its slice pass alone against its plain version on both operands, bit
-   for bit, at each of those cases and at the solve's residual shape; the
-   convert kernel at 8192² into every output dtype, bit for
-   bit;
+   for bit, at each of those cases and at the solve's residual shape; at
+   t = 16 and 32 the split kernel bit for bit against ``split_gemm_ref``
+   (the same fixed summation order) for split2 and split3 C classes
+   beside fp8, bf16 and int8 ones; the convert kernel at 8192² into every
+   output dtype, bit for bit, and its class-map form (the layouts'
+   storage cast) bit for bit against its plain version under mixed and
+   split maps at 8192², at the solve's 8064² C and 8064×128 panel and on
+   a ragged shape;
 3. ``mp_matmul`` at 1024³ through dispatch: the plan must be ``tile``
    (``split`` with split C classes), the kernel must launch, and the
    result must sit inside the registry-derived error bounds against numpy
@@ -40,8 +45,10 @@ Phases (each raises on failure, so a failing run never exits 0):
    kernel), split compute escalation (split kernel only) and the grouped
    residual path (grouped kernel); each must escalate, converge (fp64
    HPL-MxP metric ≤ tol) with a forward error ≤ 1e-2 and no fresh
-   mid-solve plan resolution, on its kernel and the convert kernel (the
-   layouts' storage casts); each solve's last step-0 trailing update and
+   mid-solve plan resolution, on its kernel and the convert kernel's
+   class-map form (the layouts' storage casts: no class map expanded on
+   the host; the non-copy GEMM seconds and convert launches by form are
+   printed); each solve's last step-0 trailing update and
    last residual GEMM are replayed through their kernel and its plain
    version; every tile and grouped launch must take the path its C
    map's classes call for (the solve's C maps are uniform HIGH, fp32, as
@@ -57,7 +64,10 @@ Phases (each raises on failure, so a failing run never exits 0):
    bf16-class tiles) and at the solve's trailing-update and residual
    shapes and maps; the split kernel at 4096³ under split2 and split3
    50D50S and at the solve's two shapes with uniform split2 C; the ksplit
-   kernel at every served shape, also at one block per column strip.
+   kernel at every served shape, also at one block per column strip; the
+   convert kernel into every output dtype beside ``x.to``, and its
+   class-map form at the solve's 8064² C and an 8192² 5D95S operand
+   beside its bound and the per-class chain it replaced.
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -560,6 +570,46 @@ def check_split(gen) -> dict:
     return out
 
 
+#: the split kernel's fixed summation order at t = 16 and 32 (label,
+#: format-set key, ratio_high, ratio_low8): split2 and split3 C classes
+#: beside fp8 and bf16 ones, and beside an int8 class (fp32 compute)
+ORDER_TILES = (16, 32)
+ORDER_SIZE = 256
+ORDER_MIXES = (
+    ("split2 40D30S30Q", "fp8_e4m3+bf16+split2_fp16", 0.4, 0.3),
+    ("split3 40D30S30Q", "fp8_e4m3+bf16+split3_e5m2", 0.4, 0.3),
+    ("split2 40D40S20Q-int8", "int8_pt+bf16+split2_fp16", 0.4, 0.2),
+)
+
+
+def check_split_order(gen) -> None:
+    """At t = 16 and 32 the split kernel sums in a fixed order (one FMA
+    chain per slice pair and k tile, pairs in slice_pair_order; simple
+    classes one chain over K), which ``split_gemm_ref`` follows operation
+    for operation: every output buffer, i.e. every C class, must be equal
+    to it bit for bit (NaN as NaN)."""
+    from repro_torch.kernels import split_gemm as SG
+    from repro_torch.split import split_format_specs, split_gemm_ref
+    for t in ORDER_TILES:
+        for label, fkey, hi, q in ORDER_MIXES:
+            fs, (A, B, C), maps = tile_case(ORDER_SIZE, t, fkey, hi, q, gen,
+                                            seed0=61)
+            got = SG.split_gemm_tile_multi(
+                A.bufs, B.bufs, C.bufs, *maps, tile=t,
+                specs=split_format_specs(fs), alpha=1.5, beta=0.5)
+            want = split_gemm_ref(A, B, C, 1.5, 0.5).bufs
+            sync()
+            for code in np.unique(maps[2]):
+                same = same_bits(got[code], want[code])
+                print(f"split order {ORDER_SIZE}^3 t={t} {label} [{fkey}] "
+                      f"class {fs.fmt(int(code)).name}: kernel == "
+                      f"split_gemm_ref bitwise (NaN as NaN): {same}")
+                if not same:
+                    fail(f"the split kernel's {fs.fmt(int(code)).name} "
+                         f"tiles at t={t} ({label}) differ from "
+                         "split_gemm_ref")
+
+
 def check_slices(A, B, C, label) -> float:
     """The split kernel's slice pass alone (``slice_operands``) for every
     split class of A's format set against its plain version
@@ -664,7 +714,51 @@ def check_convert(gen) -> dict:
             fail(f"convert to {dt} differs from its plain version")
         out[str(dt)] = err
         del got, want, g, w, differ
+    for label, m, n, fkey, hi, q in CLASS_CASES:
+        fs, cls = class_case(m, n, fkey, hi, q)
+        xs = x[:m, :n].contiguous()
+        got = CV.convert_by_class(xs, cls, TILE, fs)
+        want = CV.convert_by_class_plain(xs, cls, TILE, fs)
+        sync()
+        ok = all(same_bits(g, w) for g, w in zip(got, want))
+        print(f"convert_by_class {label} [{fkey}] t={TILE}: every buffer "
+              f"bitwise equal to the plain version (NaN as NaN): {ok}")
+        if not ok:
+            fail(f"convert_by_class {label} differs from its plain version")
+        out[label] = 0.0
+        del got, want, xs
     return out
+
+
+#: the class-map form's checks (label, rows, cols, format-set key,
+#: ratio_high, ratio_low8; ratio_high None = uniform HIGH): 8192² maps
+#: with the edge values of convert_input, the solve's trailing-update C
+#: (uniform HIGH) and L panel, and a ragged shape (padding in the kernel)
+CLASS_CASES = (
+    ("8192^2 5D95S", 8192, 8192, "fp8_e4m3+bf16+fp32", 0.05, 0.0),
+    ("8192^2 50D50S", 8192, 8192, "fp8_e4m3+bf16+fp32", 0.5, 0.0),
+    ("8192^2 40D30S30Q split2", 8192, 8192, "fp8_e4m3+bf16+split2_fp16",
+     0.4, 0.3),
+    ("8192^2 50D50S split3", 8192, 8192, "fp16+split3_e5m2", 0.5, 0.0),
+    ("trailing C 8064^2 HIGH", 8064, 8064, "fp8_e4m3+bf16+fp32", None,
+     0.0),
+    ("L panel 8064x128 5D95S", 8064, 128, "fp8_e4m3+bf16+fp32", 0.05, 0.0),
+    ("ragged 8000x8100 40D30S30Q", 8000, 8100, "fp8_e4m3+bf16+fp32", 0.4,
+     0.3),
+)
+
+
+def class_case(m, n, fkey, hi, q):
+    """(format set, tile class map at TILE covering m x n) of a
+    CLASS_CASES row."""
+    from repro_torch.core.formats import FormatSet
+    from repro_torch.core.precision import Policy, make_map
+    fs = FormatSet.from_key(fkey)
+    grid = (-(-m // TILE), -(-n // TILE))
+    if hi is None:
+        return fs, np.full(grid, fs.high, np.int8)
+    return fs, make_map((grid[0] * TILE, grid[1] * TILE), TILE,
+                        Policy("ratio", hi, q, seed=7), fset=fs)
 
 
 # ---------------------------------------------------------------------------
@@ -943,6 +1037,7 @@ def solve_phase() -> dict:
     solve no other GEMM kernel).  Then the kernel of each captured
     trailing update and residual GEMM is held to its plain version on
     those operands."""
+    from repro_torch.core import layout as PL
     from repro_torch.kernels import ops
     from repro_torch.solve import (SolveConfig, graded_spd,
                                    rhs_for_solution, solve)
@@ -960,6 +1055,7 @@ def solve_phase() -> dict:
         d0 = D.dispatch_counts()
         with SolveSpy(SOLVE_N) as spy:
             ops.reset_launch_counts()
+            exp0 = PL.host_map_expansions
             if label == "store":
                 rep, busy = profiled(lambda: solve(a, b, cfg, device=DEVICE))
             else:
@@ -968,6 +1064,9 @@ def solve_phase() -> dict:
             launches = ops.launch_counts()
             path_counts = ops.path_launch_counts()
             prep = ops.KERNELS["split_gemm"].prep_launches
+            launches["convert_by_class"] = ops.KERNELS[
+                "convert"].class_launches
+            expansions = PL.host_map_expansions - exp0
         d1 = D.dispatch_counts()
         paths = {p: v - d0.get(p, 0) for p, v in d1.items()
                  if v != d0.get(p, 0)}
@@ -989,6 +1088,11 @@ def solve_phase() -> dict:
               f"resolutions {rep.fresh_resolutions}; dispatch {paths}; "
               f"kernel launches {launches}; launches per path "
               f"{path_counts}")
+        print(f"solve {label}: GEMM s without the trailing-update host "
+              f"copies {rep.gemm_seconds - rep.trail_copy_seconds:.2f} s; "
+              f"convert launches: class-map form "
+              f"{launches['convert_by_class']}, plain form "
+              f"{launches['convert']}; host map expansions {expansions}")
         if label == "store":
             idle = 1 - busy["busy_s"] / rep.total_seconds
             print(f"solve store, profiled: device busy {busy['busy_s']:.3f} s "
@@ -1007,9 +1111,12 @@ def solve_phase() -> dict:
         if rep.fresh_resolutions:
             fail(f"solve {label}: {rep.fresh_resolutions} fresh mid-solve "
                  "plan resolutions")
-        for k in (kernel, "convert"):
+        for k in (kernel, "convert_by_class"):
             if launches[k] < 1:
                 fail(f"solve {label} never launched the {k} kernel")
+        if expansions:   # the solves' sets have no integer class
+            fail(f"solve {label} expanded {expansions} class maps on the "
+                 "host: its storage casts must take the class-map form")
         for path, name in (("tile", "mp_gemm_tile"),
                            ("grouped", "grouped_gemm")):
             took = {p for p, v in path_counts[name].items() if v}
@@ -1018,7 +1125,7 @@ def solve_phase() -> dict:
                      f"maps call for {spy.paths.get(path, set())}")
         if label == "split" and (set(paths) != {"split"} or any(
                 v for k, v in launches.items()
-                if k not in (kernel, "convert"))):
+                if k not in (kernel, "convert", "convert_by_class"))):
             fail(f"the split solve ran GEMMs off the split kernel: {paths}, "
                  f"{launches}")
         if label == "split":
@@ -1040,6 +1147,9 @@ def solve_phase() -> dict:
         out[label] = {"launches": launches[kernel],
                       "paths": path_counts.get(kernel),
                       "convert_launches": launches["convert"],
+                      "class_launches": launches["convert_by_class"],
+                      "gemm_s_no_copies": (rep.gemm_seconds
+                                           - rep.trail_copy_seconds),
                       "prep_launches": prep,
                       "seconds": rep.total_seconds}
         del spy
@@ -1352,9 +1462,11 @@ def time_tile_grouped(gen) -> dict:
 
 
 def time_convert(gen) -> dict:
-    """Every output dtype; the bf16 row is the one the kernels line
-    carries."""
+    """Every output dtype, then the class-map form at CLASS_TIMES beside
+    its bound and the per-class chain it replaces; the bf16 row, with the
+    class-map rows in it, is the one the kernels line carries."""
     import torch
+    from repro_torch.core.layout import per_class_cast
     from repro_torch.kernels import convert as CV
     x = torch.randn((CONVERT_SIZE, CONVERT_SIZE), generator=gen,
                     device=DEVICE)
@@ -1372,7 +1484,54 @@ def time_convert(gen) -> dict:
               f"{plain_ms:.4f} ms, x.to(dtype) {lib_ms:.4f} ms")
         rows[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": by, "library_ms": lib_ms}
-    return rows[torch.bfloat16]
+    row = rows[torch.bfloat16]
+    for label, m, n, fkey, hi, q in CLASS_TIMES:
+        fs, cls = class_case(m, n, fkey, hi, q)
+        xs = x[:m, :n].contiguous()
+        run = lambda: CV.convert_by_class(xs, cls, TILE, fs)  # noqa: E731
+        chain = lambda: per_class_cast(xs, cls, TILE, fs)  # noqa: E731
+        ms = time_ms(run)
+        span_ms = time_ms(run, hold=False)
+        plain_ms = time_ms(
+            lambda: CV.convert_by_class_plain(xs, cls, TILE, fs),
+            hold=False)
+        host_ms, chain_ms = host_clock_ms(run), host_clock_ms(chain)
+        nbytes = xs.numel() * 4 + sum(b.numel() * b.element_size()
+                                      for b in run())
+        bound_ms, by = _bound(nbytes, 0.0)
+        print(f"time convert_by_class {label} [{fkey}] t={TILE}: kernel "
+              f"{ms:.4f} ms (unheld {span_ms:.4f} ms), bound {bound_ms:.4f} "
+              f"ms ({by}), plain {plain_ms:.4f} ms; host clock with a "
+              f"device sync: kernel {host_ms:.4f} ms, the per-class chain "
+              f"(host map expansion, masked copies, one convert per float "
+              f"class) {chain_ms:.4f} ms")
+        row[f"class_map {label}"] = {
+            "ms": ms, "unheld_ms": span_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "host_clock_ms": host_ms, "per_class_chain_host_clock_ms":
+            chain_ms}
+        del xs
+    return row
+
+
+#: the class-map form's timings (CLASS_CASES rows): the solve's
+#: trailing-update C and L panel, and an 8192² operand under the solve's
+#: end map
+CLASS_TIMES = (CLASS_CASES[4], CLASS_CASES[5], CLASS_CASES[0])
+
+
+def host_clock_ms(fn, iters: int = 10) -> float:
+    """Median host-clock time of ``fn`` followed by a device sync (what a
+    caller that waits for the result sees)."""
+    fn()
+    sync()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
 
 
 def ptxas_rows(log: str) -> list[str]:
@@ -1465,6 +1624,7 @@ def main() -> None:
     gr_err = check_grouped(gen)
     edge_err = check_edges(gen)
     split_err = check_split(gen)
+    check_split_order(gen)
     cv_err = check_convert(gen)
     check_mp_matmul(gen)
     check_mp_matmul_split(gen)
@@ -1517,10 +1677,18 @@ def main() -> None:
              v for (path, _, _), v in edge_err.items() if path == "grouped")),
          **tg[("grouped", "4096^3", "0D100S")]},
         # the layouts' storage casts on the card: every solve's operands
+        # (the class-map form) and the grouped path's compact tiles (the
+        # plain form); ms etc. are the plain form's 8192² -> bf16, the
+        # "class_map ..." rows the class-map form's
         {"name": "convert", "route": "cuda",
          "source": "src/repro_torch/csrc/convert.cu",
          "replaces": "src/repro/kernels/convert.py:23",
-         "launches": sum(v["convert_launches"] for v in sol.values()),
+         "launches": sum(v["convert_launches"] + v["class_launches"]
+                         for v in sol.values()),
+         "launches_by_form": {
+             "convert": sum(v["convert_launches"] for v in sol.values()),
+             "convert_by_class": sum(v["class_launches"]
+                                     for v in sol.values())},
          "max_abs_err": max(cv_err.values()), **cv},
     ]
     print(f"serve tokens/s {sv['tokens_per_s']:.2f}; ksplit launches per "

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time the ksplit, split and tile kernels of two checkouts of the port
-on one card, by the same methods in both:
+"""Time the ksplit, split, tile and convert kernels of two or more
+checkouts of the port on one card, by the same methods in all:
 
-    python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--out FILE]
+    python3 kernel_ab.py PARENT_DIR CHANGE_DIR [CHANGE_DIR:-DNAME=1 ...]
+                         [--out FILE]
 
-Runs PARENT, CHANGE, CHANGE, PARENT, each in a process of its own
-(``python3 kernel_ab.py --worker DIR``) that imports ``repro_torch`` from
-``DIR/src`` (building its kernels there) and takes the cases and timers
-from the ``chip_smoke.py`` beside this script, so both checkouts see the
-same inputs (one seeded generator) and the same clocks:
+Runs the trees in order and then in reverse (PARENT, CHANGE, CHANGE,
+PARENT for two), each in a process of its own (``python3 kernel_ab.py
+--worker DIR[:FLAGS]``) that imports ``repro_torch`` from ``DIR/src``
+(building its kernels there, with the extra nvcc ``FLAGS`` after a colon,
+comma-separated: a variant of a kernel selected by a macro) and takes the
+cases and timers from the ``chip_smoke.py`` beside this script, so every
+checkout sees the same inputs (one seeded generator) and the same clocks:
 
 - ``held``: CUDA events with the stream held while the call is enqueued
   (``chip_smoke.event_ms``); ``held_lasted`` is the share of calls whose
@@ -22,9 +25,19 @@ same inputs (one seeded generator) and the same clocks:
   (``ksplit_gemm._templates``) also with that cache emptied before every
   call.
 
-Each ksplit output's SHA-256 (prefix) shows whether the checkouts give
-the same bits.  Prints one JSON line per run, a summary per case, and
-the card's name and power limit; ``--out`` also writes the runs as JSON.
+- ``host_clock``: the host's time per call followed by a device sync
+  (the convert cases).
+
+The convert cases: the plain form 8192² fp32 -> bf16 and -> e4m3, and
+the storage cast of ``chip_smoke.CLASS_TIMES`` (the solve's 8064²
+uniform-HIGH C, an 8192² operand under 5D95S) as ``MPMatrix.from_dense``
+runs it: the class-map form where the checkout has one, else the
+per-class chain; their ``device`` sums every kernel and copy.
+
+Each ksplit and convert output's SHA-256 (prefix) shows whether the
+checkouts give the same bits.  Prints one JSON line per run, a summary
+per case, and the card's name and power limit; ``--out`` also writes the
+runs as JSON.
 """
 from __future__ import annotations
 
@@ -75,18 +88,31 @@ def timed(S, fn, kernel: str, iters: int, flush=None) -> dict:
             "device": S.device_ms(fn, kernel, iters, flush)}
 
 
-def worker(tree: str) -> dict:
+def sha(t) -> str:
+    import torch
+    torch.cuda.synchronize()
+    return hashlib.sha256(t.cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def worker(spec: str) -> dict:
+    tree, _, flags = spec.partition(":")
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     sys.path.insert(0, HERE)
     import torch
     import chip_smoke as S
+    from repro_torch.core.layout import MPMatrix
     from repro_torch.core.precision import Policy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import convert as CV
     from repro_torch.kernels import ksplit_gemm as K
     from repro_torch.kernels import mp_gemm_tile as MT
     from repro_torch.kernels import ops
     from repro_torch.kernels import split_gemm as SG
     from repro_torch.split import split_format_specs
     torch.backends.cuda.matmul.allow_tf32 = False
+    if flags:
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(flags.split(","))
     t0 = time.perf_counter()
     ops.ensure_built()
     out = {"tree": tree, "build_s": time.perf_counter() - t0, "cases": {}}
@@ -125,6 +151,25 @@ def worker(tree: str) -> dict:
             name = "mp_gemm_tile"
         out["cases"][label] = timed(S, run, name, 10)
         del A, B, C
+    x = torch.randn((S.CONVERT_SIZE, S.CONVERT_SIZE), generator=gen,
+                    device="cuda")
+    for dt in (torch.bfloat16, torch.float8_e4m3fn):
+        run = lambda: CV.convert(x, dt)  # noqa: E731
+        row = timed(S, run, "convert", 20)
+        row["sha256"] = sha(run())
+        out["cases"][f"convert {S.CONVERT_SIZE}^2 -> {dt}"] = row
+    for label, m, n, fkey, hi, q in S.CLASS_TIMES:
+        fs, cls = S.class_case(m, n, fkey, hi, q)
+        xs = x[:m, :n].contiguous()
+        run = lambda: MPMatrix.from_dense(xs, cls, S.TILE, fs)  # noqa: E731
+        row = timed(S, run, "", 10)
+        row["host_clock"] = S.host_clock_ms(run)
+        row["form"] = ("class map" if hasattr(CV, "convert_by_class")
+                       else "per-class chain")
+        row["sha256"] = sha(torch.cat([b.float().view(-1)
+                                       for b in run().bufs]))
+        out["cases"][f"from_dense {label}"] = row
+        del xs
     return out
 
 
@@ -138,9 +183,9 @@ def main() -> None:
         i = args.index("--out")
         out_path = args[i + 1]
         del args[i:i + 2]
-    parent, change = args
     runs = []
-    for tree in (parent, change, change, parent):
+    order = args + args[::-1]
+    for tree in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--worker", tree], capture_output=True,
                               text=True, timeout=900)
@@ -150,8 +195,9 @@ def main() -> None:
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]))
     for case in runs[0]["cases"]:
-        for who, pick in (("parent", (0, 3)), ("change", (1, 2))):
-            rows = [runs[i]["cases"][case] for i in pick]
+        for k, who in enumerate(args):
+            rows = [runs[k]["cases"][case],
+                    runs[len(order) - 1 - k]["cases"][case]]
             keys = list(rows[0])
             cells = ", ".join(
                 f"{key} " + " / ".join(
@@ -164,8 +210,8 @@ def main() -> None:
     print(f"card: {smi}")
     if out_path:
         with open(out_path, "w") as f:
-            json.dump({"card": smi, "order": "parent, change, change, parent",
-                       "runs": runs}, f, indent=1)
+            json.dump({"card": smi, "order": order, "runs": runs}, f,
+                      indent=1)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,12 @@ import torch
 from repro_torch.core import precision as P
 from repro_torch.core.formats import (DEFAULT_FORMATS, FormatSet,
                                       PrecisionFormat)
-from repro_torch.kernels.convert import convert
+# the module, not its names: importing kernels.convert first imports
+# this module while that one is still initializing
+from repro_torch.kernels import convert as _cv
+
+#: class maps expanded to per-element codes on the host (:func:`expand_map`)
+host_map_expansions = 0
 
 
 def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,7 +81,7 @@ def _to_buffer(fmt: PrecisionFormat, x: torch.Tensor, tile: int
     reference's rounding); split and integer formats keep their own."""
     if (x.is_cuda and type(fmt) is PrecisionFormat
             and x.dtype != fmt.storage_dtype):
-        return convert(x.contiguous(), fmt.storage_dtype)
+        return _cv.convert(x.contiguous(), fmt.storage_dtype)
     return fmt.to_buffer(x, tile=tile)
 
 
@@ -89,8 +94,26 @@ def _check_codes(cls_map: np.ndarray, fset: FormatSet) -> np.ndarray:
 
 
 def expand_map(cls_map: np.ndarray, tile: int) -> np.ndarray:
-    """Per-element class codes of a tile map."""
+    """Per-element class codes of a tile map (on the host; counted in
+    ``host_map_expansions``)."""
+    global host_map_expansions
+    host_map_expansions += 1
     return np.repeat(np.repeat(np.asarray(cls_map), tile, 0), tile, 1)
+
+
+def per_class_cast(w: torch.Tensor, cls_map: np.ndarray, tile: int,
+                   fset: FormatSet) -> tuple[torch.Tensor, ...]:
+    """``MPMatrix``'s buffers the per-class way (the path of a set with a
+    per-tile-scaled integer class): ``w`` padded to the tile grid, the map
+    expanded on the host, then per class a masked copy and its cast
+    (:func:`_to_buffer`)."""
+    mt, nt = cls_map.shape
+    wp = _pad_to(w.float(), mt * tile, nt * tile)
+    sel = torch.from_numpy(expand_map(cls_map, tile)).to(w.device)
+    return tuple(
+        _to_buffer(fset.fmt(code),
+                   torch.where(sel == code, wp, torch.zeros_like(wp)), tile)
+        for code in fset.codes)
 
 
 # ---------------------------------------------------------------------------
@@ -112,15 +135,16 @@ class MPMatrix:
     @classmethod
     def from_dense(cls, w: torch.Tensor, cls_map: np.ndarray, tile: int,
                    fset: FormatSet = DEFAULT_FORMATS) -> "MPMatrix":
+        """The storage cast of ``w`` under ``cls_map``: one
+        ``convert_by_class`` (one launch on the card) unless the set has
+        a class that form does not take (a per-tile-scaled integer), which
+        keeps the per-class path: the map expanded on the host, one masked
+        copy and cast per class."""
         cls_map = _check_codes(np.asarray(cls_map, np.int8), fset)
-        mt, nt = cls_map.shape
-        wp = _pad_to(w.float(), mt * tile, nt * tile)
-        sel = torch.from_numpy(expand_map(cls_map, tile)).to(w.device)
-        bufs = tuple(
-            _to_buffer(fset.fmt(code),
-                       torch.where(sel == code, wp, torch.zeros_like(wp)),
-                       tile)
-            for code in fset.codes)
+        if _cv.class_map_form(fset):
+            bufs = _cv.convert_by_class(w.float(), cls_map, tile, fset)
+        else:
+            bufs = per_class_cast(w, cls_map, tile, fset)
         return cls(bufs, cls_map, tile, (int(w.shape[0]), int(w.shape[1])),
                    fset)
 

@@ -1,9 +1,10 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, loads that
 // upcast any storage dtype to fp32 exactly, rounding to a compute dtype,
-// and stores that round fp32 into a storage dtype with the reference's
+// stores that round fp32 into a storage dtype with the reference's
 // semantics (round-to-nearest-even; fp8 e4m3 overflow -> NaN, fp8 e5m2
-// and fp16 overflow -> inf).  Built without fast math, so no conversion
-// here flushes a subnormal to zero.
+// and fp16 overflow -> inf), one element or eight at a time, and a split
+// format's round trip through its slices.  Built without fast math, so
+// no conversion here flushes a subnormal to zero.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -114,4 +115,86 @@ __device__ __forceinline__ void store_any(void* p, int dt, long long i, float v)
       reinterpret_cast<unsigned char*>(p)[i] = e5m2_bits(v);
       break;
   }
+}
+
+// Eight fp32 values rounded (nearest even) to the compute dtype `ct`
+// (bf16 or fp16), packed in element order.
+__device__ __forceinline__ uint4 pack8(const float (&v)[8], int ct) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (ct == DT_BF16) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const unsigned*>(&h);
+    } else {
+      const __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const unsigned*>(&h);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Eight fp32 values stored at element index i of p in dtype `dt`, with
+// store_any's rounding (one 16-byte store for 16-bit dtypes, two for
+// fp32, one 8-byte store for fp8).
+__device__ __forceinline__ void store8(void* p, int dt, long long i, const float (&v)[8]) {
+  if (dt == DT_F32) {
+    float4* q = reinterpret_cast<float4*>(reinterpret_cast<float*>(p) + i);
+    q[0] = make_float4(v[0], v[1], v[2], v[3]);
+    q[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else if (dt == DT_BF16 || dt == DT_F16) {
+    *reinterpret_cast<uint4*>(reinterpret_cast<unsigned short*>(p) + i) = pack8(v, dt);
+  } else {
+    unsigned w[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      unsigned b;
+      if (dt == DT_E4M3)
+        b = (isnan(v[k]) || fabsf(v[k]) > E4M3_NAN_ABOVE)
+                ? 0x7Fu
+                : static_cast<unsigned>(__nv_cvt_float_to_fp8(v[k], __NV_SATFINITE, __NV_E4M3));
+      else
+        b = e5m2_bits(v[k]);
+      w[k >> 2] |= b << (8 * (k & 3));
+    }
+    *reinterpret_cast<uint2*>(reinterpret_cast<unsigned char*>(p) + i) = make_uint2(w[0], w[1]);
+  }
+}
+
+// Slice storage: fp16 bits or e5m2 bytes.
+template <int SDT>
+struct Slice;
+
+template <>
+struct Slice<DT_F16> {
+  using T = unsigned short;
+  __device__ static T bits(float v) { return __half_as_ushort(__float2half_rn(v)); }
+  __device__ static float value(T b) { return __half2float(__ushort_as_half(b)); }
+};
+
+template <>
+struct Slice<DT_E5M2> {
+  using T = unsigned char;
+  __device__ static T bits(float v) { return e5m2_bits(v); }
+  __device__ static float value(T b) { return e5m2_value(b); }
+};
+
+// The split round trip of v: the fp32 sum of its slices.
+template <int S, int SDT>
+__device__ __forceinline__ float split_roundtrip(float v) {
+  using SL = Slice<SDT>;
+  float out = 0.0f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float sv = SL::value(SL::bits(v));
+    out = s == 0 ? sv : __fadd_rn(out, sv);
+    v = __fsub_rn(v, sv);
+  }
+  return out;
+}
+
+__device__ __forceinline__ float roundtrip_any(float v, int slices, int sdt) {
+  if (sdt == DT_F16) return slices == 2 ? split_roundtrip<2, DT_F16>(v)
+                                        : split_roundtrip<3, DT_F16>(v);
+  return slices == 2 ? split_roundtrip<2, DT_E5M2>(v) : split_roundtrip<3, DT_E5M2>(v);
 }

@@ -7,85 +7,311 @@
 // overflow to +-inf, e4m3 gives NaN above 464 (common.cuh's store casts,
 // never a saturating conversion).
 //
-// What bounds it on an H100: one read of 4 bytes and one write of 1-4
-// bytes per element and no arithmetic to speak of, so it is bound by
-// bytes (HBM bandwidth).
+// Two entry points:
+//   - convert_launch: the plain cast of a flat array;
+//   - convert_by_class_launch: the layouts' storage cast (MPMatrix's
+//     per-class buffers) in one pass.  Element (r, c) of the padded
+//     matrix goes to the buffer of class map[r / t][c / t], cast to that
+//     buffer's dtype (a split class takes its split round trip and is
+//     stored in fp32); every other buffer gets zero there, and the
+//     padding to the tile grid is zero.  It reads x once and writes every
+//     buffer in the same pass, where the per-class form read x, a host-
+//     expanded class map and one masked copy per class.  Classes whose
+//     cast needs a whole tile (per-tile-scaled integers) are not taken.
 //
-// Design: the TPU kernel streamed 256 x 256 blocks through VMEM; here
-// the matrix is one flat array, each thread converts 4 elements per step
-// from one 16-byte load and writes them with one 4-, 8- or 16-byte
-// store, in a grid-stride loop over as many blocks as keep every SM busy.
+// What bounds both on an H100: one read of 4 bytes and the writes of the
+// output dtypes per element, no arithmetic to speak of: bytes (HBM).
+//
+// Design: a thread converts chunks of 8 elements, two 16-byte loads
+// (both issued before any store) and then one 8-byte, 16-byte or two
+// 16-byte stores per output buffer; a warp's chunks are contiguous, so
+// every access is coalesced.  Stores are plain, so converted panels stay
+// in L2 for the GEMM that reads them next.
+//   - plain cast: one chunk per thread and as many blocks as chunks need,
+//     so each SM keeps many short blocks in flight and overlaps one
+//     block's stores with the next one's loads;
+//   - class-map form: U = 4 chunks per thread and pass (8 loads in flight
+//     before the first store, the class map read once per chunk), over a
+//     grid of as many blocks as fit on the card at once (the SM count is
+//     read once per device), striding over the matrix.
+// Each shape was the faster of the two on the card (PERF.md); so were
+// plain cached loads against loads that bypass L1.
+//
+// Built with -DCONVERT_BULK=1, the plain cast runs a second design
+// instead (kept to compare the two on the card, kernel_ab.py): each
+// block streams 8 KB chunks of x into a four-stage shared-memory ring
+// with Hopper's bulk copy (cp.async.bulk, completion counted on an
+// mbarrier per stage) and converts out of shared memory.
 
 #include "common.cuh"
 
+#ifndef CONVERT_BULK
+#define CONVERT_BULK 0
+#endif
+
+constexpr int CV_MAX_NF = 4;
+
+// The class-map form's arguments (mirrored by kernels/convert.py).
+struct ClassArgs {
+  void* o[CV_MAX_NF];          // [mt * t, nt * t] buffer per class code
+  int odt[CV_MAX_NF];          // buffer dtype codes
+  int slices[CV_MAX_NF];       // 1: plain cast; 2 or 3: split round trip
+  int sdt[CV_MAX_NF];          // slice dtype code of a split class
+  const int* map;              // [mt, nt] class codes
+  int nf;
+  int M, N;                    // x's (unpadded) shape, row stride N
+  int mt, nt, tile;
+};
+
 namespace {
 
+constexpr int NTH = 256;       // threads per block
+constexpr int U = 4;           // chunks of 8 per thread and pass (class-map form)
+constexpr int BPS = 4;         // its blocks per SM (64 registers per thread)
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// The plain cast: thread q converts chunk q of the n / 8 whole chunks;
+// thread n / 8 the last n % 8 elements.
 template <int ODT>
-__device__ __forceinline__ void store4(void* out, long long v, float4 f) {
-  if constexpr (ODT == DT_F32) {
-    reinterpret_cast<float4*>(out)[v] = f;
-  } else if constexpr (ODT == DT_BF16 || ODT == DT_F16) {
-    unsigned short h[4];
-    const float x[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      h[e] = ODT == DT_BF16 ? __bfloat16_as_ushort(__float2bfloat16_rn(x[e]))
-                            : __half_as_ushort(__float2half_rn(x[e]));
-    reinterpret_cast<ushort4*>(out)[v] = make_ushort4(h[0], h[1], h[2], h[3]);
-  } else {
-    unsigned char b[4];
-    const float x[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (ODT == DT_E5M2) {
-        b[e] = e5m2_bits(x[e]);
-      } else {
-        b[e] = (isnan(x[e]) || fabsf(x[e]) > E4M3_NAN_ABOVE)
-                   ? static_cast<unsigned char>(0x7F)
-                   : static_cast<unsigned char>(
-                         __nv_cvt_float_to_fp8(x[e], __NV_SATFINITE, __NV_E4M3));
-      }
-    }
-    reinterpret_cast<uchar4*>(out)[v] = make_uchar4(b[0], b[1], b[2], b[3]);
+__global__ void __launch_bounds__(NTH) convert_kernel(const float* __restrict__ x,
+                                                      void* __restrict__ out, long long n) {
+  const long long q = static_cast<long long>(blockIdx.x) * NTH + threadIdx.x;
+  if (q < n / 8) {
+    float v[8];
+    load8(x + q * 8, v);
+    store8(out, ODT, q * 8, v);
+  } else if (q == n / 8) {
+    for (long long e = q * 8; e < n; ++e) store_any(out, ODT, e, x[e]);
   }
 }
 
-template <int ODT>
-__global__ void __launch_bounds__(256)
-convert_kernel(const float* __restrict__ x, void* __restrict__ out, long long n) {
-  const long long n4 = n / 4;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  for (long long v = t0; v < n4; v += stride) store4<ODT>(out, v, __ldg(x4 + v));
-  for (long long e = 4 * n4 + t0; e < n; e += stride) store_any(out, ODT, e, x[e]);
+#if CONVERT_BULK
+constexpr int BULK_STAGES = 4;
+constexpr int BULK_FLOATS = 2048;   // 8 KB per stage: 8 floats per thread
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// Chunk k of the array (BULK_FLOATS elements; the last one may be short,
+// its whole 16-byte words by bulk copy and the rest by plain loads) runs
+// through stage k % BULK_STAGES of block k % gridDim.x's ring.
+template <int ODT>
+__global__ void __launch_bounds__(NTH) convert_bulk_kernel(const float* __restrict__ x,
+                                                           void* __restrict__ out, long long n) {
+  __shared__ __align__(128) float ring[BULK_STAGES][BULK_FLOATS];
+  __shared__ __align__(8) unsigned long long bar[BULK_STAGES];
+  const long long chunks = (n + BULK_FLOATS - 1) / BULK_FLOATS;
+  auto words = [&](long long k) {
+    const long long left = n - k * BULK_FLOATS;
+    return static_cast<unsigned>((left < BULK_FLOATS ? left : BULK_FLOATS) / 4 * 16);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BULK_STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&bar[s])));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < BULK_STAGES; ++s) {
+      const long long k = blockIdx.x + static_cast<long long>(s) * gridDim.x;
+      if (k < chunks && words(k)) bulk_load(ring[s], x + k * BULK_FLOATS, words(k), &bar[s]);
+    }
+  }
+  __syncthreads();
+  int it = 0;
+  for (long long k = blockIdx.x; k < chunks; k += gridDim.x, ++it) {
+    const int s = it % BULK_STAGES;
+    const long long e0 = k * BULK_FLOATS;
+    const long long left = n - e0;
+    const int len = static_cast<int>(left < BULK_FLOATS ? left : BULK_FLOATS);
+    const int bulk = static_cast<int>(words(k) / 4);
+    if (bulk) bulk_wait(&bar[s], (it / BULK_STAGES) & 1);
+    for (int c = threadIdx.x * 8; c < len; c += NTH * 8) {
+      float v[8];
+      if (c + 8 <= bulk) {
+        const float4 a = *reinterpret_cast<const float4*>(&ring[s][c]);
+        const float4 b = *reinterpret_cast<const float4*>(&ring[s][c + 4]);
+        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+        v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+        store8(out, ODT, e0 + c, v);
+      } else {
+        for (int i = c; i < c + 8 && i < len; ++i)
+          store_any(out, ODT, e0 + i, i < bulk ? ring[s][i] : x[e0 + i]);
+      }
+    }
+    __syncthreads();   // every thread is done with stage s
+    const long long nk = k + static_cast<long long>(BULK_STAGES) * gridDim.x;
+    if (threadIdx.x == 0 && nk < chunks && words(nk)) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bulk_load(ring[s], x + nk * BULK_FLOATS, words(nk), &bar[s]);
+    }
+  }
+}
+#endif
+
+// The class-map form: chunk q of the padded [mt * t, nt * t] matrix is
+// row q / (nt * t / 8), columns 8 * (q % (nt * t / 8)) + 0..7 (t is a
+// multiple of 8, so a chunk lies in one tile).  VEC: x is 16-byte aligned
+// with N % 4 == 0, so a chunk wholly inside x is two vector loads.
+template <bool VEC>
+__global__ void __launch_bounds__(NTH, BPS) convert_class_kernel(const float* __restrict__ x,
+                                                            const ClassArgs a) {
+  const int cpr = a.nt * a.tile / 8;
+  const long long chunks = static_cast<long long>(a.mt) * a.tile * cpr;
+  const long long step = static_cast<long long>(gridDim.x) * NTH * U;
+  const long long ldo = static_cast<long long>(a.nt) * a.tile;
+  for (long long base = static_cast<long long>(blockIdx.x) * NTH * U + threadIdx.x;
+       base < chunks; base += step) {
+    float v[U][8];
+    int code[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long q = base + u * NTH;
+      code[u] = -1;
+      if (q >= chunks) continue;
+      const int r = static_cast<int>(q / cpr), c = static_cast<int>(q % cpr) * 8;
+      code[u] = __ldg(a.map + (r / a.tile) * a.nt + c / a.tile);
+      const float* p = x + static_cast<long long>(r) * a.N + c;
+      if (VEC && r < a.M && c + 8 <= a.N) {
+        load8(p, v[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[u][i] = (r < a.M && c + i < a.N) ? __ldg(p + i) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long q = base + u * NTH;
+      if (q >= chunks) continue;
+      const long long o = (q / cpr) * ldo + (q % cpr) * 8;
+      const float zero[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+      for (int f = 0; f < a.nf; ++f) {
+        if (f != code[u]) {
+          store8(a.o[f], a.odt[f], o, zero);
+        } else if (a.slices[f] > 1) {
+          float w[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) w[i] = roundtrip_any(v[u][i], a.slices[f], a.sdt[f]);
+          store8(a.o[f], a.odt[f], o, w);
+        } else {
+          store8(a.o[f], a.odt[f], o, v[u]);
+        }
+      }
+    }
+  }
+}
+
+// Blocks that fit on device `dev` at once (BPS per SM); the SM count is
+// read once per device.
+int resident_blocks(int dev) {
+  static int sms[64] = {0};
+  if (dev < 0 || dev >= 64) return 0;
+  if (!sms[dev] &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return BPS * sms[dev];
+}
+
+// Make `dev` current if it is not (the stream belongs to it).
+cudaError_t use_device(int dev) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess || cur == dev) return e;
+  return cudaSetDevice(dev);
+}
+
+bool dtype_ok(int dt) { return dt >= DT_F32 && dt <= DT_E5M2; }
 
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = ok).
-// `x` is fp32 with 16-byte alignment, `n` its element count.
+// Launch the plain cast on `stream`; returns the cudaError_t of the
+// launch (0 = ok).  `x` is fp32 with 16-byte alignment, `n` its element
+// count, `out` 16-byte aligned.
 extern "C" int convert_launch(const void* x, void* out, long long n, int odt,
                               int device, void* stream) {
   if (n < 1 || (reinterpret_cast<unsigned long long>(x) & 15) ||
-      (reinterpret_cast<unsigned long long>(out) & 15))
+      (reinterpret_cast<unsigned long long>(out) & 15) || !dtype_ok(odt))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int sms = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long need = (n / 4 + 255) / 256 + 1;
-  const int blocks = static_cast<int>(need < 8LL * sms ? need : 8LL * sms);
   const float* xf = static_cast<const float*>(x);
+#if CONVERT_BULK
+  const long long chunks = (n + BULK_FLOATS - 1) / BULK_FLOATS;
+  const int cap = resident_blocks(device);
+  if (!cap) return static_cast<int>(cudaErrorInvalidDevice);
+  const int blocks = static_cast<int>(chunks < cap ? chunks : cap);
+#define CV_LAUNCH(D) convert_bulk_kernel<D><<<blocks, NTH, 0, st>>>(xf, out, n)
+#else
+  const int blocks = static_cast<int>((n / 8 + 1 + NTH - 1) / NTH);
+#define CV_LAUNCH(D) convert_kernel<D><<<blocks, NTH, 0, st>>>(xf, out, n)
+#endif
   switch (odt) {
-    case DT_F32: convert_kernel<DT_F32><<<blocks, 256, 0, st>>>(xf, out, n); break;
-    case DT_BF16: convert_kernel<DT_BF16><<<blocks, 256, 0, st>>>(xf, out, n); break;
-    case DT_F16: convert_kernel<DT_F16><<<blocks, 256, 0, st>>>(xf, out, n); break;
-    case DT_E4M3: convert_kernel<DT_E4M3><<<blocks, 256, 0, st>>>(xf, out, n); break;
-    case DT_E5M2: convert_kernel<DT_E5M2><<<blocks, 256, 0, st>>>(xf, out, n); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case DT_F32: CV_LAUNCH(DT_F32); break;
+    case DT_BF16: CV_LAUNCH(DT_BF16); break;
+    case DT_F16: CV_LAUNCH(DT_F16); break;
+    case DT_E4M3: CV_LAUNCH(DT_E4M3); break;
+    default: CV_LAUNCH(DT_E5M2); break;
   }
+#undef CV_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the class-map form on `stream`; returns the cudaError_t of the
+// launch (0 = ok).  `x` is fp32 [M, N] (row stride N), every a->o[f] a
+// 16-byte aligned [mt * t, nt * t] buffer of dtype a->odt[f], t a
+// multiple of 8, and the map covers x.
+extern "C" int convert_by_class_launch(const void* x, const ClassArgs* args, int device,
+                                       void* stream) {
+  const ClassArgs a = *args;
+  if (a.nf < 1 || a.nf > CV_MAX_NF || a.tile < 8 || a.tile % 8 || a.M < 1 || a.N < 1 ||
+      static_cast<long long>(a.mt) * a.tile < a.M || static_cast<long long>(a.nt) * a.tile < a.N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int f = 0; f < a.nf; ++f) {
+    if (!dtype_ok(a.odt[f]) || (reinterpret_cast<unsigned long long>(a.o[f]) & 15))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (a.slices[f] != 1 &&
+        (a.slices[f] < 2 || a.slices[f] > 3 || a.odt[f] != DT_F32 ||
+         (a.sdt[f] != DT_F16 && a.sdt[f] != DT_E5M2)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int cap = resident_blocks(device);
+  if (!cap) return static_cast<int>(cudaErrorInvalidDevice);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const long long chunks = static_cast<long long>(a.mt) * a.tile * a.nt * a.tile / 8;
+  const long long need = (chunks + NTH * U - 1) / (NTH * U);
+  const int blocks = static_cast<int>(need < cap ? need : cap);
+  const bool vec = !(reinterpret_cast<unsigned long long>(x) & 15) && !(a.N % 4);
+  if (vec)
+    convert_class_kernel<true><<<blocks, NTH, 0, st>>>(xf, a);
+  else
+    convert_class_kernel<false><<<blocks, NTH, 0, st>>>(xf, a);
   return static_cast<int>(cudaGetLastError());
 }

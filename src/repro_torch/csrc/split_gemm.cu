@@ -52,7 +52,9 @@
 // At t = 16 and 32 (wgmma needs 64 rows) a 32 x 32 thread grid keeps the
 // earlier design: slices staged per k tile in shared memory in their
 // slice dtype, pair dots on the fp32 pipes, simple classes on dot_simple.
-// No main-path shape uses those tiles.
+// Its order of sums is fixed, and split/recovery.py::split_gemm_ref
+// follows it operation for operation (bit for bit on the card).  No
+// main-path shape uses those tiles.
 
 #include "tile_dot.cuh"
 
@@ -84,24 +86,6 @@ struct SplitArgs {
 };
 
 namespace {
-
-// Slice storage: fp16 bits or e5m2 bytes.
-template <int SDT>
-struct Slice;
-
-template <>
-struct Slice<DT_F16> {
-  using T = unsigned short;
-  __device__ static T bits(float v) { return __half_as_ushort(__float2half_rn(v)); }
-  __device__ static float value(T b) { return __half2float(__ushort_as_half(b)); }
-};
-
-template <>
-struct Slice<DT_E5M2> {
-  using T = unsigned char;
-  __device__ static T bits(float v) { return e5m2_bits(v); }
-  __device__ static float value(T b) { return e5m2_value(b); }
-};
 
 // ---------------------------------------------------------------------------
 // The slice pass (t = 64, 128)
@@ -181,26 +165,6 @@ struct SliceSource {
     y = {a.sb[cls], a.comp[cls], (pr & 3) * K * N + k0 * N + static_cast<long long>(j) * T, N};
   }
 };
-
-// The split round trip of v: the fp32 sum of its slices.
-template <int S, int SDT>
-__device__ __forceinline__ float split_roundtrip(float v) {
-  using SL = Slice<SDT>;
-  float out = 0.0f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const float sv = SL::value(SL::bits(v));
-    out = s == 0 ? sv : __fadd_rn(out, sv);
-    v = __fsub_rn(v, sv);
-  }
-  return out;
-}
-
-__device__ __forceinline__ float roundtrip_any(float v, int slices, int sdt) {
-  if (sdt == DT_F16) return slices == 2 ? split_roundtrip<2, DT_F16>(v)
-                                        : split_roundtrip<3, DT_F16>(v);
-  return slices == 2 ? split_roundtrip<2, DT_E5M2>(v) : split_roundtrip<3, DT_E5M2>(v);
-}
 
 // A split class's epilogue on the staged dot's tile in shared memory:
 // v = roundtrip(alpha * acc + beta * C), in place (C of the class's

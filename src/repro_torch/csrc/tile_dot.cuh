@@ -435,50 +435,6 @@ __device__ __forceinline__ void decode_words(const uint4 (&w)[2], int dt, float 
   }
 }
 
-// Eight fp32 values rounded (nearest even) to the compute dtype `ct`
-// (bf16 or fp16), packed in element order.
-__device__ __forceinline__ uint4 pack8(const float (&v)[8], int ct) {
-  unsigned w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (ct == DT_BF16) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const unsigned*>(&h);
-    } else {
-      const __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const unsigned*>(&h);
-    }
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// Eight fp32 values stored at element index i of p in dtype `dt`, with
-// store_any's rounding (one 16-byte store for 16-bit dtypes, two for
-// fp32, one 8-byte store for fp8).
-__device__ __forceinline__ void store8(void* p, int dt, long long i, const float (&v)[8]) {
-  if (dt == DT_F32) {
-    float4* q = reinterpret_cast<float4*>(reinterpret_cast<float*>(p) + i);
-    q[0] = make_float4(v[0], v[1], v[2], v[3]);
-    q[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else if (dt == DT_BF16 || dt == DT_F16) {
-    *reinterpret_cast<uint4*>(reinterpret_cast<unsigned short*>(p) + i) = pack8(v, dt);
-  } else {
-    unsigned w[2] = {0u, 0u};
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      unsigned b;
-      if (dt == DT_E4M3)
-        b = (isnan(v[k]) || fabsf(v[k]) > E4M3_NAN_ABOVE)
-                ? 0x7Fu
-                : static_cast<unsigned>(__nv_cvt_float_to_fp8(v[k], __NV_SATFINITE, __NV_E4M3));
-      else
-        b = e5m2_bits(v[k]);
-      w[k >> 2] |= b << (8 * (k & 3));
-    }
-    *reinterpret_cast<uint2*>(reinterpret_cast<unsigned char*>(p) + i) = make_uint2(w[0], w[1]);
-  }
-}
-
 // Eight zeros (all-zero bits in every dtype) at element index i of p.
 __device__ __forceinline__ void zero8(void* p, int dt, long long i) {
   const int es = dt_bytes(dt);

@@ -99,7 +99,10 @@ def quantize_tiles(x: torch.Tensor, tile: int, qmax: int) -> torch.Tensor:
     m, n = x.shape
     xt = x.reshape(m // tile, tile, n // tile, tile)
     am = xt.abs().amax(dim=(1, 3), keepdim=True)
-    scale = torch.where(am > 0, am / qmax, torch.ones_like(am))
+    # a tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, which is not the kernels' correctly rounded division
+    scale = torch.where(am > 0, am / torch.full_like(am, qmax),
+                        torch.ones_like(am))
     q = torch.clamp(torch.round(xt / scale), -qmax, qmax) * scale
     return q.reshape(m, n)
 

@@ -25,7 +25,9 @@ KERNELS = {"ksplit_gemm": _ksplit, "mp_gemm_tile": _mp_tile,
 
 
 def launch_counts() -> dict[str, int]:
-    """CUDA launches per kernel since the last :func:`reset_launch_counts`."""
+    """CUDA launches per kernel since the last :func:`reset_launch_counts`
+    (the convert kernel's class-map form counts apart, in
+    ``convert.class_launches``)."""
     return {name: mod.launches for name, mod in KERNELS.items()}
 
 
@@ -41,6 +43,8 @@ def reset_launch_counts() -> None:
         mod.launches = 0
         if hasattr(mod, "prep_launches"):   # the split kernel's slice pass
             mod.prep_launches = 0
+        if hasattr(mod, "class_launches"):  # convert's class-map form
+            mod.class_launches = 0
         if hasattr(mod, "path_launches"):
             mod.path_launches = dict.fromkeys(mod.path_launches, 0)
 

@@ -32,7 +32,8 @@ from repro_torch.core.formats import cast_storage, split_slices
 from repro_torch.core.layout import expand_map, fp32_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels import mp_gemm_tile as _tile
-from repro_torch.split.recovery import slice_pair_order, split_store
+from repro_torch.split.recovery import (class_dense, slice_pair_order,
+                                        split_store)
 
 #: launches of the CUDA GEMM by :func:`split_gemm_tile_multi`
 launches = 0
@@ -70,11 +71,7 @@ def slice_operand_plain(bufs, cls_map, tile: int, slices: int,
     upcast from the buffer its tile's class names, split into ``slices``
     ``slice_dtype`` slices (``split_slices``), each stored in
     ``store_dtype``; returns ``[slices, rows, cols]``."""
-    cls = torch.from_numpy(expand_map(np.asarray(cls_map), tile).astype(
-        np.int64)).to(bufs[0].device)
-    x = bufs[0].float()
-    for code in range(1, len(bufs)):
-        x = torch.where(cls == code, bufs[code].float(), x)
+    x = class_dense(bufs, cls_map, tile)
     return torch.stack([s.to(store_dtype)
                         for s in split_slices(x, slices, slice_dtype)])
 

@@ -276,6 +276,52 @@ def test_split_gemm_ref_agrees_with_plain(key, ratios):
     assert PS.within(ref, pd, allow)[1] <= 1.0
 
 
+@pytest.mark.parametrize("key,ratios", MIXES)
+def test_split_gemm_ref_within_order_allowance_of_jax_ref(key, ratios):
+    """The port's ``split_gemm_ref`` sums in the t = 16/32 kernel's order
+    (FMA chains per slice pair and k tile), the reference's in XLA's dot
+    order: the two sit within the split order allowance, and every
+    buffer is zero off its class's tiles, as in the reference."""
+    jm, pm, maps, _ = _case(key, ratios)
+    specs = PR.split_format_specs(pm[0].fset)
+    jo = JR.split_gemm_ref(*jm, alpha=1.5, beta=0.5)
+    po = PR.split_gemm_ref(*pm, alpha=1.5, beta=0.5)
+    sel = PL.expand_map(maps[2], T)
+    for code, (j, p) in enumerate(zip(jo.bufs, po.bufs)):
+        assert PF.dtype_name(p.dtype) == jnp.dtype(j.dtype).name
+        assert not p.float()[torch.from_numpy(sel != code)].any()
+    jd = torch.from_numpy(sum(np.asarray(o).astype(np.float32)
+                              for o in jo.bufs))
+    allow = PS.order_allowance(pm[0].bufs, pm[1].bufs, pm[2].bufs, maps[2],
+                               jd, tile=T, specs=specs, alpha=1.5,
+                               beta=0.5)
+    assert PS.within(po.padded_dense(), jd, allow)[1] <= 1.0
+
+
+def test_fma32_rounds_once():
+    """``fma32`` is one rounding of the exact ``a·b + c``: here the fp64
+    sum lands on an fp32 midpoint the exact value lies below, so rounding
+    fp64 to nearest first would tie to the wrong neighbour; and it agrees
+    with exact rational arithmetic on random operands."""
+    from fractions import Fraction
+    a = torch.tensor([1 + 2.0 ** -20])
+    b = torch.tensor([3 * 2.0 ** -24 * (1 - 2.0 ** -20)])
+    c = torch.tensor([1.0])
+    assert PR.fma32(a, b, c).item() == 1 + 2.0 ** -23
+    assert (a.double() * b.double() + c.double()).float().item() \
+        == 1 + 2.0 ** -22
+    rng = np.random.default_rng(2)
+    x, y, z = (rng.standard_normal(300).astype(np.float32) for _ in "xyz")
+    got = PR.fma32(*(torch.from_numpy(v) for v in (x, y, z))).numpy()
+    for i in range(300):
+        exact = Fraction(float(x[i])) * Fraction(float(y[i])) \
+            + Fraction(float(z[i]))
+        err = abs(Fraction(float(got[i])) - exact)
+        for nb in (np.nextafter(got[i], np.float32(-np.inf)),
+                   np.nextafter(got[i], np.float32(np.inf))):
+            assert err <= abs(Fraction(float(nb)) - exact)
+
+
 @pytest.mark.parametrize("name", ["split2_fp16", "split3_e5m2"])
 def test_split_identity_product_is_the_slice_sum(name):
     """With B = I and C = 0 every dot is exact, so a split C tile holds the
