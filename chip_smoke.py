@@ -67,7 +67,7 @@ Phases (each raises on failure, so a failing run never exits 0):
    kernel at every served shape, also at one block per column strip; the
    convert kernel into every output dtype beside ``x.to``, and its
    class-map form at the solve's 8064² C and an 8192² 5D95S operand
-   beside its bound and the per-class chain it replaced.
+   beside its bound and the per-class path (integer sets' path).
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -1001,13 +1001,18 @@ class SolveSpy:
     operands of its last step-0 trailing update (K = t, M = N = n - t) and
     of its last residual GEMM (M = K = n, N = the padded RHS width), with
     the path of the plan each ran under — the operands of the last
-    factorization and sweep, after any escalation."""
+    factorization and sweep, after any escalation.  Also counts the
+    solve's ``MPMatrix.from_dense`` calls (its storage casts)."""
 
     def __init__(self, n: int):
+        from repro_torch.core.layout import MPMatrix
         from repro_torch.tune import dispatch as D
         self.D, self.real, self.n, self.seen = D, D.mp_matmul, n, {}
         #: dispatch path -> the kernel paths its C maps call for
         self.paths: dict[str, set] = {}
+        self.MP, self.real_from_dense = MPMatrix, MPMatrix.__dict__[
+            "from_dense"]
+        self.from_dense_calls = 0
 
     def __enter__(self):
         def spy(a, b, c=None, *, alpha=1.0, beta=0.0, plan=None):
@@ -1021,11 +1026,16 @@ class SolveSpy:
             elif a.shape[0] == self.n - a.tile:
                 self.seen["trailing"] = (a, b, c, alpha, beta, plan.path)
             return self.real(a, b, c, alpha=alpha, beta=beta, plan=plan)
+        def from_dense(klass, *args, **kw):
+            self.from_dense_calls += 1
+            return self.real_from_dense.__func__(klass, *args, **kw)
         self.D.mp_matmul = spy
+        self.MP.from_dense = classmethod(from_dense)
         return self
 
     def __exit__(self, *exc):
         self.D.mp_matmul = self.real
+        self.MP.from_dense = self.real_from_dense
 
 
 def solve_phase() -> dict:
@@ -1037,7 +1047,6 @@ def solve_phase() -> dict:
     solve no other GEMM kernel).  Then the kernel of each captured
     trailing update and residual GEMM is held to its plain version on
     those operands."""
-    from repro_torch.core import layout as PL
     from repro_torch.kernels import ops
     from repro_torch.solve import (SolveConfig, graded_spd,
                                    rhs_for_solution, solve)
@@ -1055,7 +1064,6 @@ def solve_phase() -> dict:
         d0 = D.dispatch_counts()
         with SolveSpy(SOLVE_N) as spy:
             ops.reset_launch_counts()
-            exp0 = PL.host_map_expansions
             if label == "store":
                 rep, busy = profiled(lambda: solve(a, b, cfg, device=DEVICE))
             else:
@@ -1066,7 +1074,6 @@ def solve_phase() -> dict:
             prep = ops.KERNELS["split_gemm"].prep_launches
             launches["convert_by_class"] = ops.KERNELS[
                 "convert"].class_launches
-            expansions = PL.host_map_expansions - exp0
         d1 = D.dispatch_counts()
         paths = {p: v - d0.get(p, 0) for p, v in d1.items()
                  if v != d0.get(p, 0)}
@@ -1090,9 +1097,9 @@ def solve_phase() -> dict:
               f"{path_counts}")
         print(f"solve {label}: GEMM s without the trailing-update host "
               f"copies {rep.gemm_seconds - rep.trail_copy_seconds:.2f} s; "
-              f"convert launches: class-map form "
-              f"{launches['convert_by_class']}, plain form "
-              f"{launches['convert']}; host map expansions {expansions}")
+              f"MPMatrix.from_dense calls {spy.from_dense_calls}; convert "
+              f"launches: class-map form {launches['convert_by_class']}, "
+              f"plain form {launches['convert']}")
         if label == "store":
             idle = 1 - busy["busy_s"] / rep.total_seconds
             print(f"solve store, profiled: device busy {busy['busy_s']:.3f} s "
@@ -1114,9 +1121,11 @@ def solve_phase() -> dict:
         for k in (kernel, "convert_by_class"):
             if launches[k] < 1:
                 fail(f"solve {label} never launched the {k} kernel")
-        if expansions:   # the solves' sets have no integer class
-            fail(f"solve {label} expanded {expansions} class maps on the "
-                 "host: its storage casts must take the class-map form")
+        if launches["convert_by_class"] != spy.from_dense_calls:
+            # the solves' sets have no integer class
+            fail(f"solve {label}: {spy.from_dense_calls} MPMatrix.from_dense "
+                 f"calls launched {launches['convert_by_class']} class-map "
+                 "converts: each must be one")
         for path, name in (("tile", "mp_gemm_tile"),
                            ("grouped", "grouped_gemm")):
             took = {p for p, v in path_counts[name].items() if v}
@@ -1148,6 +1157,7 @@ def solve_phase() -> dict:
                       "paths": path_counts.get(kernel),
                       "convert_launches": launches["convert"],
                       "class_launches": launches["convert_by_class"],
+                      "from_dense_calls": spy.from_dense_calls,
                       "gemm_s_no_copies": (rep.gemm_seconds
                                            - rep.trail_copy_seconds),
                       "prep_launches": prep,
@@ -1463,7 +1473,7 @@ def time_tile_grouped(gen) -> dict:
 
 def time_convert(gen) -> dict:
     """Every output dtype, then the class-map form at CLASS_TIMES beside
-    its bound and the per-class chain it replaces; the bf16 row, with the
+    its bound and the per-class path (integer sets' path); the bf16 row, with the
     class-map rows in it, is the one the kernels line carries."""
     import torch
     from repro_torch.core.layout import per_class_cast
@@ -1502,13 +1512,13 @@ def time_convert(gen) -> dict:
         print(f"time convert_by_class {label} [{fkey}] t={TILE}: kernel "
               f"{ms:.4f} ms (unheld {span_ms:.4f} ms), bound {bound_ms:.4f} "
               f"ms ({by}), plain {plain_ms:.4f} ms; host clock with a "
-              f"device sync: kernel {host_ms:.4f} ms, the per-class chain "
-              f"(host map expansion, masked copies, one convert per float "
-              f"class) {chain_ms:.4f} ms")
+              f"device sync: kernel {host_ms:.4f} ms, the per-class path "
+              f"(map expanded on the card, masked copies, one convert per "
+              f"float class) {chain_ms:.4f} ms")
         row[f"class_map {label}"] = {
             "ms": ms, "unheld_ms": span_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            "host_clock_ms": host_ms, "per_class_chain_host_clock_ms":
+            "host_clock_ms": host_ms, "per_class_path_host_clock_ms":
             chain_ms}
         del xs
     return row

@@ -2,16 +2,14 @@
 """Time the ksplit, split, tile and convert kernels of two or more
 checkouts of the port on one card, by the same methods in all:
 
-    python3 kernel_ab.py PARENT_DIR CHANGE_DIR [CHANGE_DIR:-DNAME=1 ...]
-                         [--out FILE]
+    python3 kernel_ab.py PARENT_DIR CHANGE_DIR [MORE_DIRS ...] [--out FILE]
 
 Runs the trees in order and then in reverse (PARENT, CHANGE, CHANGE,
 PARENT for two), each in a process of its own (``python3 kernel_ab.py
---worker DIR[:FLAGS]``) that imports ``repro_torch`` from ``DIR/src``
-(building its kernels there, with the extra nvcc ``FLAGS`` after a colon,
-comma-separated: a variant of a kernel selected by a macro) and takes the
-cases and timers from the ``chip_smoke.py`` beside this script, so every
-checkout sees the same inputs (one seeded generator) and the same clocks:
+--worker DIR``) that imports ``repro_torch`` from ``DIR/src`` (building
+its kernels there) and takes the cases and timers from the
+``chip_smoke.py`` beside this script, so every checkout sees the same
+inputs (one seeded generator) and the same clocks:
 
 - ``held``: CUDA events with the stream held while the call is enqueued
   (``chip_smoke.event_ms``); ``held_lasted`` is the share of calls whose
@@ -95,15 +93,13 @@ def sha(t) -> str:
         torch.uint8).numpy().tobytes()).hexdigest()[:16]
 
 
-def worker(spec: str) -> dict:
-    tree, _, flags = spec.partition(":")
+def worker(tree: str) -> dict:
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     sys.path.insert(0, HERE)
     import torch
     import chip_smoke as S
     from repro_torch.core.layout import MPMatrix
     from repro_torch.core.precision import Policy
-    from repro_torch.kernels import _build
     from repro_torch.kernels import convert as CV
     from repro_torch.kernels import ksplit_gemm as K
     from repro_torch.kernels import mp_gemm_tile as MT
@@ -111,8 +107,6 @@ def worker(spec: str) -> dict:
     from repro_torch.kernels import split_gemm as SG
     from repro_torch.split import split_format_specs
     torch.backends.cuda.matmul.allow_tf32 = False
-    if flags:
-        _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(flags.split(","))
     t0 = time.perf_counter()
     ops.ensure_built()
     out = {"tree": tree, "build_s": time.perf_counter() - t0, "cases": {}}

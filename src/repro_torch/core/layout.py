@@ -37,9 +37,6 @@ from repro_torch.core.formats import (DEFAULT_FORMATS, FormatSet,
 # this module while that one is still initializing
 from repro_torch.kernels import convert as _cv
 
-#: class maps expanded to per-element codes on the host (:func:`expand_map`)
-host_map_expansions = 0
-
 
 def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` on fp32 operands in full fp32 (raises if TF32 is on —
@@ -94,26 +91,19 @@ def _check_codes(cls_map: np.ndarray, fset: FormatSet) -> np.ndarray:
 
 
 def expand_map(cls_map: np.ndarray, tile: int) -> np.ndarray:
-    """Per-element class codes of a tile map (on the host; counted in
-    ``host_map_expansions``)."""
-    global host_map_expansions
-    host_map_expansions += 1
+    """Per-element class codes of a tile map."""
     return np.repeat(np.repeat(np.asarray(cls_map), tile, 0), tile, 1)
 
 
 def per_class_cast(w: torch.Tensor, cls_map: np.ndarray, tile: int,
                    fset: FormatSet) -> tuple[torch.Tensor, ...]:
     """``MPMatrix``'s buffers the per-class way (the path of a set with a
-    per-tile-scaled integer class): ``w`` padded to the tile grid, the map
-    expanded on the host, then per class a masked copy and its cast
-    (:func:`_to_buffer`)."""
-    mt, nt = cls_map.shape
-    wp = _pad_to(w.float(), mt * tile, nt * tile)
-    sel = torch.from_numpy(expand_map(cls_map, tile)).to(w.device)
-    return tuple(
-        _to_buffer(fset.fmt(code),
-                   torch.where(sel == code, wp, torch.zeros_like(wp)), tile)
-        for code in fset.codes)
+    per-tile-scaled integer class): per class a masked copy
+    (``convert.class_masked``, the map expanded on ``w``'s device) and its
+    cast (:func:`_to_buffer`: the convert kernel for a float class on the
+    card)."""
+    return tuple(_to_buffer(f, m, tile)
+                 for f, m in _cv.class_masked(w, cls_map, tile, fset))
 
 
 # ---------------------------------------------------------------------------
@@ -138,8 +128,7 @@ class MPMatrix:
         """The storage cast of ``w`` under ``cls_map``: one
         ``convert_by_class`` (one launch on the card) unless the set has
         a class that form does not take (a per-tile-scaled integer), which
-        keeps the per-class path: the map expanded on the host, one masked
-        copy and cast per class."""
+        keeps the per-class path (:func:`per_class_cast`)."""
         cls_map = _check_codes(np.asarray(cls_map, np.int8), fset)
         if _cv.class_map_form(fset):
             bufs = _cv.convert_by_class(w.float(), cls_map, tile, fset)

@@ -30,24 +30,16 @@
 //   - plain cast: one chunk per thread and as many blocks as chunks need,
 //     so each SM keeps many short blocks in flight and overlaps one
 //     block's stores with the next one's loads;
-//   - class-map form: U = 4 chunks per thread and pass (8 loads in flight
-//     before the first store, the class map read once per chunk), over a
-//     grid of as many blocks as fit on the card at once (the SM count is
-//     read once per device), striding over the matrix.
-// Each shape was the faster of the two on the card (PERF.md); so were
-// plain cached loads against loads that bypass L1.
-//
-// Built with -DCONVERT_BULK=1, the plain cast runs a second design
-// instead (kept to compare the two on the card, kernel_ab.py): each
-// block streams 8 KB chunks of x into a four-stage shared-memory ring
-// with Hopper's bulk copy (cp.async.bulk, completion counted on an
-// mbarrier per stage) and converts out of shared memory.
+//   - class-map form: CLASS_U = 4 chunks per thread and pass (8 loads in
+//     flight before the first store, the class map read once per chunk),
+//     over a grid of as many blocks as fit on the card at once (the SM
+//     count is read once per device), striding over the matrix.
+// convert_designs.py times the designs these were chosen over on the card
+// (several chunks per thread with loads that bypass L1 over one wave of
+// blocks; a bulk-copy ring; the class-map form at one chunk per thread),
+// and PERF.md records the times.
 
 #include "common.cuh"
-
-#ifndef CONVERT_BULK
-#define CONVERT_BULK 0
-#endif
 
 constexpr int CV_MAX_NF = 4;
 
@@ -66,7 +58,7 @@ struct ClassArgs {
 namespace {
 
 constexpr int NTH = 256;       // threads per block
-constexpr int U = 4;           // chunks of 8 per thread and pass (class-map form)
+constexpr int CLASS_U = 4;     // chunks of 8 per thread and pass (class-map form)
 constexpr int BPS = 4;         // its blocks per SM (64 registers per thread)
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
@@ -91,92 +83,12 @@ __global__ void __launch_bounds__(NTH) convert_kernel(const float* __restrict__ 
   }
 }
 
-#if CONVERT_BULK
-constexpr int BULK_STAGES = 4;
-constexpr int BULK_FLOATS = 2048;   // 8 KB per stage: 8 floats per thread
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait(unsigned long long* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// Chunk k of the array (BULK_FLOATS elements; the last one may be short,
-// its whole 16-byte words by bulk copy and the rest by plain loads) runs
-// through stage k % BULK_STAGES of block k % gridDim.x's ring.
-template <int ODT>
-__global__ void __launch_bounds__(NTH) convert_bulk_kernel(const float* __restrict__ x,
-                                                           void* __restrict__ out, long long n) {
-  __shared__ __align__(128) float ring[BULK_STAGES][BULK_FLOATS];
-  __shared__ __align__(8) unsigned long long bar[BULK_STAGES];
-  const long long chunks = (n + BULK_FLOATS - 1) / BULK_FLOATS;
-  auto words = [&](long long k) {
-    const long long left = n - k * BULK_FLOATS;
-    return static_cast<unsigned>((left < BULK_FLOATS ? left : BULK_FLOATS) / 4 * 16);
-  };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < BULK_STAGES; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&bar[s])));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int s = 0; s < BULK_STAGES; ++s) {
-      const long long k = blockIdx.x + static_cast<long long>(s) * gridDim.x;
-      if (k < chunks && words(k)) bulk_load(ring[s], x + k * BULK_FLOATS, words(k), &bar[s]);
-    }
-  }
-  __syncthreads();
-  int it = 0;
-  for (long long k = blockIdx.x; k < chunks; k += gridDim.x, ++it) {
-    const int s = it % BULK_STAGES;
-    const long long e0 = k * BULK_FLOATS;
-    const long long left = n - e0;
-    const int len = static_cast<int>(left < BULK_FLOATS ? left : BULK_FLOATS);
-    const int bulk = static_cast<int>(words(k) / 4);
-    if (bulk) bulk_wait(&bar[s], (it / BULK_STAGES) & 1);
-    for (int c = threadIdx.x * 8; c < len; c += NTH * 8) {
-      float v[8];
-      if (c + 8 <= bulk) {
-        const float4 a = *reinterpret_cast<const float4*>(&ring[s][c]);
-        const float4 b = *reinterpret_cast<const float4*>(&ring[s][c + 4]);
-        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-        v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-        store8(out, ODT, e0 + c, v);
-      } else {
-        for (int i = c; i < c + 8 && i < len; ++i)
-          store_any(out, ODT, e0 + i, i < bulk ? ring[s][i] : x[e0 + i]);
-      }
-    }
-    __syncthreads();   // every thread is done with stage s
-    const long long nk = k + static_cast<long long>(BULK_STAGES) * gridDim.x;
-    if (threadIdx.x == 0 && nk < chunks && words(nk)) {
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      bulk_load(ring[s], x + nk * BULK_FLOATS, words(nk), &bar[s]);
-    }
-  }
-}
-#endif
-
 // The class-map form: chunk q of the padded [mt * t, nt * t] matrix is
 // row q / (nt * t / 8), columns 8 * (q % (nt * t / 8)) + 0..7 (t is a
 // multiple of 8, so a chunk lies in one tile).  VEC: x is 16-byte aligned
-// with N % 4 == 0, so a chunk wholly inside x is two vector loads.
-template <bool VEC>
+// with N % 4 == 0, so a chunk wholly inside x is two vector loads.  U:
+// chunks per thread and pass.
+template <bool VEC, int U>
 __global__ void __launch_bounds__(NTH, BPS) convert_class_kernel(const float* __restrict__ x,
                                                             const ClassArgs a) {
   const int cpr = a.nt * a.tile / 8;
@@ -260,16 +172,8 @@ extern "C" int convert_launch(const void* x, void* out, long long n, int odt,
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
-#if CONVERT_BULK
-  const long long chunks = (n + BULK_FLOATS - 1) / BULK_FLOATS;
-  const int cap = resident_blocks(device);
-  if (!cap) return static_cast<int>(cudaErrorInvalidDevice);
-  const int blocks = static_cast<int>(chunks < cap ? chunks : cap);
-#define CV_LAUNCH(D) convert_bulk_kernel<D><<<blocks, NTH, 0, st>>>(xf, out, n)
-#else
   const int blocks = static_cast<int>((n / 8 + 1 + NTH - 1) / NTH);
 #define CV_LAUNCH(D) convert_kernel<D><<<blocks, NTH, 0, st>>>(xf, out, n)
-#endif
   switch (odt) {
     case DT_F32: CV_LAUNCH(DT_F32); break;
     case DT_BF16: CV_LAUNCH(DT_BF16); break;
@@ -306,12 +210,12 @@ extern "C" int convert_by_class_launch(const void* x, const ClassArgs* args, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const long long chunks = static_cast<long long>(a.mt) * a.tile * a.nt * a.tile / 8;
-  const long long need = (chunks + NTH * U - 1) / (NTH * U);
+  const long long need = (chunks + NTH * CLASS_U - 1) / (NTH * CLASS_U);
   const int blocks = static_cast<int>(need < cap ? need : cap);
   const bool vec = !(reinterpret_cast<unsigned long long>(x) & 15) && !(a.N % 4);
   if (vec)
-    convert_class_kernel<true><<<blocks, NTH, 0, st>>>(xf, a);
+    convert_class_kernel<true, CLASS_U><<<blocks, NTH, 0, st>>>(xf, a);
   else
-    convert_class_kernel<false><<<blocks, NTH, 0, st>>>(xf, a);
+    convert_class_kernel<false, CLASS_U><<<blocks, NTH, 0, st>>>(xf, a);
   return static_cast<int>(cudaGetLastError());
 }

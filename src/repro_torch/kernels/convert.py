@@ -98,23 +98,30 @@ def _grid(x: torch.Tensor, cls_map: np.ndarray, tile: int
     return mt, nt
 
 
-def convert_by_class_plain(x: torch.Tensor, cls_map, tile: int,
-                           fset: FormatSet) -> tuple[torch.Tensor, ...]:
-    """Plain version of :func:`convert_by_class` (any format set): ``x``
-    zero-padded to the tile grid, then per class code that class's
-    ``to_buffer`` of the elements its tiles hold, zero elsewhere."""
+def class_masked(x: torch.Tensor, cls_map, tile: int, fset: FormatSet):
+    """Per class code of ``fset``, (its format, ``x`` zero-padded to the
+    tile grid with every other class's tiles zeroed): the map is expanded
+    on ``x``'s device (uploaded pinned to a card)."""
     cls_map = np.asarray(cls_map)
     mt, nt = _grid(x, cls_map, tile)
     xp = x.float()
     pm, pn = mt * tile - xp.shape[0], nt * tile - xp.shape[1]
     if pm or pn:
         xp = torch.nn.functional.pad(xp, (0, pn, 0, pm))
-    sel = torch.from_numpy(cls_map.astype(np.int64)).to(x.device)
+    sel = (_build.upload_int32(cls_map, x.device) if x.is_cuda
+           else torch.from_numpy(cls_map.astype(np.int32)))
     sel = sel.repeat_interleave(tile, 0).repeat_interleave(tile, 1)
-    return tuple(
-        fset.fmt(code).to_buffer(
-            torch.where(sel == code, xp, torch.zeros_like(xp)), tile=tile)
-        for code in fset.codes)
+    for code in fset.codes:
+        yield fset.fmt(code), torch.where(sel == code, xp,
+                                          torch.zeros_like(xp))
+
+
+def convert_by_class_plain(x: torch.Tensor, cls_map, tile: int,
+                           fset: FormatSet) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`convert_by_class` (any format set): per
+    class code that class's ``to_buffer`` of :func:`class_masked`."""
+    return tuple(f.to_buffer(m, tile=tile)
+                 for f, m in class_masked(x, cls_map, tile, fset))
 
 
 class _ClassArgs(ctypes.Structure):

@@ -79,18 +79,6 @@ def assert_same_bits(j, p: torch.Tensor) -> None:
     np.testing.assert_array_equal(_bits(j)[~nan], pb[~nan])
 
 
-def _old_chain(x: torch.Tensor, cls_map, tile, fset) -> tuple:
-    """The per-class storage cast: the map expanded on the host, then per
-    class a masked copy and its ``to_buffer``."""
-    mt, nt = cls_map.shape
-    xp = torch.nn.functional.pad(
-        x, (0, nt * tile - x.shape[1], 0, mt * tile - x.shape[0]))
-    sel = torch.from_numpy(PL.expand_map(cls_map, tile))
-    return tuple(fset.fmt(c).to_buffer(
-        torch.where(sel == c, xp, torch.zeros_like(xp)), tile=tile)
-        for c in fset.codes)
-
-
 @pytest.mark.parametrize("shape", [(64, 96), (45, 71)])
 @pytest.mark.parametrize("tile", [16, 32])
 @pytest.mark.parametrize("key", SETS)
@@ -112,12 +100,14 @@ def test_convert_by_class_plain_is_the_reference_storage_cast(key, tile,
 @pytest.mark.parametrize("key", SETS + INT_SETS)
 def test_from_dense_on_cpu_is_unchanged(key):
     """The port's ``MPMatrix.from_dense`` on the CPU gives the buffers of
-    the per-class chain bit for bit, whichever path its set takes."""
+    the plain per-class cast (``convert_by_class_plain``: a masked copy
+    and ``to_buffer`` per class) bit for bit, whichever path its set
+    takes."""
     fs = PF.FormatSet.from_key(key)
     x = torch.from_numpy(_input((50, 40), seed=3))
     cls = _map((50, 40), 16, len(fs), seed=4)
     got = PL.MPMatrix.from_dense(x, cls, 16, fs)
-    want = _old_chain(x, cls, 16, fs)
+    want = CV.convert_by_class_plain(x, cls, 16, fs)
     assert got.shape == (50, 40) and got.padded_shape == (64, 48)
     for w, g in zip(want, got.bufs):
         assert w.dtype == g.dtype
@@ -129,18 +119,24 @@ def test_from_dense_on_cpu_is_unchanged(key):
 @pytest.mark.parametrize("key,form", [(k, True) for k in SETS]
                          + [(k, False) for k in INT_SETS]
                          + [("int8_pt+fp32", False), ("bf16+fp32", True)])
-def test_integer_sets_are_routed_to_the_per_class_path(key, form):
+def test_integer_sets_are_routed_to_the_per_class_path(key, form,
+                                                       monkeypatch):
     """``class_map_form`` (pure host) sends a set with an integer class
     to the per-class path and every other set to the class-map form;
-    only the per-class path expands the map on the host, and neither
-    launches a kernel on CPU tensors."""
+    ``from_dense`` takes exactly that path, and neither launches a kernel
+    on CPU tensors."""
     fs = PF.FormatSet.from_key(key)
     assert CV.class_map_form(fs) is form
+    taken = []
+    for mod, name in ((CV, "convert_by_class"), (PL, "per_class_cast")):
+        def spy(*args, _real=getattr(mod, name), _name=name):
+            taken.append(_name)
+            return _real(*args)
+        monkeypatch.setattr(mod, name, spy)
     ops.reset_launch_counts()
-    before = PL.host_map_expansions
     PL.MPMatrix.from_dense(torch.ones((32, 32)), _map((32, 32), 16,
                                                       len(fs), 1), 16, fs)
-    assert PL.host_map_expansions - before == (0 if form else 1)
+    assert taken == ["convert_by_class" if form else "per_class_cast"]
     assert ops.launch_counts()["convert"] == CV.class_launches == 0
 
 
