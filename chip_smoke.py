@@ -40,6 +40,20 @@ Phases (each raises on failure, so a failing run never exits 0):
    warmup, every KSplit linear on the ksplit kernel;
    A profiled decode step then shows where its time goes (wall vs device
    busy time, top kernels by device time);
+4b. the serve state at full width: InternLM2-1.8B with the reference's
+   serve defaults (refill, paged prefix cache, chunked prefill;
+   ``max_batch=4``, ``max_seq=320``) over a three-call stream — six
+   requests sharing a 40-token prefix that retire early, so two enter as
+   page-reused refills, two sampled requests (temperature 0.8, seeds 1
+   and 2), a 150-token chunked prompt, then a 170-token one whose cached
+   chain lets it skip its first chunk.  Every request's tokens must equal
+   the unbatched reference's, greedy and sampled; the sampled streams
+   must differ; at least two refills (one page-reused), two chunked
+   prefills and exactly one chunk skipped; no page leaked after the
+   drain; no fresh plan resolution; every KSplit linear on the kernel.
+   It prints the stream's tokens/s, the page and chunk counters, the host
+   ms of copying a 16-page chain into a cache row, and (no gate) whether
+   a row's logits are bit-equal at m = 1 and m = 4;
 5. the refinement solver on the card: ``graded_spd`` n = 8192, tile 128,
    start 0D:100S, LU, tol 0.01, three solves — storage escalation (tile
    kernel), split compute escalation (split kernel only) and the grouped
@@ -901,6 +915,161 @@ def serve(cfg, seed: int = 0) -> dict:
             launches["ksplit_gemm"] / max(1, steps), **prof}
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: the serve state at full width
+# ---------------------------------------------------------------------------
+
+#: phase 4b's KV-cache length: the 170-token prompt pads to 256 (two
+#: chunks of the largest bucket, 128) and decodes 16 tokens
+STATE_MAX_SEQ = 320
+
+
+def state_stream(vocab: int, seed: int) -> list:
+    """Phase 4b's three ``generate`` calls, from a numpy seed: six requests
+    sharing a 40-token prefix (bucket 64, P = 32) that retire early so two
+    of them enter as refills, and two sampled 12-token requests; a
+    150-token prompt (chunked, pad 256); a 170-token prompt sharing its
+    first 144 tokens (its chain covers the first chunk)."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 40)
+    shared = [np.concatenate([prefix, rng.integers(0, vocab, t)])
+              for t in (4, 8, 12, 16, 20, 24)]
+    short = rng.integers(0, vocab, 12)
+    long2 = rng.integers(0, vocab, 150)
+    long3 = np.concatenate([long2[:144], rng.integers(0, vocab, 26)])
+    call1 = [Request(p, max_new_tokens=n)
+             for p, n in zip(shared, (4, 16, 8, 16, 4, 12))]
+    call1 += [Request(short, max_new_tokens=12, temperature=0.8, seed=s)
+              for s in (1, 2)]
+    return [call1, [Request(long2, max_new_tokens=16)],
+            [Request(long3, max_new_tokens=16)]]
+
+
+def serve_state(cfg, seed: int = 0) -> dict:
+    """Serve the phase-4b stream through the engine at the reference's
+    defaults (refill, paged prefix cache, chunked prefill), hold every
+    request to ``generate_reference`` and gate the counters."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.kv_pages import page_digests
+    t_phase = time.perf_counter()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    eng = Engine(cfg, params, ServeConfig(max_batch=4,
+                                          max_seq=STATE_MAX_SEQ))
+    eng.warmup()
+    calls = state_stream(cfg.vocab, seed)
+    skipped = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for batch in calls:
+        eng.generate(batch)
+        skipped.append(int(eng.metrics.value("serve.chunks_skipped")))
+    sync()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = eng.stats()
+    reqs = [r for batch in calls for r in batch]
+    refs = eng.generate_reference(
+        [r for batch in state_stream(cfg.vocab, seed) for r in batch])
+    bad = [i for i, (r, f) in enumerate(zip(reqs, refs))
+           if not r.done or r.out_tokens != f.out_tokens]
+    mb, pc, pages = st["microbatches"], st["prefix_cache"], st["kv_pages"]
+    reused = int(eng.metrics.value("serve.prefix.reused_prefills"))
+    lin = st["linear_dispatch_since_warmup"]
+    fresh = st["plans"]["post_warmup_fresh_resolutions"]
+    gen_toks = st["tokens"]["generated"]
+    call_skips = [skipped[0], skipped[1] - skipped[0],
+                  skipped[2] - skipped[1]]
+    # the host time of one 16-page chain copied into a cache row
+    digs = page_digests("default", calls[1][0].prompt, eng.pool.page_tokens,
+                        limit=len(calls[1][0].prompt) - 1)[:16]
+    pids = eng.prefix.chain(digs)
+    caches = T.init_cache(cfg, 4, STATE_MAX_SEQ, DEVICE)
+    scatter_ms = host_clock_ms(lambda: eng.write_pages(
+        caches, 1, [eng.pool.payload(p) for p in pids]))
+    print(f"serve state: {len(reqs)} requests in 3 calls, {gen_toks} "
+          f"tokens in {wall_s:.3f} s = {gen_toks / wall_s:.2f} tokens/s; "
+          f"microbatches {mb['total']}, refills {mb['refills']} "
+          f"({mb['reused_refills']} page-reused), reused prefills "
+          f"{reused}, chunked prefills {st['chunked_prefills']} (chunks "
+          f"run {st['chunks']['run']}, skipped {st['chunks']['skipped']}; "
+          f"skipped per call {call_skips})")
+    print(f"serve state: prefix hits {pc['hits']} misses {pc['misses']} "
+          f"inserts {pc['inserts']} entries {pc['entries']}; pages in use "
+          f"{pages['in_use']} (high water {pages['high_water']}); prefill "
+          f"steps {st['prefill_steps']}, decode steps {st['decode_steps']}")
+    print(f"serve state: kernel launches {launches}; linear dispatch "
+          f"since warmup {lin}; post-warmup fresh resolutions {fresh}")
+    print(f"serve state: {len(pids)}-page chain copied into a cache row "
+          f"in {scatter_ms:.3f} ms (host clock, device synchronized)")
+    print(f"serve state: batched tokens == unbatched reference for "
+          f"{len(reqs) - len(bad)}/{len(reqs)} requests (sampled: "
+          f"{reqs[6].out_tokens[:6]}... vs {reqs[7].out_tokens[:6]}...)")
+    if bad:
+        fail(f"serve state: batched tokens differ from the reference for "
+             f"requests {bad}")
+    if reqs[6].out_tokens == reqs[7].out_tokens:
+        fail("serve state: the two sampled streams are equal")
+    if mb["refills"] < 2 or mb["reused_refills"] < 1:
+        fail(f"serve state: {mb['refills']} refills, "
+             f"{mb['reused_refills']} page-reused (want >= 2, >= 1)")
+    if reused < 1 and mb["reused_refills"] < 1:
+        fail("serve state: no prefill reused a page")
+    if st["chunked_prefills"] < 2 or call_skips[2] != 1:
+        fail(f"serve state: {st['chunked_prefills']} chunked prefills, "
+             f"call 3 skipped {call_skips[2]} chunks (want >= 2, 1)")
+    if pages["in_use"] != pc["entries"]:
+        fail(f"serve state: {pages['in_use']} pages in use for "
+             f"{pc['entries']} cache entries after the drain (a leak)")
+    if len(pids) != 16:
+        fail(f"serve state: the 150-token chain holds {len(pids)} pages")
+    if fresh != 0:
+        fail(f"serve state: {fresh} fresh plan resolutions after warmup")
+    if launches["ksplit_gemm"] < 1:
+        fail("serve state never launched the ksplit kernel")
+    if lin.get("ksplit_torch", 0) != 0:
+        fail(f"serve state: {lin['ksplit_torch']} KSplit linears ran off "
+             "the kernel")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                0 <= tok < cfg.vocab for tok in r.out_tokens):
+            fail("serve state: malformed output tokens")
+    rows_equal(cfg, params)
+    phase_s = time.perf_counter() - t_phase
+    print(f"serve state: phase {phase_s:.1f} s")
+    return {"launches": launches["ksplit_gemm"],
+            "tokens_per_s": gen_toks / wall_s, "scatter_ms": scatter_ms,
+            "phase_s": phase_s}
+
+
+def rows_equal(cfg, params, steps: int = 8) -> None:
+    """Informational, no gate: the same token stream through
+    ``forward_decode`` at m = 1 and at m = 4 (rows repeating it); prints
+    whether row 0's logits are bit-equal at every step, which says
+    whether a batch-1 refill prefill could be exact."""
+    import torch
+    from repro_torch.models import transformer as T
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, steps)
+    logits = {}
+    for m in (1, 4):
+        caches = T.init_cache(cfg, m, 64, DEVICE)
+        out = []
+        for s, t in enumerate(toks):
+            tok = torch.full((m, 1), int(t), dtype=torch.int64,
+                             device=DEVICE)
+            lg, _ = T.forward_decode(params, cfg, tok, caches, s)
+            out.append(lg[0, 0].float().cpu())
+        logits[m] = torch.stack(out)
+    same = [bool(torch.equal(a, b)) for a, b in zip(logits[1], logits[4])]
+    diff = float((logits[1] - logits[4]).abs().max())
+    print(f"rows m=1 vs m=4: row 0's logits bit-equal at {sum(same)}/"
+          f"{steps} decode steps (max abs diff {diff:.3e})")
+
+
 def profile_decode(cfg, params, steps: int = 5) -> dict:
     """Where a decode step's time goes: wall time per step (host clock
     around synchronized steps) and, under ``torch.profiler``, the device
@@ -1641,6 +1810,7 @@ def main() -> None:
     from repro_torch.configs import get
     cfg = get("internlm2-1.8b")
     sv = serve(cfg)
+    ss = serve_state(cfg)
     sol = solve_phase()
     parity_phase()
     ks_rows = time_ksplit(gen, policy)
@@ -1653,7 +1823,9 @@ def main() -> None:
         {"name": "ksplit_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/ksplit_gemm.cu",
          "replaces": "src/repro/kernels/ksplit_gemm.py:97",
-         "launches": sv["launches"],
+         "launches": sv["launches"] + ss["launches"],
+         "launches_by_phase": {"serve": sv["launches"],
+                               "serve_state": ss["launches"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}},
@@ -1702,7 +1874,8 @@ def main() -> None:
          "max_abs_err": max(cv_err.values()), **cv},
     ]
     print(f"serve tokens/s {sv['tokens_per_s']:.2f}; ksplit launches per "
-          f"model step {sv['launches_per_step']:.1f}; total "
+          f"model step {sv['launches_per_step']:.1f}; serve state tokens/s "
+          f"{ss['tokens_per_s']:.2f} (phase {ss['phase_s']:.1f} s); total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,176 @@
+"""Serving launcher (twin of ``repro.launch.serve``): build a model with
+random weights from a seeded ``torch.Generator`` and serve prompts
+through the shape-bucketed engine.
+
+    python -m repro_torch.launch.serve --prompts "1 2 3" "4 5" --max-new 8
+    python -m repro_torch.launch.serve --smoke --device cpu --stats
+
+The first serves InternLM2-1.8B at full width on the card (``--device
+cuda``, the default); the second its reduced twin with the kernels'
+plain versions on the CPU.  Every knob maps onto
+:class:`repro_torch.serve.ServeConfig`; refill, the paged prefix cache
+and chunked prefill are on unless switched off.  The engine resolves
+every plan and builds the kernels before serving unless ``--no-warmup``
+is passed; ``--stats`` prints ``Engine.stats()`` as JSON after the
+stream drains.
+
+Options of the reference launcher that the port cannot serve yet exit
+non-zero, naming the ``ROADMAP.md`` queue-1 item that ports them.  Exit
+status is also non-zero if any request was rejected at admission.
+"""
+import argparse
+import json
+
+#: reference options not served yet -> the ROADMAP.md queue-1 item
+UNPORTED = {
+    "replicas": "--replicas > 1 needs serve/cluster.py "
+                "(ROADMAP.md queue 1, item 9)",
+    "ckpt": "--ckpt needs checkpoint/ (ROADMAP.md queue 1, item 5)",
+    "quantize": "--quantize needs quant/ and weight variants "
+                "(ROADMAP.md queue 1, item 4)",
+    "trace": "--trace needs obs tracing (ROADMAP.md queue 1, item 8)",
+}
+
+
+def _parse(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the reduced config (reduced(cfg, tp=2))")
+    ap.add_argument("--prompts", nargs="*", default=["1 2 3 4", "7 8"])
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weight seed and the engine's sampling seed")
+    ap.add_argument("--buckets", default="",
+                    help="comma-separated padded prompt lengths "
+                         "(default: ArchConfig.serve_buckets)")
+    ap.add_argument("--waste-cap", type=float, default=0.75,
+                    help="max padding-waste fraction before a request is "
+                         "redirected to a cold exact-length bucket")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip plan resolution and kernel builds before "
+                         "serving (unwarmed buckets record misses)")
+    ap.add_argument("--no-refill", action="store_true",
+                    help="disable mid-decode slot retire-and-refill")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable block-paged prefix-KV reuse")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="serve prompts longer than every bucket through "
+                         "exact-length buckets instead of chunked prefill")
+    ap.add_argument("--prefix-pages", type=int, default=128,
+                    help="page-pool capacity of the paged prefix-KV cache")
+    ap.add_argument("--page-tokens", type=int, default=4,
+                    help="KV positions per page")
+    ap.add_argument("--request-seed", type=int, default=0,
+                    help="base seed of the per-request sampling streams "
+                         "(request i uses request-seed + i)")
+    ap.add_argument("--formats", default="",
+                    help="override the arch's mixed-precision format set, "
+                         "e.g. fp8_e4m3+bf16+fp32 or the short form q:s:d")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda or cpu)")
+    ap.add_argument("--stats", action="store_true",
+                    help="print stats() JSON after serving")
+    ap.add_argument("--replicas", type=int, default=1, help="not ported")
+    ap.add_argument("--ckpt", default="", help="not ported")
+    ap.add_argument("--quantize", default="", help="not ported")
+    ap.add_argument("--trace", default="", help="not ported")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = _parse(argv)
+    asked = [name for name in UNPORTED
+             if (args.replicas > 1 if name == "replicas"
+                 else getattr(args, name))]
+    if asked:
+        raise SystemExit("not ported yet: "
+                         + "; ".join(UNPORTED[n] for n in asked))
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get, reduced
+    from repro_torch.core.formats import FormatSet
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    if args.device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device: pass --device cpu to serve "
+                             "with the kernels' plain versions")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = get(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg, tp=2)
+    if args.formats:
+        cfg = dataclasses.replace(
+            cfg, mp_formats=FormatSet.parse(args.formats).key())
+    params = T.init_model(
+        torch.Generator(device=args.device).manual_seed(args.seed), cfg)
+    sc = ServeConfig(
+        buckets=(tuple(int(b) for b in args.buckets.split(","))
+                 if args.buckets else None),
+        waste_cap=args.waste_cap,
+        max_batch=args.max_batch,
+        max_seq=args.max_seq,
+        rng_seed=args.seed,
+        refill=not args.no_refill,
+        prefix_cache=not args.no_prefix_cache,
+        chunked_prefill=not args.no_chunked_prefill,
+        prefix_pages=args.prefix_pages,
+        page_tokens=args.page_tokens,
+        warmup=not args.no_warmup,
+    )
+    eng = Engine(cfg, params, sc)
+    print(f"engine {cfg.name} on {args.device}: mode={eng.mode} buckets="
+          f"{sorted(k.pad_len for k in eng.scheduler.buckets)} "
+          f"refill={eng.refill_enabled} "
+          f"prefix_cache={eng.prefix is not None} "
+          f"chunk={eng._chunk or None}")
+    if sc.warmup:
+        rep = eng.warmup()
+        fresh = rep.pop("fresh_resolutions")
+        print(f"warmup: {fresh} fresh plan resolutions; "
+              f"paths={ {k: v['paths'] for k, v in rep.items()} }")
+    reqs = [Request(np.array([int(t) % cfg.vocab for t in p.split()],
+                             np.int64),
+                    max_new_tokens=args.max_new,
+                    temperature=args.temperature,
+                    seed=args.request_seed + i)
+            for i, p in enumerate(args.prompts)]
+    rejected = 0
+    for i, r in enumerate(eng.generate(reqs)):
+        if r.error:
+            rejected += 1
+            print(f"request {i}: prompt={np.asarray(r.prompt).tolist()} "
+                  f"REJECTED — {r.error}")
+            continue
+        print(f"request {i}: prompt={np.asarray(r.prompt).tolist()} "
+              f"→ out={r.out_tokens}  "
+              f"[bucket={r.bucket} padded_to={r.padded_to} "
+              f"cold={r.cold} latency={r.latency_s * 1e3:.0f}ms]")
+    st = eng.stats()
+    print(f"served={st['requests']['served']} "
+          f"microbatches={st['microbatches']['total']} "
+          f"(multi={st['microbatches']['multi_request']}) "
+          f"refills={st['microbatches']['refills']} "
+          f"chunked_prefills={st['chunked_prefills']} "
+          f"hit_rate={st['bucket_hit_rate']:.2f} "
+          f"post_warmup_fresh_resolutions="
+          f"{st['plans']['post_warmup_fresh_resolutions']}")
+    if args.stats:
+        print(json.dumps(st, indent=1, sort_keys=True))
+    if rejected:
+        raise SystemExit(f"{rejected} request(s) rejected at admission")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,7 +1,10 @@
-"""Serving stack: ``ServeConfig`` and the scheduler import without torch
-device work; ``Engine``/``Request`` load the model stack on first use::
+"""Serving stack (twin of ``repro.serve``, one engine; the cluster is not
+ported yet).  ``ServeConfig``, the scheduler and the KV-page control
+plane (``repro_torch.serve.kv_pages``) import without torch device work;
+``Engine``/``Request`` load the model stack on first use::
 
     from repro_torch.serve import Engine, Request, ServeConfig
+    eng = Engine(cfg, params, ServeConfig(max_batch=4))
 """
 from repro_torch.serve.config import DEFAULT_PAD_LENS, ServeConfig
 

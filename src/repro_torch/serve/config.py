@@ -2,13 +2,12 @@
 ``repro.serve.config``; the legacy-kwargs shim is not ported)::
 
     from repro_torch.serve import Engine, ServeConfig
-    eng = Engine(cfg, params, ServeConfig(max_batch=4, refill=False,
-                                          prefix_cache=False,
-                                          chunked_prefill=False))
+    eng = Engine(cfg, params, ServeConfig(max_batch=4))
 
-The port's engine serves the masked-mode path with ``refill``,
-``prefix_cache`` and ``chunked_prefill`` off (the port's defaults); it
-rejects a config that turns any of them on.
+The defaults are the reference's: slot refill, the paged prefix cache
+and chunked long-prompt prefill are on.  The reference's SUMMA and
+cluster fields (``summa_grid``, ``replicas``, ``affinity``,
+``stall_timeout_s``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -39,10 +38,19 @@ class ServeConfig:
     Engine:
 
     * ``max_seq`` — KV-cache length (bounds prompt+generation).
-    * ``refill`` / ``prefix_cache`` / ``chunked_prefill`` — the
-      reference's slot refill, paged prefix reuse and chunked long-prompt
-      prefill.  Not ported yet: only ``False`` (the default here) is
-      served; ``True`` makes the engine raise ``NotImplementedError``.
+    * ``rng_seed`` — engine seed of the sampling streams; a request's
+      stream mixes it with the request's ``seed`` and the token index.
+    * ``refill`` — mid-decode slot retire-and-refill.
+    * ``prefix_cache`` — block-paged prefix-KV reuse.
+    * ``prefix_pages`` — page-pool capacity: the prefix cache LRU-evicts
+      digests once this many pages are resident.
+    * ``page_tokens`` — KV positions per page; bucket prefix points and
+      chunk skips align down to this granularity.
+    * ``chunked_prefill`` — serve prompts longer than every configured
+      bucket by chunked paged prefill (off → such prompts use cold
+      exact-length buckets).
+    * ``warmup`` — resolve plans and build the kernels at startup
+      (honoured by the launcher; ``Engine.warmup()`` stays explicit).
     """
     buckets: Optional[tuple] = None
     waste_cap: float = 0.75
@@ -50,9 +58,13 @@ class ServeConfig:
     max_queue: int = 1024
     max_dynamic: int = 8
     max_seq: int = 256
-    refill: bool = False
-    prefix_cache: bool = False
-    chunked_prefill: bool = False
+    rng_seed: int = 0
+    refill: bool = True
+    prefix_cache: bool = True
+    prefix_pages: int = 128
+    page_tokens: int = 4
+    chunked_prefill: bool = True
+    warmup: bool = True
 
     def __post_init__(self):
         if self.buckets is not None:
@@ -60,7 +72,8 @@ class ServeConfig:
                                tuple(sorted(set(int(b)
                                                 for b in self.buckets))))
         for field, lo in (("max_batch", 1), ("max_queue", 1),
-                          ("max_dynamic", 1), ("max_seq", 2)):
+                          ("max_dynamic", 1), ("max_seq", 2),
+                          ("prefix_pages", 1), ("page_tokens", 1)):
             if getattr(self, field) < lo:
                 raise ValueError(f"{field} {getattr(self, field)} < {lo}")
         if not 0.0 <= self.waste_cap <= 1.0:

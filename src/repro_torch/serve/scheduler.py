@@ -301,6 +301,51 @@ class ShapeBucketScheduler:
         with self._lock:
             return self._dynamic_or_configured(length, fset, commit=commit)
 
+    def pop_pending(self, key: BucketKey):
+        """Pull the oldest pending request for ``key`` out of turn — the
+        engine's retire-and-refill hook: when a slot of an in-flight
+        microbatch frees mid-decode, the next request for the *same*
+        bucket joins it immediately rather than waiting for a fresh
+        microbatch.  Returns a request or None.
+
+        This trades strict global FIFO for occupancy: a refill may serve a
+        younger request of this bucket before an older request of another
+        bucket — but only into a slot no other bucket could use, so no
+        request is ever *delayed* by a refill."""
+        with self._lock:
+            q = self._pending.get(key)
+            if not q:
+                return None
+            req = q.popleft()
+            self._drained.add(id(req))
+            self._queued_ids.discard(id(req))
+            return req
+
+    def drain_pending(self) -> list:
+        """Remove and return EVERY pending request, oldest first — the
+        cluster front-end's stall hook: when a replica stops making
+        progress, its undrained queue is pulled back out and re-routed to
+        healthy replicas.  Requests already pulled into an in-flight
+        microbatch are not (and cannot be) recalled."""
+        with self._lock:
+            out = []
+            for key, req in list(self._queue):
+                if id(req) not in self._queued_ids:
+                    continue        # already drained into a microbatch
+                out.append(req)
+                self._queued_ids.discard(id(req))
+                self._drained.add(id(req))
+                self._pending[key].remove(req)   # identity ==  (eq=False)
+            return out
+
+    def exact_bucket(self, length: int, fset: str, *,
+                     commit: bool = True) -> BucketKey:
+        """Bucket a request at its exact length, bypassing best-fit padding
+        (the engine's KV-headroom fallback: a prompt whose *padded* length
+        cannot fit ``max_new`` tokens in the cache may still fit unpadded)."""
+        with self._lock:
+            return self._dynamic_or_configured(length, fset, commit=commit)
+
     # -- reporting --------------------------------------------------------
 
     def totals(self) -> dict:

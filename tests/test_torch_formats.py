@@ -205,7 +205,8 @@ def test_bridge_tensor_bits():
 
 def test_import_leaves_jax_and_reference_out():
     """``import repro_torch`` (every module, ``repro_torch.split``,
-    ``repro_torch.solve`` and ``repro_torch.launch.solve`` among them)
+    ``repro_torch.solve``, ``repro_torch.serve.kv_pages`` and both
+    launchers among them)
     imports neither jax nor the JAX package — checked in a fresh
     interpreter."""
     code = (
@@ -215,7 +216,8 @@ def test_import_leaves_jax_and_reference_out():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('repro_torch.split', 'repro_torch.solve', "
-        "'repro_torch.launch.solve'):\n"
+        "'repro_torch.serve.kv_pages', 'repro_torch.launch.solve', "
+        "'repro_torch.launch.serve'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"

@@ -1,13 +1,23 @@
 """The serve engine of ``repro_torch`` at reduced size: batched tokens
 equal the unbatched reference's (inside the port), and equal the JAX
 package's ``Engine`` on the same weights and requests; warmup leaves no
-fresh plan resolution for serving; what the port does not serve yet
-raises.
+fresh plan resolution for serving; sampled requests and the refill,
+prefix-cache and chunked-prefill options are served; the serve launcher
+serves on the CPU and refuses the options it does not port.
+
+``PORTED`` pins refill, the prefix cache and chunked prefill off for the
+tests of the plain microbatch path (the serve state has its own battery,
+``tests/test_torch_serve_scheduler.py``).
 
 The JAX engine runs with ``prefix_cache=True``: its masked path with the
 prefix cache off fails on a ``None`` cache (a reference-side fault), and
 prefix reuse is bit-exact, so the tokens it serves are the same.
 """
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +30,7 @@ from repro.tune import dispatch as JD
 from repro.tune import search as JS
 from repro_torch.configs import get, reduced
 from repro_torch.kernels import ops
+from repro_torch.launch import serve as serve_cli
 from repro_torch.models import transformer as PT
 from repro_torch.obs import metrics as PM
 from repro_torch.serve import Engine, Request, ServeConfig
@@ -29,6 +40,7 @@ from repro_torch.tune import dispatch as PD
 from repro_torch.tune import search as PS
 from test_torch_models import reduced_pair
 
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 PORTED = dict(refill=False, prefix_cache=False, chunked_prefill=False)
 
 
@@ -109,20 +121,40 @@ def test_tokens_equal_jax_engine():
 
 
 def test_admission_and_unported_options():
+    """What the engine once refused is served: a sampled request, and an
+    engine with each of refill, the prefix cache and chunked prefill on
+    alone; each serves the tokens of its unbatched reference."""
     cfg, eng = _engine(max_batch=2, max_seq=16, buckets=(4, 8))
     with pytest.raises(AdmissionError):
         eng.submit(Request(np.arange(12), max_new_tokens=16))
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(np.arange(3), temperature=0.7))
+    sampled = Request(np.arange(3), temperature=0.7, max_new_tokens=4,
+                      seed=5)
+    assert eng.submit(sampled).pad_len == 4
     assert eng.scheduler.rejected == 1
     # longer than every bucket but within the KV bound: exact-length bucket
     key = eng.submit(Request(np.arange(1, 11), max_new_tokens=4))
     assert key.pad_len == 10
     eng.run()
-    params = eng.params
+    ref = eng.generate_reference([Request(np.arange(3), temperature=0.7,
+                                          max_new_tokens=4, seed=5)])[0]
+    assert sampled.done and sampled.out_tokens == ref.out_tokens
+    prompts = [[9, 8, 7, 6, 1], [9, 8, 7, 6, 2, 2], [9, 8, 7, 6, 3],
+               list(range(1, 12))]
     for flag in PORTED:
-        with pytest.raises(NotImplementedError):
-            Engine(cfg, params, ServeConfig(**{flag: True}))
+        e = Engine(cfg, eng.params, ServeConfig(
+            max_batch=2, max_seq=40, buckets=(4, 8),
+            **{**PORTED, flag: True}))
+        e.warmup()
+        reqs = e.generate([Request(np.asarray(p), max_new_tokens=3)
+                           for p in prompts])
+        refs = e.generate_reference([Request(np.asarray(p),
+                                             max_new_tokens=3)
+                                     for p in prompts])
+        assert [r.out_tokens for r in reqs] == [r.out_tokens for r in refs]
+        st = e.stats()
+        assert (st["microbatches"]["refills"] > 0) == (flag == "refill")
+        assert (st["chunked_prefills"] > 0) == (flag == "chunked_prefill")
+        assert (st["prefix_cache"] is not None) == (flag == "prefix_cache")
 
 
 def test_generate_marks_inadmissible_requests():
@@ -132,3 +164,44 @@ def test_generate_marks_inadmissible_requests():
     eng.generate(reqs)
     assert reqs[0].done and len(reqs[0].out_tokens) == 3
     assert not reqs[1].done and reqs[1].error.startswith("AdmissionError")
+
+
+def _serve_cli(*args):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = SRC
+    env["OMP_NUM_THREADS"] = "1"
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *args], env=env,
+        capture_output=True, text=True, timeout=300)
+
+
+def test_serve_launcher_smoke_on_cpu():
+    """``python -m repro_torch.launch.serve --smoke --device cpu`` serves
+    with the reference's defaults: a long prompt goes through chunked
+    prefill, a third request through a refill."""
+    out = _serve_cli("--smoke", "--device", "cpu", "--max-batch", "2",
+                     "--temperature", "0.5", "--stats", "--prompts",
+                     "1 2 3", "4 5 6 7", "8 9", " ".join(["3"] * 40))
+    assert out.returncode == 0, out.stderr
+    assert "refill=True prefix_cache=True chunk=32" in out.stdout
+    served = [ln for ln in out.stdout.splitlines()
+              if ln.startswith("request ")]
+    assert len(served) == 4 and all("out=[" in ln for ln in served)
+    st = json.loads(out.stdout[out.stdout.index("\n{") + 1:])
+    assert st["requests"]["served"] == 4
+    assert st["microbatches"]["refills"] == 1
+    assert st["chunked_prefills"] == 1
+    assert st["plans"]["post_warmup_fresh_resolutions"] == 0
+
+
+@pytest.mark.parametrize("flags", [["--replicas", "2"], ["--ckpt", "x"],
+                                   ["--quantize", "int8:d"],
+                                   ["--trace", "t.jsonl"]])
+def test_serve_launcher_refuses_unported_options(flags):
+    """Options of the reference launcher the port cannot serve yet exit
+    non-zero before any model is built, naming their ROADMAP item."""
+    with pytest.raises(SystemExit) as exc:
+        serve_cli.main(["--smoke", "--device", "cpu", *flags])
+    msg = str(exc.value.code)
+    assert "not ported yet" in msg and "ROADMAP.md queue 1, item" in msg
+    assert flags[0] in msg
