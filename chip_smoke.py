@@ -54,6 +54,18 @@ Phases (each raises on failure, so a failing run never exits 0):
    It prints the stream's tokens/s, the page and chunk counters, the host
    ms of copying a 16-page chain into a cache row, and (no gate) whether
    a row's logits are bit-equal at m = 1 and m = 4;
+4c. quantized weight variants at full width: ``quantize_params`` with
+   activation statistics from phase 4's prompts' embeddings (int8_pt in
+   the LOW role beside the set's HIGH fp32, a quarter of the K-blocks kept
+   HIGH), and a mixed stream of default and int8 requests through one
+   engine: every request equal to ``generate_reference`` and to its
+   replay, both buckets served, no fresh plan resolution, and every
+   linear on the path its map's sortedness calls for (sorted: the ksplit
+   kernel; a calibrated, unsorted map: the gathering path, as in the
+   reference).  It prints the stream's tokens/s and the variant's
+   storage against fp32, and reproduces the rows of
+   ``results/bench_baseline/BENCH_quant.json`` (rel_err within a decade,
+   bytes_frac and calib_ok exact);
 5. the refinement solver on the card: ``graded_spd`` n = 8192, tile 128,
    start 0D:100S, LU, tol 0.01, three solves — storage escalation (tile
    kernel), split compute escalation (split kernel only) and the grouped
@@ -78,10 +90,21 @@ Phases (each raises on failure, so a failing run never exits 0):
    bf16-class tiles) and at the solve's trailing-update and residual
    shapes and maps; the split kernel at 4096³ under split2 and split3
    50D50S and at the solve's two shapes with uniform split2 C; the ksplit
-   kernel at every served shape, also at one block per column strip; the
+   kernel at every served shape and at the training phase's M = 512,
+   also at one block per column strip; the
    convert kernel into every output dtype beside ``x.to``, and its
    class-map form at the solve's 8064² C and an 8192² 5D95S operand
-   beside its bound and the per-class path (integer sets' path).
+   beside its bound and the per-class path (integer sets' path);
+7. (run between 5 and 6) train InternLM2-1.8B at full width, seq 128 x
+   batch 4: the step-0 loss and every gradient leaf through the ksplit kernel
+   (under autograd; the backward is the gathering path's VJP) within a
+   stated allowance of the same step with ``ksplit_gemm_plain`` swapped
+   in (and no further from it than a second plain order is); every forward KSplit linear on the kernel, no fresh resolution
+   after setup; one step at two microbatches against one; eight steps on
+   one repeated batch with a finite, falling loss (per-step wall ms,
+   tokens/s, launches per step, peak memory, one profiled step); and at
+   one layer a checkpoint, an injected ``RestartSignal`` and a restore
+   whose replayed losses equal the uninterrupted run's bit for bit.
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -1134,6 +1157,517 @@ def param_bytes(params) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: quantized weight variants at full width
+# ---------------------------------------------------------------------------
+
+#: phase 4c's calibration: the int8 class in the LOW role beside the
+#: set's HIGH format, with a quarter of the K-blocks kept HIGH
+QUANT_RATIO = 0.25
+#: the rows of results/bench_baseline/BENCH_quant.json (operator edge,
+#: tile) and the file itself
+QUANT_N, QUANT_TILE = 64, 16
+QUANT_BASELINE = os.path.join(HERE, "results", "bench_baseline",
+                              "BENCH_quant.json")
+
+
+def linear_counts_by_formats() -> dict:
+    """``{formats key: {path: calls}}`` of the KSplit linears dispatched
+    since the last reset of the metrics registry."""
+    from repro_torch import obs
+    from repro_torch.tune import dispatch
+    out: dict = {}
+    for labels, c in obs.metrics_registry().series(dispatch.DISPATCH_METRIC):
+        if labels["op"] == "linear":
+            per = out.setdefault(labels["formats"], {})
+            per[labels["path"]] = per.get(labels["path"], 0) + int(c.value)
+    return out
+
+
+def ksplit_weights(params) -> list:
+    """The KSplit weights of a dense model, lm_head first."""
+    from repro_torch.core.layout import KSplitWeight
+    lins = [params["lm_head"]] + [
+        lp[blk][name] for lp in params["layers"]
+        for blk, names in (("attn", ("wq", "wk", "wv")),
+                           ("mlp", ("up", "gate"))) for name in names]
+    return [lin.w for lin in lins if isinstance(lin.w, KSplitWeight)]
+
+
+def quant_rows() -> dict:
+    """The rows of ``BENCH_quant.json`` at its shapes (n = 64, tile 16) on
+    the card, through the port's dispatch: the same loud-band operator
+    (numpy seed 11), forward error against fp64 and storage bytes over
+    fp32.  Gated as ``benchmarks/compare.py`` gates them: rel_err no more
+    than one decade worse, bytes_frac and calib_ok exact."""
+    import torch
+    from repro_torch.core.formats import format_set
+    from repro_torch.core.layout import KSplitWeight
+    from repro_torch.quant import ActStats, block_scores, calibrated_cls
+    from repro_torch.tune import dispatch
+    n, t = QUANT_N, QUANT_TILE
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((n, n)).astype(np.float32)
+    x = rng.standard_normal((8, n)).astype(np.float32)
+    x[:, : int(n * 0.125)] *= 30.0
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    s8, s4 = format_set("int8_pt", "fp32"), format_set("int4_pt", "fp32")
+    kt = n // t
+    maps = {
+        "int8_uniform": (s8, np.full(kt, s8.low, np.int8)),
+        "int4_uniform": (s4, np.full(kt, s4.low, np.int8)),
+        "mixed_calibrated": (s8, calibrated_cls(block_scores(
+            w, ActStats().observe(x).get(n), t), 0.25, s8)),
+    }
+    xd = torch.from_numpy(x).to(DEVICE)
+    got = {}
+    for tag, (fs, cls) in maps.items():
+        W = KSplitWeight.from_dense(torch.from_numpy(w).to(DEVICE), cls, t,
+                                    fs)
+        y = dispatch.linear_matmul(xd, W).double().cpu().numpy()
+        rel = float(np.abs(y - exact).max() / np.abs(exact).max())
+        got[tag] = (rel, float(W.storage_bytes()) / (w.size * 4))
+    with open(QUANT_BASELINE) as f:
+        base = {r["name"]: dict(kv.split("=") for kv in
+                                r["derived"].split(";"))
+                for r in json.load(f)["rows"]}
+    for tag, (rel, frac) in got.items():
+        calib_ok = 1
+        if tag == "mixed_calibrated":
+            calib_ok = int(rel < got["int8_uniform"][0] and frac < 0.5)
+        b = base[f"quant_{tag}_{n}"]
+        worse = np.log10(max(rel, 1e-30)) - np.log10(float(b["rel_err"]))
+        print(f"quant row {tag}: rel_err {rel:.3g} (baseline "
+              f"{b['rel_err']}), bytes_frac {frac:.4f} (baseline "
+              f"{b['bytes_frac']}), calib_ok {calib_ok}")
+        if worse > 1.0 or f"{frac:.4f}" != b["bytes_frac"] \
+                or str(calib_ok) != b["calib_ok"]:
+            fail(f"quant row {tag} does not reproduce BENCH_quant.json")
+    return got
+
+
+def serve_quant(cfg, seed: int = 0) -> dict:
+    """Serve a mixed stream of default and int8-variant requests through
+    one engine at full width; every request must equal
+    ``generate_reference`` and its replay, both buckets must serve, and
+    every KSplit linear must take the path its map's sortedness calls
+    for (a calibrated map is not sorted by class: the gathering path, as
+    in the reference)."""
+    import torch
+    from repro_torch.core.formats import FormatSet, format_set
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import ActStats, map_report, quantize_params
+    from repro_torch.serve import Engine, Request, ServeConfig
+    t_phase = time.perf_counter()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    rng = np.random.default_rng(seed)
+    lens = np.linspace(8, 96, 8).astype(int)       # phase 4's prompts
+    prompts = [rng.integers(0, cfg.vocab, L).astype(np.int64) for L in lens]
+    stats = ActStats()
+    for p in prompts:
+        stats.observe(params["embed"][torch.from_numpy(p).to(DEVICE)])
+    fs = FormatSet.from_key(cfg.mp_formats)
+    qset = format_set("int8_pt", fs.names[fs.high])
+    tag = qset.key()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    qparams = quantize_params(params, stats, fset=qset,
+                              ratio_high=QUANT_RATIO)
+    sync()
+    quant_s = time.perf_counter() - t0
+    cal_convert = ops.launch_counts()["convert"]
+    qws = ksplit_weights(qparams)
+    n_sorted = sum(w.sorted for w in qws)
+    reports = [map_report(w) for w in qws]
+    storage = sum(r["storage_bytes"] for r in reports)
+    dense = sum(4 * r["shape"][0] * r["shape"][1] for r in reports)
+    classes: dict = {}
+    for r in reports:
+        for name, count in r["classes"].items():
+            classes[name] = classes.get(name, 0) + count
+    eng = Engine(cfg, params, ServeConfig(
+        max_batch=4, max_seq=128, refill=False, prefix_cache=False,
+        chunked_prefill=False), variants={tag: qparams})
+    eng.warmup()
+    stream = [(p[:int(L) // 2], ("default", tag)[i % 2])
+              for i, (p, L) in enumerate(zip(prompts, lens))]
+
+    def reqs():
+        return [Request(p, max_new_tokens=8, fset=f) for p, f in stream]
+
+    before = linear_counts_by_formats()
+    ops.reset_launch_counts()
+    first = reqs()
+    t1 = time.perf_counter()
+    eng.generate(first)
+    sync()
+    wall_s = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    by_fmt = {f: {p: v - before.get(f, {}).get(p, 0) for p, v in c.items()
+                  if v - before.get(f, {}).get(p, 0)}
+              for f, c in linear_counts_by_formats().items()}
+    st = eng.stats()
+    replay = reqs()
+    eng.generate(replay)
+    refs = eng.generate_reference(reqs())
+    bad = [i for i, (r, p, f) in enumerate(zip(first, replay, refs))
+           if not r.done or r.out_tokens != f.out_tokens
+           or r.out_tokens != p.out_tokens]
+    buckets = {r.bucket.split("/", 1)[1] for r in first}
+    fresh = st["plans"]["post_warmup_fresh_resolutions"]
+    gen_toks = sum(len(r.out_tokens) for r in first)
+    q = by_fmt.get(tag, {})
+    steps = sum(q.values()) // max(1, len(qws))
+    print(f"serve quant: variant {tag} (ratio_high {QUANT_RATIO}) in "
+          f"{quant_s:.2f} s ({cal_convert} convert launches); KSplit "
+          f"classes {classes}; {n_sorted}/{len(qws)} maps sorted; "
+          f"bytes_vs_fp32 {storage / dense:.4f} ({storage / 1e9:.3f} GB "
+          f"of {dense / 1e9:.3f})")
+    print(f"serve quant: {len(first)} requests ({len(first) // 2} per "
+          f"variant), {gen_toks} tokens in {wall_s:.3f} s = "
+          f"{gen_toks / wall_s:.2f} tokens/s; buckets "
+          f"{sorted(r.bucket for r in first)}; linear dispatch by formats "
+          f"{by_fmt}; kernel launches {launches}")
+    print(f"serve quant: tokens == unbatched reference and replay for "
+          f"{len(first) - len(bad)}/{len(first)} requests; post-warmup "
+          f"fresh resolutions {fresh}")
+    if bad:
+        fail(f"serve quant: requests {bad} differ from their reference or "
+             "replay")
+    if buckets != {"default", tag}:
+        fail(f"serve quant: buckets {buckets}, want both variants")
+    if fresh != 0:
+        fail(f"serve quant: {fresh} fresh plan resolutions after warmup")
+    if "int8_pt" not in classes:
+        fail("serve quant: the variant holds no int8_pt class")
+    if not steps or q != {k: v for k, v in (
+            ("ksplit_cuda", steps * n_sorted),
+            ("ksplit_torch", steps * (len(qws) - n_sorted))) if v}:
+        fail(f"serve quant: variant dispatch {q} is not {steps} steps of "
+             f"{n_sorted} sorted (kernel) and {len(qws) - n_sorted} "
+             "unsorted (gathering) linears")
+    if by_fmt.get(cfg.mp_formats, {}).get("ksplit_torch", 0) != 0:
+        fail("serve quant: a default-weight linear ran off the kernel")
+    rows = quant_rows()
+    phase_s = time.perf_counter() - t_phase
+    print(f"serve quant: phase {phase_s:.1f} s")
+    return {"launches": launches["ksplit_gemm"],
+            "convert_launches": cal_convert,
+            "tokens_per_s": gen_toks / wall_s,
+            "bytes_vs_fp32": storage / dense, "rows": rows,
+            "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training at full width
+# ---------------------------------------------------------------------------
+
+#: phase 7: tokens per step (global batch x sequence), the steps of the
+#: loss gate, and the depth of the checkpoint-and-restart gate (its state
+#: on disk is ~6.4 GB per checkpoint at one layer, the vocab's two
+#: 92544 x 2048 matrices most of it)
+TRAIN_SEQ, TRAIN_BATCH = 128, 4
+TRAIN_STEPS = 8
+RESTART_LAYERS = 1
+#: the kernel-against-plain allowance at step 0 (loss, and per gradient
+#: leaf ||d||/||g|| and max|d|/max|g|).  Any change of fp32 summation
+#: order in the KSplit linears flips bf16 activation roundings, and 24
+#: random-init layers amplify the flips: two plain orders (the segments
+#: summed one by one, or as one library matmul) differ by 3.5e-5 in loss
+#: and 3.5e-2 in gradient norm at 24 layers, as much as kernel and plain
+#: do (1.5e-4, 3.4e-2), and both grow alike with depth from 1.4e-5 /
+#: 7.5e-3 at one layer (train_order_gaps.py, one H100 80GB HBM3, 700 W).
+#: The gate is that fixed allowance, and that the kernel's gradient gap
+#: is no more than TRAIN_ORDER_RATIO times the two plain orders' gap
+TRAIN_LOSS_RTOL, TRAIN_GRAD_FROB, TRAIN_GRAD_MAX = 1e-3, 0.1, 0.1
+TRAIN_ORDER_RATIO = 2.0
+
+
+def host_copy(tree):
+    from repro_torch import tree as TR
+    return [t.detach().to("cpu", copy=True) for t in TR.tensors(tree)]
+
+
+def put_back(tree, saved) -> None:
+    import torch
+    from repro_torch import tree as TR
+    with torch.no_grad():
+        for t, s in zip(TR.tensors(tree), saved):
+            t.copy_(s)
+
+
+def ksplit_one_matmul(x, bufs, fmts):
+    """The ksplit sum in another valid order: the compute-rounded
+    segments as one library matmul over all of K (the plain version adds
+    one matmul per segment)."""
+    import torch
+    from repro_torch.core.layout import fp32_matmul, round_to_compute
+    xs, ws, off = [], [], 0
+    for b, f in zip(bufs, fmts):
+        kc = b.shape[0]
+        if kc:
+            xs.append(round_to_compute(x[:, off:off + kc], f))
+            ws.append(round_to_compute(b, f))
+            off += kc
+    return fp32_matmul(torch.cat(xs, 1), torch.cat(ws, 0))
+
+
+def leaf_gaps(ga, gb) -> tuple[float, float, str]:
+    """(worst ‖Δ‖/‖g‖, worst max|Δ|/max|g|, the leaf of the latter) over
+    the leaves of two gradient trees."""
+    import torch
+    from repro_torch import tree as TR
+    frob = worst = 0.0
+    where = ""
+    for la, lb in zip(TR.walk(ga), TR.walk(gb)):
+        for a, b in zip(la.parts, lb.parts):
+            if not a.numel():
+                continue
+            if a.dtype != b.dtype:
+                fail(f"train: gradient dtypes differ at {la.key}")
+            a, b = a.float(), b.float()
+            d = (a - b)
+            f = float(torch.linalg.vector_norm(d)
+                      / torch.linalg.vector_norm(b).clamp_min(1e-30))
+            m = float(d.abs().max() / b.abs().max().clamp_min(1e-30))
+            frob = max(frob, f)
+            if m > worst:
+                worst, where = m, la.key
+    return frob, worst, where
+
+
+def profile_step(step_fn, params, opt, batch) -> dict:
+    """One train step under ``torch.profiler``: device busy time, the idle
+    share of the step's wall time (taken unprofiled just before), and the
+    top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    t0 = time.perf_counter()
+    params, opt, _ = step_fn(params, opt, batch)
+    sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, _ = step_fn(params, opt, batch)
+        sync()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms in rows)
+    if not busy_ms:
+        print(f"profile train step: wall {wall_ms:.1f} ms; the profiler saw "
+              "no device time: busy share not measured")
+        return {"wall_ms": wall_ms, "busy_ms": None}
+    ksplit_ms = sum(ms for name, ms in rows if "ksplit" in name)
+    convert_ms = sum(ms for name, ms in rows if "convert" in name)
+    print(f"profile train step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.1%}; "
+          f"ksplit kernel {ksplit_ms:.2f} ms, convert kernel "
+          f"{convert_ms:.2f} ms")
+    for name, ms in rows[:10]:
+        print(f"profile   {ms:9.3f} ms/step  {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ksplit_ms": ksplit_ms,
+            "convert_ms": convert_ms}
+
+
+def train_phase(cfg, seed: int = 0) -> dict:
+    """Train InternLM2-1.8B at full width on one card: the step-0 loss and
+    gradients through the ksplit kernel against the same step with its
+    plain version swapped in; every forward KSplit linear on the kernel;
+    eight steps on one repeated batch (finite, falling loss; per-step
+    wall time, one profiled step, peak memory); one step at two
+    microbatches against one; and, at reduced depth, a checkpoint,
+    an injected RestartSignal and a restore whose replayed steps equal
+    the uninterrupted run's losses bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.data import pipeline as DP
+    from repro_torch.kernels import ksplit_gemm as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import RestartSignal
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.train.trainer import TrainerConfig, train
+    from repro_torch.tune import dispatch
+    t_phase = time.perf_counter()
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    n_linear = len(ksplit_weights(params))
+    batch = DP.make_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0, step=0,
+                          device=DEVICE)
+    dispatch.warm_registry()
+    dispatch.tune_linear_params(params, m_hint=tokens)
+    fresh0 = dispatch.fresh_resolutions()
+
+    # gates 1 and 2: step 0 through the kernel, then with the plain
+    # version swapped in; every forward KSplit linear on the kernel
+    ops.reset_launch_counts()
+    lin0 = dispatch.dispatch_counts("linear")
+    loss_k, _, g_k = loss_and_grads(params, cfg, batch)
+    sync()
+    fwd_launches = ops.launch_counts()["ksplit_gemm"]
+    fresh_fwd = dispatch.fresh_resolutions() - fresh0
+    lin = {p: v - lin0.get(p, 0)
+           for p, v in dispatch.dispatch_counts("linear").items()}
+    kernel_fn = K.ksplit_gemm_multi
+    try:
+        K.ksplit_gemm_multi = K.ksplit_gemm_plain
+        loss_p, _, g_p = loss_and_grads(params, cfg, batch)
+        K.ksplit_gemm_multi = ksplit_one_matmul
+        loss_a, _, g_a = loss_and_grads(params, cfg, batch)
+        sync()
+    finally:
+        K.ksplit_gemm_multi = kernel_fn
+    frob, worst, where = leaf_gaps(g_k, g_p)
+    frob_a, worst_a, _ = leaf_gaps(g_a, g_p)
+    loss_gap = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    loss_gap_a = abs(float(loss_a) - float(loss_p)) / abs(float(loss_p))
+    del g_k, g_p, g_a
+    print(f"train {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} vocab="
+          f"{cfg.vocab}, seq {TRAIN_SEQ} x batch {TRAIN_BATCH} = {tokens} "
+          f"tokens/step; weights {param_bytes(params) / 1e9:.3f} GB")
+    print(f"train step 0: loss kernel {float(loss_k):.6f} plain "
+          f"{float(loss_p):.6f} (rel gap {loss_gap:.2e}, allowance "
+          f"{TRAIN_LOSS_RTOL:g}); gradients worst ||d||/||g|| {frob:.2e} "
+          f"(allowance {TRAIN_GRAD_FROB:g}), worst max|d|/max|g| "
+          f"{worst:.2e} at {where} (allowance {TRAIN_GRAD_MAX:g}); plain "
+          f"in another order (one matmul): loss gap {loss_gap_a:.2e}, "
+          f"||d||/||g|| {frob_a:.2e}, max|d|/max|g| {worst_a:.2e}")
+    print(f"train step 0: forward KSplit linears {lin}, ksplit launches "
+          f"{fwd_launches} for {n_linear} linears, fresh resolutions after "
+          f"setup {fresh_fwd}")
+    if not (np.isfinite(float(loss_k)) and loss_gap <= TRAIN_LOSS_RTOL):
+        fail("train: step-0 loss through the kernel is off its plain "
+             "version")
+    if frob > TRAIN_GRAD_FROB or worst > TRAIN_GRAD_MAX \
+            or frob > TRAIN_ORDER_RATIO * frob_a:
+        fail("train: step-0 gradients through the kernel are off their "
+             "plain version")
+    if lin.get("ksplit_torch", 0) or lin.get("ksplit_cuda", 0) != n_linear \
+            or fwd_launches != n_linear:
+        fail("train: a forward KSplit linear ran off the ksplit kernel")
+    if fresh_fwd:
+        fail(f"train: {fresh_fwd} fresh plan resolutions after setup")
+
+    # gate 4: one step at two microbatches against one (from one state)
+    ocfg4 = adamw.AdamWConfig(warmup_steps=0, total_steps=10)
+    opt = adamw.init(params, ocfg4)
+    saved = host_copy({"p": params, "o": opt})
+    params, opt, m1 = make_train_step(cfg, ocfg4, 1)(params, opt, batch)
+    p1 = host_copy(params)
+    put_back({"p": params, "o": opt}, saved)
+    params, opt, m2 = make_train_step(
+        cfg, ocfg4, 2, tune_params=params, tune_tokens=tokens // 2)(
+        params, opt, batch)
+    mb_loss = abs(float(m1["loss"]) - float(m2["loss"])) / abs(
+        float(m1["loss"]))
+    from repro_torch import tree as TR
+    mb_worst = max(float((a.float() - b.cpu().float()).abs().max())
+                   for a, b in zip(p1, TR.tensors(params)) if a.numel())
+    put_back({"p": params, "o": opt}, saved)
+    del saved, p1
+    print(f"train microbatches 2 vs 1: loss rel gap {mb_loss:.2e} (rtol "
+          f"2e-2), worst leaf |d| {mb_worst:.3e} (< 5e-2)")
+    if not (mb_loss <= 2e-2 and mb_worst < 5e-2):
+        fail("train: two microbatches do not match one")
+
+    # gate 3: eight steps on one repeated batch, as the trainer builds the
+    # step (its loop's closing checkpoint of the full-width state is left
+    # to the reduced-depth restart gate below)
+    ocfg = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=1,
+                             total_steps=TRAIN_STEPS)
+    opt = adamw.init(params, ocfg)
+    step_fn = make_train_step(cfg, ocfg, 1, tune_params=params,
+                              tune_tokens=tokens)
+    fresh0 = dispatch.fresh_resolutions()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], {}
+    for s in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))        # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fresh = dispatch.fresh_resolutions() - fresh0
+    prof = profile_step(step_fn, params, opt, batch)
+    steady = float(np.median(step_ms[1:]))
+    print(f"train: losses {[round(v, 4) for v in losses]}")
+    print(f"train: step wall ms {[round(v, 1) for v in step_ms]}; median "
+          f"of steps 1-{TRAIN_STEPS - 1} {steady:.1f} ms = "
+          f"{tokens / steady * 1e3:.1f} tokens/s; launches per step "
+          f"{per_step}; peak memory {peak_gb:.2f} GB "
+          "(torch.cuda.max_memory_allocated); fresh resolutions after "
+          f"setup {fresh}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} are not finite and falling")
+    if fresh:
+        fail(f"train: {fresh} fresh plan resolutions after setup")
+    if per_step["ksplit_gemm"] != n_linear:
+        fail(f"train: {per_step['ksplit_gemm']} ksplit launches per step")
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+
+    # gate 5: checkpoint and restart at reduced depth
+    cfg5 = dataclasses.replace(cfg, n_layers=RESTART_LAYERS)
+    ocfg5 = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=4)
+    base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        def run(name, injector):
+            tc = TrainerConfig(steps=4, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH,
+                               ckpt_dir=os.path.join(base, name),
+                               ckpt_every=2, log_every=100, seed=seed,
+                               fault_injector=injector, device=DEVICE)
+            logs = []
+            t0 = time.perf_counter()
+            _, _, hist = train(cfg5, ocfg5, tc, log=logs.append)
+            sync()
+            secs = time.perf_counter() - t0
+            shutil.rmtree(os.path.join(base, name))
+            return hist, logs, secs
+
+        fired = []
+
+        def injector(step):
+            if step == 3 and not fired:
+                fired.append(step)
+                raise RestartSignal("injected by chip_smoke")
+
+        hist_a, _, secs_a = run("plain", None)
+        hist_b, logs_b, secs_b = run("faulted", injector)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    la = [h["loss"] for h in hist_a]
+    lb = [h["loss"] for h in hist_b]
+    print(f"train restart ({RESTART_LAYERS} layer, full width): "
+          f"uninterrupted {la} in {secs_a:.1f} s; faulted {lb} in "
+          f"{secs_b:.1f} s; {[ln for ln in logs_b if '[fault]' in ln]}")
+    if not fired or not any("restored step 2" in ln for ln in logs_b):
+        fail("train restart: the fault did not restore the step-2 "
+             "checkpoint")
+    if la != lb or [h["step"] for h in hist_b] != [0, 1, 2, 3]:
+        fail("train restart: the replayed losses differ from the "
+             "uninterrupted run's")
+    phase_s = time.perf_counter() - t_phase
+    print(f"train: phase {phase_s:.1f} s")
+    return {"launches": fwd_launches + TRAIN_STEPS * n_linear,
+            "convert_launches": TRAIN_STEPS * per_step["convert"],
+            "step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
+            "peak_gb": peak_gb, "phase_s": phase_s, **prof}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the refinement solver
 # ---------------------------------------------------------------------------
 
@@ -1390,7 +1924,9 @@ def time_ksplit(gen, policy) -> list[dict]:
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=DEVICE)
     flush = lambda: flush_buf.zero_()   # noqa: E731  (evict the 50 MB L2)
     rows = []
-    for m, k, n in [(4, k, n) for k, n in SERVED_KN] + [(1, 2048, 8192)]:
+    shapes = ([(4, k, n) for k, n in SERVED_KN] + [(1, 2048, 8192)]
+              + [(TRAIN_SEQ * TRAIN_BATCH, k, n) for k, n in SERVED_KN])
+    for m, k, n in shapes:
         x, ws = ksplit_case(m, k, n, gen, policy)
         fs = ws.fset
         bufs = [ws.bufs[c] for c in fs.class_order]
@@ -1811,8 +2347,10 @@ def main() -> None:
     cfg = get("internlm2-1.8b")
     sv = serve(cfg)
     ss = serve_state(cfg)
+    sq = serve_quant(cfg)
     sol = solve_phase()
     parity_phase()
+    tr = train_phase(cfg)
     ks_rows = time_ksplit(gen, policy)
     tg = time_tile_grouped(gen)
     sp = time_split(gen)
@@ -1823,9 +2361,12 @@ def main() -> None:
         {"name": "ksplit_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/ksplit_gemm.cu",
          "replaces": "src/repro/kernels/ksplit_gemm.py:97",
-         "launches": sv["launches"] + ss["launches"],
+         "launches": (sv["launches"] + ss["launches"] + sq["launches"]
+                      + tr["launches"]),
          "launches_by_phase": {"serve": sv["launches"],
-                               "serve_state": ss["launches"]},
+                               "serve_state": ss["launches"],
+                               "serve_quant": sq["launches"],
+                               "train": tr["launches"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}},
@@ -1865,17 +2406,32 @@ def main() -> None:
         {"name": "convert", "route": "cuda",
          "source": "src/repro_torch/csrc/convert.cu",
          "replaces": "src/repro/kernels/convert.py:23",
-         "launches": sum(v["convert_launches"] + v["class_launches"]
-                         for v in sol.values()),
+         "launches": (sum(v["convert_launches"] + v["class_launches"]
+                          for v in sol.values())
+                      + sq["convert_launches"] + tr["convert_launches"]),
          "launches_by_form": {
              "convert": sum(v["convert_launches"] for v in sol.values()),
              "convert_by_class": sum(v["class_launches"]
                                      for v in sol.values())},
+         "launches_by_phase": {
+             "solve": sum(v["convert_launches"] + v["class_launches"]
+                          for v in sol.values()),
+             "serve_quant": sq["convert_launches"],
+             "train": tr["convert_launches"]},
          "max_abs_err": max(cv_err.values()), **cv},
     ]
+    train_row = next(r for r in ks_rows
+                     if (r["m"], r["n"]) == (TRAIN_SEQ * TRAIN_BATCH, 8192))
     print(f"serve tokens/s {sv['tokens_per_s']:.2f}; ksplit launches per "
           f"model step {sv['launches_per_step']:.1f}; serve state tokens/s "
-          f"{ss['tokens_per_s']:.2f} (phase {ss['phase_s']:.1f} s); total "
+          f"{ss['tokens_per_s']:.2f} (phase {ss['phase_s']:.1f} s); serve "
+          f"quant tokens/s {sq['tokens_per_s']:.2f}, bytes_vs_fp32 "
+          f"{sq['bytes_vs_fp32']:.4f} (phase {sq['phase_s']:.1f} s); train "
+          f"step {tr['step_ms']:.1f} ms = {tr['tokens_per_s']:.1f} tokens/s, "
+          f"peak {tr['peak_gb']:.2f} GB (phase {tr['phase_s']:.1f} s); "
+          f"ksplit at m={train_row['m']} N=8192 {train_row['ms']:.4f} ms "
+          f"(bound {train_row['bound_ms']:.4f}, torch.matmul "
+          f"{train_row['library_ms']:.4f}); total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

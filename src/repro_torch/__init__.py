@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["bridge", "configs", "core", "kernels", "launch", "models", "obs",
-           "serve", "solve", "split", "tune"]
+__all__ = ["bridge", "checkpoint", "configs", "core", "data", "formats",
+           "kernels", "launch", "models", "obs", "optim", "quant", "runtime",
+           "serve", "solve", "split", "train", "tree", "tune"]
 
 
 def __getattr__(name):

@@ -1,6 +1,8 @@
-"""Parameter bridge: the JAX package's dense-decoder parameters, handed
-over as numpy arrays plus class maps, into the port's parameters — so
-both packages compute with the same weights in the parity tests.
+"""Parameter bridge: the JAX package's dense-decoder parameters and
+AdamW state, handed over as numpy arrays plus class maps, into the
+port's — so both packages compute from the same state in the parity
+tests.  (Checkpoints need no bridge: ``repro_torch.checkpoint`` reads
+and writes the reference's format.)
 
 It imports no JAX.  The numpy tree follows the reference's layout::
 
@@ -96,3 +98,17 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
             "final_norm": tensor_from_numpy(tree["final_norm"], device),
             "lm_head": _linear(tree["lm_head"], None, device),
             "layers": layers}
+
+
+def opt_state_from_numpy(state: dict, cfg: ArchConfig, device="cuda"):
+    """The port's :class:`~repro_torch.optim.adamw.AdamWState` from the
+    reference's, handed over as ``{"mu", "nu", "master", "count"}``:
+    three parameter-shaped numpy trees (``master`` may be None) and the
+    step count."""
+    from repro_torch.optim.adamw import AdamWState
+    master = state.get("master")
+    return AdamWState(
+        params_from_numpy(state["mu"], cfg, device),
+        params_from_numpy(state["nu"], cfg, device),
+        None if master is None else params_from_numpy(master, cfg, device),
+        torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32))

@@ -191,6 +191,10 @@ def get_format(name: str) -> PrecisionFormat:
                        f"{sorted(_REGISTRY)}") from None
 
 
+def registered_formats() -> dict[str, PrecisionFormat]:
+    return dict(_REGISTRY)
+
+
 def registry_signatures() -> dict[str, str]:
     return {n: f.signature() for n, f in sorted(_REGISTRY.items())}
 

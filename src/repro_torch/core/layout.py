@@ -49,10 +49,40 @@ def fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def storage_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded into ``dtype`` as the reference's ``astype`` rounds
+    (e4m3 NaN above 464, not torch's saturation at 448): the convert
+    kernel on the card, its plain version on the CPU; into fp32, the
+    exact upcast."""
+    if x.dtype == dtype:
+        return x
+    if dtype == torch.float32:
+        return x.float()
+    return _cv.convert(x.float().contiguous(), dtype)
+
+
+class _RoundToCompute(torch.autograd.Function):
+    """:func:`round_to_compute` under autograd.  The cotangent goes back
+    the way the reference's ``astype`` chain transposes: rounded to the
+    compute dtype, then into ``x``'s dtype by :func:`storage_cast`, so an
+    fp8 operand's gradient gets the reference's overflow NaN."""
+
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.dtype, ctx.op = x.dtype, op
+        return x.to(op).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return storage_cast(g.to(ctx.op), ctx.dtype), None
+
+
 def round_to_compute(x: torch.Tensor, fmt: PrecisionFormat) -> torch.Tensor:
     """Receiver-side conversion: ``x`` rounded to the format's compute
     dtype, returned as fp32 (exact upcast)."""
     op = fmt.compute_dtype
+    if x.requires_grad and torch.is_grad_enabled():
+        return _RoundToCompute.apply(x, op)
     if op == torch.float32:
         return x.float()
     return x.to(op).float()
@@ -440,3 +470,37 @@ def ksplit_matmul(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:
         return torch.zeros(x.shape[:-1] + (w.shape[1],),
                            dtype=torch.float32, device=x.device)
     return out
+
+
+def ksplit_matmul_vjp(x: torch.Tensor, w: KSplitWeight, g: torch.Tensor
+                      ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """``(dx, dbufs)``: the VJP of :func:`ksplit_matmul` at ``(x, w)`` for
+    the output cotangent ``g``, rounded as JAX's VJP of the reference's
+    ``ksplit_matmul`` rounds it.  Per class the two products are fp32 dots
+    of the compute-rounded operands (as the forward's), each rounded to
+    the class's compute dtype (the dtype of the dot's operands); then
+    ``dx`` goes to ``x``'s dtype and each buffer's gradient into that
+    buffer's dtype by :func:`storage_cast`.  A class with no K rows gets a
+    zero gradient."""
+    fset = w.fset
+    x2 = x.reshape(-1, x.shape[-1])
+    g2 = g.reshape(-1, g.shape[-1]).float()
+    dx = torch.zeros_like(x2)
+    dbufs: list = [None] * len(fset)
+    parts = w.k_partition(w.k_cls, w.tile, fset)
+    for code, idx in zip(fset.class_order, parts):
+        buf = w.bufs[code]
+        if not len(idx):
+            dbufs[code] = torch.zeros_like(buf)
+            continue
+        fmt = fset.fmt(code)
+        op = fmt.compute_dtype
+        xc = round_to_compute(_take_k(x2, idx), fmt)
+        dbufs[code] = storage_cast(fp32_matmul(xc.T, g2).to(op), buf.dtype)
+        dxc = fp32_matmul(g2, round_to_compute(buf, fmt).T).to(op)
+        if np.all(np.diff(idx) == 1):
+            dx[:, int(idx[0]):int(idx[-1]) + 1] = dxc.to(x.dtype)
+        else:
+            dx.index_copy_(1, torch.from_numpy(idx).to(x.device),
+                           dxc.to(x.dtype))
+    return dx.reshape(x.shape), dbufs

@@ -14,8 +14,11 @@ every plan and builds the kernels before serving unless ``--no-warmup``
 is passed; ``--stats`` prints ``Engine.stats()`` as JSON after the
 stream drains.
 
-Options of the reference launcher that the port cannot serve yet exit
-non-zero, naming the ``ROADMAP.md`` queue-1 item that ports them.  Exit
+``--ckpt DIR`` serves the params of a training checkpoint (written by
+either package); ``--quantize SPEC`` serves every request through an
+activation-aware quantized variant (``repro_torch.quant``).  Options of
+the reference launcher that the port cannot serve yet exit non-zero,
+naming the ``ROADMAP.md`` queue-1 item that ports them.  Exit
 status is also non-zero if any request was rejected at admission.
 """
 import argparse
@@ -25,9 +28,6 @@ import json
 UNPORTED = {
     "replicas": "--replicas > 1 needs serve/cluster.py "
                 "(ROADMAP.md queue 1, item 9)",
-    "ckpt": "--ckpt needs checkpoint/ (ROADMAP.md queue 1, item 5)",
-    "quantize": "--quantize needs quant/ and weight variants "
-                "(ROADMAP.md queue 1, item 4)",
     "trace": "--trace needs obs tracing (ROADMAP.md queue 1, item 8)",
 }
 
@@ -74,9 +74,18 @@ def _parse(argv=None):
                     help="torch device (cuda or cpu)")
     ap.add_argument("--stats", action="store_true",
                     help="print stats() JSON after serving")
+    ap.add_argument("--ckpt", default="",
+                    help="load the params of a training checkpoint "
+                         "directory (the reference's format)")
+    ap.add_argument("--quantize", default="",
+                    help="serve every request through an activation-aware "
+                         "quantized weight variant under this format-set "
+                         "spec (e.g. int8:d or int4:int8:d); loud blocks "
+                         "stay in the set's HIGH float format")
+    ap.add_argument("--quantize-ratio", type=float, default=0.25,
+                    help="fraction of K-blocks the calibrator keeps HIGH "
+                         "when --quantize is set")
     ap.add_argument("--replicas", type=int, default=1, help="not ported")
-    ap.add_argument("--ckpt", default="", help="not ported")
-    ap.add_argument("--quantize", default="", help="not ported")
     ap.add_argument("--trace", default="", help="not ported")
     return ap.parse_args(argv)
 
@@ -114,6 +123,20 @@ def main(argv=None) -> int:
             cfg, mp_formats=FormatSet.parse(args.formats).key())
     params = T.init_model(
         torch.Generator(device=args.device).manual_seed(args.seed), cfg)
+    if args.ckpt:
+        from repro_torch.checkpoint import ckpt as CK
+        restored, man = CK.restore(args.ckpt, {"params": params})
+        params = restored["params"]
+        print(f"loaded checkpoint step {man['step']}")
+    variants, req_tag = None, "default"
+    if args.quantize:
+        from repro_torch.quant import quantize_params
+        qset = FormatSet.parse(args.quantize)
+        req_tag = qset.key()
+        variants = {req_tag: quantize_params(
+            params, fset=qset, ratio_high=args.quantize_ratio)}
+        print(f"quantized variant {req_tag} "
+              f"(ratio_high={args.quantize_ratio})")
     sc = ServeConfig(
         buckets=(tuple(int(b) for b in args.buckets.split(","))
                  if args.buckets else None),
@@ -128,7 +151,7 @@ def main(argv=None) -> int:
         page_tokens=args.page_tokens,
         warmup=not args.no_warmup,
     )
-    eng = Engine(cfg, params, sc)
+    eng = Engine(cfg, params, sc, variants=variants)
     print(f"engine {cfg.name} on {args.device}: mode={eng.mode} buckets="
           f"{sorted(k.pad_len for k in eng.scheduler.buckets)} "
           f"refill={eng.refill_enabled} "
@@ -143,7 +166,7 @@ def main(argv=None) -> int:
                              np.int64),
                     max_new_tokens=args.max_new,
                     temperature=args.temperature,
-                    seed=args.request_seed + i)
+                    seed=args.request_seed + i, fset=req_tag)
             for i, p in enumerate(args.prompts)]
     rejected = 0
     for i, r in enumerate(eng.generate(reqs)):

@@ -1,0 +1,131 @@
+"""Training launcher (twin of ``repro.launch.train``).
+
+    python -m repro_torch.launch.train --steps 20 --batch 4 --seq 128
+    python -m repro_torch.launch.train --smoke --device cpu --steps 6
+
+The first trains InternLM2-1.8B at full width on the card (``--device
+cuda``, the default); the second its reduced twin with the kernels'
+plain versions on the CPU.  ``--inject-fault S`` raises a
+``RestartSignal`` at step S, so the run restores its newest checkpoint
+and replays from there; ``--resume`` starts from the newest checkpoint
+in ``--ckpt-dir``.  The reference's multi-device options (``--devices``,
+``--mesh``, ``--summa``) exit non-zero: they wait for
+``torch.distributed`` (``ROADMAP.md`` queue 1, item 6).
+"""
+import argparse
+import os
+import tempfile
+
+#: reference options not served yet -> the ROADMAP.md queue-1 item
+UNPORTED = {
+    "devices": "--devices needs torch.distributed (ROADMAP.md queue 1, "
+               "item 6)",
+    "mesh": "--mesh needs torch.distributed (ROADMAP.md queue 1, item 6)",
+    "summa": "--summa needs core/summa.py over torch.distributed "
+             "(ROADMAP.md queue 1, item 6)",
+}
+
+
+def _parse(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="train the reduced config (reduced(cfg, tp=2))")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--formats", default="",
+                    help="override the arch's mixed-precision format set, "
+                         "e.g. fp8_e4m3+bf16+fp32 or the short form q:s:d")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train_ckpt"))
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--inject-fault", type=int, default=-1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda or cpu)")
+    ap.add_argument("--devices", type=int, default=0, help="not ported")
+    ap.add_argument("--mesh", default="", help="not ported")
+    ap.add_argument("--summa", default="", help="not ported")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = _parse(argv)
+    asked = [name for name in UNPORTED if getattr(args, name)]
+    if asked:
+        raise SystemExit("not ported yet: "
+                         + "; ".join(UNPORTED[n] for n in asked))
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.configs import get, reduced
+    from repro_torch.core.formats import FormatSet
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import RestartSignal
+    from repro_torch.train.trainer import TrainerConfig, train
+
+    if args.device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device: pass --device cpu to train "
+                             "with the kernels' plain versions")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = get(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg, tp=2)
+    if args.formats:
+        cfg = dataclasses.replace(
+            cfg, mp_formats=FormatSet.parse(args.formats).key())
+    ocfg = adamw.AdamWConfig(lr_peak=args.lr, warmup_steps=min(
+        20, args.steps // 5), total_steps=args.steps)
+
+    injector = None
+    if args.inject_fault >= 0:
+        fired = {"done": False}
+
+        def injector(step, fired=fired):
+            if step == args.inject_fault and not fired["done"]:
+                fired["done"] = True
+                raise RestartSignal("CLI-injected fault")
+
+    tcfg = TrainerConfig(
+        steps=args.steps, seq_len=args.seq, global_batch=args.batch,
+        microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
+        ckpt_every=max(10, args.steps // 5), log_every=5, seed=args.seed,
+        heartbeat_path=os.path.join(args.ckpt_dir, "heartbeat.json"),
+        fault_injector=injector, device=args.device)
+
+    params = opt = None
+    start = 0
+    if args.resume:
+        latest = CK.AsyncCheckpointer(args.ckpt_dir).latest()
+        if latest:
+            params = T.init_model(torch.Generator(
+                device=args.device).manual_seed(args.seed), cfg)
+            opt = adamw.init(params, ocfg)
+            restored, man = CK.restore(latest,
+                                       {"params": params, "opt": opt})
+            params, opt = restored["params"], restored["opt"]
+            start = man["step"]
+            print(f"resumed from {latest} at step {start}")
+
+    params, opt, hist = train(cfg, ocfg, tcfg, params=params,
+                              opt_state=opt, start_step=start)
+    if not hist:
+        print(f"done: nothing to run (step {start} of {args.steps})")
+        return 0
+    losses = [h["loss"] for h in hist]
+    print(f"done: {len(hist)} steps, loss {losses[0]:.4f} → "
+          f"{losses[-1]:.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

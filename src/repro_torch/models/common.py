@@ -231,3 +231,16 @@ def init_embedding(gen, vocab: int, d_model: int, device) -> torch.Tensor:
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens].to(ACT_DTYPE)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean CE over all positions plus ``z_loss``·mean(lse²), in fp32;
+    logits [..., V]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * (lse ** 2).mean()
+    return loss

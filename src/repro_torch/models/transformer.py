@@ -1,5 +1,6 @@
-"""Dense decoder: init, KV caches, prefill and one-token decode (twin of
-the dense family of ``repro.models.transformer``).
+"""Dense decoder: init, KV caches, the training forward, prefill and
+one-token decode (twin of the dense family of
+``repro.models.transformer``).
 
 Parameters are a plain dict::
 
@@ -72,11 +73,10 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
             for _ in range(cfg.n_layers)]
 
 
-def forward_prefill(params, cfg: ArchConfig, tokens: torch.Tensor
-                    ) -> torch.Tensor:
-    """Run the prompt [B, S] with causal attention; last-position logits
-    [B, 1, V]."""
-    _check_dense(cfg)
+def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor
+                ) -> torch.Tensor:
+    """Embed ``tokens`` [B, S] and run every layer with causal attention
+    over the full sequence; returns the residual stream [B, S, d]."""
     dims = dims_of(cfg)
     x = C.embed(params["embed"], tokens)
     B, S = tokens.shape
@@ -88,6 +88,26 @@ def forward_prefill(params, cfg: ArchConfig, tokens: torch.Tensor
                                   use_rope=cfg.use_rope)
         h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
         x = (x + C.mlp_block(lp["mlp"], h2)).to(ACT_DTYPE)
+    return x
+
+
+def forward_train(params, cfg: ArchConfig, batch: dict):
+    """Training forward: ``batch`` {"tokens", "labels"} [B, S] → (loss,
+    metrics).  No remat: the reference's ``jax.checkpoint`` saves memory
+    and changes no number."""
+    _check_dense(cfg)
+    x = _run_layers(params, cfg, batch["tokens"])
+    x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = C.cross_entropy(params["lm_head"](x), batch["labels"])
+    return loss, {"ce": loss, "aux": torch.zeros((), device=loss.device)}
+
+
+def forward_prefill(params, cfg: ArchConfig, tokens: torch.Tensor
+                    ) -> torch.Tensor:
+    """Run the prompt [B, S] with causal attention; last-position logits
+    [B, 1, V]."""
+    _check_dense(cfg)
+    x = _run_layers(params, cfg, tokens)
     x = C.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return params["lm_head"](x)
 

@@ -158,7 +158,8 @@ def sample_tokens(logits: torch.Tensor, temps: np.ndarray,
 
 class Engine:
     def __init__(self, cfg: ArchConfig, params,
-                 config: Optional[ServeConfig] = None):
+                 config: Optional[ServeConfig] = None, *,
+                 variants: Optional[dict] = None):
         config = config or ServeConfig()
         if cfg.family != "dense":
             raise NotImplementedError(
@@ -167,15 +168,16 @@ class Engine:
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.max_batch, self.max_seq = config.max_batch, config.max_seq
-        #: weights per format-set tag (one tag until quantized variants
-        #: are ported)
-        self.variants = {"default": params}
+        #: weights per format-set tag (a request's ``fset`` picks one)
+        self.variants = {"default": params, **(variants or {})}
         self.mode = "masked"
-        # tune-once at setup: a plan for every mixed-precision layer at
-        # the decode batch size
+        # tune-once at setup: a plan for every mixed-precision layer of
+        # every variant at the decode batch size
         dispatch.warm_registry()
-        self.gemm_plans = dispatch.tune_linear_params(
-            params, m_hint=self.max_batch)
+        self.gemm_plans = {}
+        for tree in self.variants.values():
+            self.gemm_plans.update(dispatch.tune_linear_params(
+                tree, m_hint=self.max_batch))
         self.refill_enabled = config.refill
         if config.prefix_cache:
             self.pool = PagePool(config.page_tokens, config.prefix_pages)

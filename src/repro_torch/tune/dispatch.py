@@ -27,7 +27,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.layout import (CompactMPMatrix, KSplitWeight, MPMatrix,
-                                     ksplit_matmul)
+                                     ksplit_matmul, ksplit_matmul_vjp)
 from repro_torch.core.mp_gemm import mp_gemm_ref
 from repro_torch.kernels import ops
 from repro_torch.tune import search as S
@@ -266,6 +266,39 @@ def linear_problem(w: KSplitWeight, m: int) -> GemmProblem:
         formats=w.fset.key())
 
 
+def _linear_forward(path: str, x: torch.Tensor, w: KSplitWeight
+                    ) -> torch.Tensor:
+    if path == "ksplit_cuda":
+        m = x.numel() // x.shape[-1]
+        y = ops.ksplit_matmul_kernel(x.reshape(m, x.shape[-1]).contiguous(),
+                                     w)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+    return ksplit_matmul(x, w)
+
+
+class _KSplitLinear(torch.autograd.Function):
+    """A KSplit linear under autograd, as the reference's
+    ``_kernel_linear``: the forward runs the dispatched path (the ksplit
+    kernel on the card), the backward is the VJP of the gathering path
+    (``core.layout.ksplit_matmul_vjp``: plain fp32 matmuls, no kernel);
+    each buffer's gradient comes back in that buffer's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, path, *bufs):
+        ctx.save_for_backward(x, *bufs)
+        ctx.w = w
+        return _linear_forward(path, x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *bufs = ctx.saved_tensors
+        w = dataclasses.replace(ctx.w, bufs=tuple(bufs))
+        dx, dbufs = ksplit_matmul_vjp(x, w, g)
+        return (dx if ctx.needs_input_grad[0] else None, None, None,
+                *(d if need else None
+                  for d, need in zip(dbufs, ctx.needs_input_grad[3:])))
+
+
 def linear_matmul(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:
     """MPLinear's matmul, path taken from the plan registry.
 
@@ -274,7 +307,9 @@ def linear_matmul(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:
     makes serving hit the registry, so serving adds no resolutions).
     The kernel path needs x's K columns class-contiguous, which holds iff
     the K-class vector is sorted by descending code (ratio policies);
-    other maps take the gathering plain path."""
+    other maps take the gathering plain path.  Where autograd records
+    (x or a buffer requires a gradient), the call is differentiable
+    through :class:`_KSplitLinear`."""
     m = 1
     for d in x.shape[:-1]:
         m *= int(d)
@@ -287,11 +322,10 @@ def linear_matmul(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:
         else "ksplit_torch"
     obs.metrics_registry().counter(DISPATCH_METRIC, path=path, op="linear",
                                    formats=w.fset.key()).inc()
-    if path == "ksplit_cuda":
-        y = ops.ksplit_matmul_kernel(x.reshape(m, x.shape[-1]).contiguous(),
-                                     w)
-        return y.reshape(*x.shape[:-1], w.shape[1])
-    return ksplit_matmul(x, w)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(b.requires_grad for b in w.bufs)):
+        return _KSplitLinear.apply(x, w, path, *w.bufs)
+    return _linear_forward(path, x, w)
 
 
 def tune_linear_params(params, m_hint: int) -> dict[str, GemmPlan]:

@@ -204,8 +204,9 @@ def test_bridge_tensor_bits():
 
 
 def test_import_leaves_jax_and_reference_out():
-    """``import repro_torch`` (every module, ``repro_torch.split``,
-    ``repro_torch.solve``, ``repro_torch.serve.kv_pages`` and both
+    """``import repro_torch`` (every module: ``repro_torch.split``,
+    ``repro_torch.solve``, ``repro_torch.serve.kv_pages``, the quant,
+    optim, data, checkpoint, runtime and train modules and the three
     launchers among them)
     imports neither jax nor the JAX package — checked in a fresh
     interpreter."""
@@ -217,7 +218,13 @@ def test_import_leaves_jax_and_reference_out():
         "    importlib.import_module(m.name)\n"
         "for m in ('repro_torch.split', 'repro_torch.solve', "
         "'repro_torch.serve.kv_pages', 'repro_torch.launch.solve', "
-        "'repro_torch.launch.serve'):\n"
+        "'repro_torch.launch.serve', 'repro_torch.launch.train', "
+        "'repro_torch.quant', 'repro_torch.quant.calibrate', "
+        "'repro_torch.formats', 'repro_torch.tree', "
+        "'repro_torch.optim.adamw', 'repro_torch.optim.grad_compress', "
+        "'repro_torch.data.pipeline', 'repro_torch.checkpoint.ckpt', "
+        "'repro_torch.runtime.fault', 'repro_torch.train.train_step', "
+        "'repro_torch.train.trainer'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"

@@ -194,12 +194,16 @@ def test_serve_launcher_smoke_on_cpu():
     assert st["plans"]["post_warmup_fresh_resolutions"] == 0
 
 
-@pytest.mark.parametrize("flags", [["--replicas", "2"], ["--ckpt", "x"],
-                                   ["--quantize", "int8:d"],
+@pytest.mark.parametrize("flags", [["--replicas", "2"],
+                                   ["--replicas", "2", "--ckpt", "x"],
+                                   ["--replicas", "2", "--quantize",
+                                    "int8:d"],
                                    ["--trace", "t.jsonl"]])
 def test_serve_launcher_refuses_unported_options(flags):
-    """Options of the reference launcher the port cannot serve yet exit
-    non-zero before any model is built, naming their ROADMAP item."""
+    """Options of the reference launcher the port cannot serve yet
+    (``--replicas > 1``, ``--trace``) exit non-zero before any model is
+    built, naming their ROADMAP item, also beside the ported ``--ckpt``
+    and ``--quantize`` (which ``tests/test_torch_quant.py`` serves)."""
     with pytest.raises(SystemExit) as exc:
         serve_cli.main(["--smoke", "--device", "cpu", *flags])
     msg = str(exc.value.code)

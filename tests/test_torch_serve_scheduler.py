@@ -13,8 +13,8 @@
 * The sampler's distribution, and a request's stream independent of its
   row and batch.
 
-Equal mode and the mixed-format stream wait for the other model families
-and for quantized weight variants (``ROADMAP.md`` queue 1).
+Equal mode waits for the other model families (``ROADMAP.md`` queue 1);
+the mixed-format stream is served in ``tests/test_torch_quant.py``.
 """
 import numpy as np
 import pytest
