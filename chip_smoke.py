@@ -353,6 +353,22 @@ def check_ksplit(gen, policy) -> dict:
     if not ratio <= 1.0:
         fail(f"ksplit m={mb} outside tolerance")
     out[KSPLIT_BIG] = err
+    # the served shapes at training's M (batch x sequence rows), from a
+    # generator of their own so the draws above stay as they were
+    mt = TRAIN_SEQ * TRAIN_BATCH
+    gen_t = torch.Generator(device=DEVICE).manual_seed(mt)
+    for k, n in SERVED_KN:
+        x, ws = ksplit_case(mt, k, n, gen_t, policy)
+        y = ops.ksplit_matmul_kernel(x, ws)
+        yp = K.ksplit_gemm_plain(x, *ksplit_args(ws))
+        sync()
+        err, ratio = ksplit_within(x, ws, y, yp)
+        print(f"ksplit m={mt} K={k} N={n}: max|kernel-plain| {err:.3e}, "
+              f"worst/bound {ratio:.3e}")
+        if not ratio <= 1.0:
+            fail(f"ksplit m={mt} K={k} N={n} outside tolerance")
+        out[(mt, k, n)] = err
+        del x, ws, y, yp
     return out
 
 
@@ -1378,10 +1394,17 @@ RESTART_LAYERS = 1
 #: and 3.5e-2 in gradient norm at 24 layers, as much as kernel and plain
 #: do (1.5e-4, 3.4e-2), and both grow alike with depth from 1.4e-5 /
 #: 7.5e-3 at one layer (train_order_gaps.py, one H100 80GB HBM3, 700 W).
-#: The gate is that fixed allowance, and that the kernel's gradient gap
-#: is no more than TRAIN_ORDER_RATIO times the two plain orders' gap
+#: The gate is that fixed allowance, and that the kernel's gaps in the
+#: gradients and in the per-token losses (||d||/||l|| over the batch's
+#: tokens, which bounds the mean loss's gap) are no more than
+#: TRAIN_ORDER_RATIO times the two plain orders' gaps.  The mean loss's
+#: own gap is one scalar whose ratio between orders swings 0.1-10x
+#: across depths (train_order_gaps.py), so it is not the order-relative
+#: term
 TRAIN_LOSS_RTOL, TRAIN_GRAD_FROB, TRAIN_GRAD_MAX = 1e-3, 0.1, 0.1
 TRAIN_ORDER_RATIO = 2.0
+#: train steps under the profiler (device busy per step)
+PROFILE_STEPS = 3
 
 
 def host_copy(tree):
@@ -1413,6 +1436,27 @@ def ksplit_one_matmul(x, bufs, fmts):
     return fp32_matmul(torch.cat(xs, 1), torch.cat(ws, 0))
 
 
+def token_losses(params, cfg, batch):
+    """Per-token loss [B*S] of ``forward_train``'s cross entropy (its
+    z-loss term included; the mean is the step's loss), without grad."""
+    import torch
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        x = T._run_layers(params, cfg, batch["tokens"])
+        x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = params["lm_head"](x).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, batch["labels"].long()[..., None])
+        return (lse - ll[..., 0] + 1e-4 * lse ** 2).flatten()
+
+
+def rel_gap(a, b) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
 def leaf_gaps(ga, gb) -> tuple[float, float, str]:
     """(worst ‖Δ‖/‖g‖, worst max|Δ|/max|g|, the leaf of the latter) over
     the leaves of two gradient trees."""
@@ -1437,35 +1481,33 @@ def leaf_gaps(ga, gb) -> tuple[float, float, str]:
     return frob, worst, where
 
 
-def profile_step(step_fn, params, opt, batch) -> dict:
-    """One train step under ``torch.profiler``: device busy time, the idle
-    share of the step's wall time (taken unprofiled just before), and the
-    top kernels."""
+def profile_step(step_fn, params, opt, batch, wall_ms: float) -> dict:
+    """PROFILE_STEPS train steps under ``torch.profiler``: device busy
+    time per step, its idle share of ``wall_ms`` (the median unprofiled
+    step's wall), and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync()
-    t0 = time.perf_counter()
-    params, opt, _ = step_fn(params, opt, batch)
-    sync()
-    wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        params, opt, _ = step_fn(params, opt, batch)
+        for _ in range(PROFILE_STEPS):
+            params, opt, _ = step_fn(params, opt, batch)
         sync()
-    rows = [(e.key, e.self_device_time_total / 1e3)
+    rows = [(e.key, e.self_device_time_total / 1e3 / PROFILE_STEPS)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms in rows)
     if not busy_ms:
-        print(f"profile train step: wall {wall_ms:.1f} ms; the profiler saw "
-              "no device time: busy share not measured")
+        print("profile train step: the profiler saw no device time: busy "
+              "share not measured")
         return {"wall_ms": wall_ms, "busy_ms": None}
     ksplit_ms = sum(ms for name, ms in rows if "ksplit" in name)
     convert_ms = sum(ms for name, ms in rows if "convert" in name)
-    print(f"profile train step: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.1%}; "
+    print(f"profile train step ({PROFILE_STEPS} steps): device busy "
+          f"{busy_ms:.1f} ms per step against the median step wall "
+          f"{wall_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.1%}; "
           f"ksplit kernel {ksplit_ms:.2f} ms, convert kernel "
           f"{convert_ms:.2f} ms")
     for name, ms in rows[:10]:
@@ -1479,7 +1521,7 @@ def train_phase(cfg, seed: int = 0) -> dict:
     gradients through the ksplit kernel against the same step with its
     plain version swapped in; every forward KSplit linear on the kernel;
     eight steps on one repeated batch (finite, falling loss; per-step
-    wall time, one profiled step, peak memory); one step at two
+    wall time and launches, profiled steps, peak memory); one step at two
     microbatches against one; and, at reduced depth, a checkpoint,
     an injected RestartSignal and a restore whose replayed steps equal
     the uninterrupted run's losses bit for bit."""
@@ -1514,16 +1556,19 @@ def train_phase(cfg, seed: int = 0) -> dict:
     lin0 = dispatch.dispatch_counts("linear")
     loss_k, _, g_k = loss_and_grads(params, cfg, batch)
     sync()
-    fwd_launches = ops.launch_counts()["ksplit_gemm"]
+    step0 = ops.launch_counts()
     fresh_fwd = dispatch.fresh_resolutions() - fresh0
     lin = {p: v - lin0.get(p, 0)
            for p, v in dispatch.dispatch_counts("linear").items()}
+    tok_k = token_losses(params, cfg, batch)
     kernel_fn = K.ksplit_gemm_multi
     try:
         K.ksplit_gemm_multi = K.ksplit_gemm_plain
         loss_p, _, g_p = loss_and_grads(params, cfg, batch)
+        tok_p = token_losses(params, cfg, batch)
         K.ksplit_gemm_multi = ksplit_one_matmul
         loss_a, _, g_a = loss_and_grads(params, cfg, batch)
+        tok_a = token_losses(params, cfg, batch)
         sync()
     finally:
         K.ksplit_gemm_multi = kernel_fn
@@ -1531,7 +1576,8 @@ def train_phase(cfg, seed: int = 0) -> dict:
     frob_a, worst_a, _ = leaf_gaps(g_a, g_p)
     loss_gap = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     loss_gap_a = abs(float(loss_a) - float(loss_p)) / abs(float(loss_p))
-    del g_k, g_p, g_a
+    tok_gap, tok_gap_a = rel_gap(tok_k, tok_p), rel_gap(tok_a, tok_p)
+    del g_k, g_p, g_a, tok_k, tok_p, tok_a
     print(f"train {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} vocab="
           f"{cfg.vocab}, seq {TRAIN_SEQ} x batch {TRAIN_BATCH} = {tokens} "
           f"tokens/step; weights {param_bytes(params) / 1e9:.3f} GB")
@@ -1542,10 +1588,15 @@ def train_phase(cfg, seed: int = 0) -> dict:
           f"{worst:.2e} at {where} (allowance {TRAIN_GRAD_MAX:g}); plain "
           f"in another order (one matmul): loss gap {loss_gap_a:.2e}, "
           f"||d||/||g|| {frob_a:.2e}, max|d|/max|g| {worst_a:.2e}")
-    print(f"train step 0: forward KSplit linears {lin}, ksplit launches "
-          f"{fwd_launches} for {n_linear} linears, fresh resolutions after "
-          f"setup {fresh_fwd}")
-    if not (np.isfinite(float(loss_k)) and loss_gap <= TRAIN_LOSS_RTOL):
+    print(f"train step 0: per-token losses ||d||/||l|| kernel vs plain "
+          f"{tok_gap:.2e}, one matmul vs plain {tok_gap_a:.2e} (ratio "
+          f"{tok_gap / max(tok_gap_a, 1e-30):.2f}, allowance "
+          f"{TRAIN_ORDER_RATIO:g})")
+    print(f"train step 0: forward KSplit linears {lin}, launches "
+          f"{step0} for {n_linear} linears, fresh resolutions after setup "
+          f"{fresh_fwd}")
+    if not (np.isfinite(float(loss_k)) and loss_gap <= TRAIN_LOSS_RTOL
+            and tok_gap <= TRAIN_ORDER_RATIO * tok_gap_a):
         fail("train: step-0 loss through the kernel is off its plain "
              "version")
     if frob > TRAIN_GRAD_FROB or worst > TRAIN_GRAD_MAX \
@@ -1553,7 +1604,7 @@ def train_phase(cfg, seed: int = 0) -> dict:
         fail("train: step-0 gradients through the kernel are off their "
              "plain version")
     if lin.get("ksplit_torch", 0) or lin.get("ksplit_cuda", 0) != n_linear \
-            or fwd_launches != n_linear:
+            or step0["ksplit_gemm"] != n_linear:
         fail("train: a forward KSplit linear ran off the ksplit kernel")
     if fresh_fwd:
         fail(f"train: {fresh_fwd} fresh plan resolutions after setup")
@@ -1590,31 +1641,38 @@ def train_phase(cfg, seed: int = 0) -> dict:
                               tune_tokens=tokens)
     fresh0 = dispatch.fresh_resolutions()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, per_step = [], [], {}
+    losses, step_ms, per_step = [], [], []
+    ops.reset_launch_counts()
+    seen = ops.launch_counts()
     for s in range(TRAIN_STEPS):
-        ops.reset_launch_counts()
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batch)
         losses.append(float(m["loss"]))        # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        per_step = ops.launch_counts()
+        now = ops.launch_counts()
+        per_step.append({k: now[k] - seen[k] for k in now})
+        seen = now
+    loop = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fresh = dispatch.fresh_resolutions() - fresh0
-    prof = profile_step(step_fn, params, opt, batch)
     steady = float(np.median(step_ms[1:]))
+    prof = profile_step(step_fn, params, opt, batch, steady)
     print(f"train: losses {[round(v, 4) for v in losses]}")
     print(f"train: step wall ms {[round(v, 1) for v in step_ms]}; median "
           f"of steps 1-{TRAIN_STEPS - 1} {steady:.1f} ms = "
-          f"{tokens / steady * 1e3:.1f} tokens/s; launches per step "
-          f"{per_step}; peak memory {peak_gb:.2f} GB "
+          f"{tokens / steady * 1e3:.1f} tokens/s; ksplit launches per "
+          f"step {[c['ksplit_gemm'] for c in per_step]}, convert "
+          f"{[c['convert'] for c in per_step]}; in the {TRAIN_STEPS} steps "
+          f"{loop}; peak memory {peak_gb:.2f} GB "
           "(torch.cuda.max_memory_allocated); fresh resolutions after "
           f"setup {fresh}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train: losses {losses} are not finite and falling")
     if fresh:
         fail(f"train: {fresh} fresh plan resolutions after setup")
-    if per_step["ksplit_gemm"] != n_linear:
-        fail(f"train: {per_step['ksplit_gemm']} ksplit launches per step")
+    if any(c["ksplit_gemm"] != n_linear for c in per_step):
+        fail("train: a step did not launch the ksplit kernel once per "
+             "KSplit linear")
     del params, opt, step_fn
     torch.cuda.empty_cache()
 
@@ -1661,8 +1719,8 @@ def train_phase(cfg, seed: int = 0) -> dict:
              "uninterrupted run's")
     phase_s = time.perf_counter() - t_phase
     print(f"train: phase {phase_s:.1f} s")
-    return {"launches": fwd_launches + TRAIN_STEPS * n_linear,
-            "convert_launches": TRAIN_STEPS * per_step["convert"],
+    return {"launches": step0["ksplit_gemm"] + loop["ksplit_gemm"],
+            "convert_launches": step0["convert"] + loop["convert"],
             "step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
             "peak_gb": peak_gb, "phase_s": phase_s, **prof}
 

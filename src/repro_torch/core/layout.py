@@ -104,11 +104,10 @@ def _pad_to(x: torch.Tensor, m: int, n: int) -> torch.Tensor:
 def _to_buffer(fmt: PrecisionFormat, x: torch.Tensor, tile: int
                ) -> torch.Tensor:
     """``fmt.to_buffer(x)``.  On the card a plain float format's storage
-    cast is the convert kernel's (``csrc/convert.cu``, bit for bit the
+    cast is :func:`storage_cast` (the convert kernel, bit for bit the
     reference's rounding); split and integer formats keep their own."""
-    if (x.is_cuda and type(fmt) is PrecisionFormat
-            and x.dtype != fmt.storage_dtype):
-        return _cv.convert(x.contiguous(), fmt.storage_dtype)
+    if x.is_cuda and type(fmt) is PrecisionFormat:
+        return storage_cast(x, fmt.storage_dtype)
     return fmt.to_buffer(x, tile=tile)
 
 
