@@ -105,6 +105,23 @@ Phases (each raises on failure, so a failing run never exits 0):
    tokens/s, launches per step, peak memory, one profiled step); and at
    one layer a checkpoint, an injected ``RestartSignal`` and a restore
    whose replayed losses equal the uninterrupted run's bit for bit.
+8. (run after 7) SUMMA on one card: a 1x1 grid over nccl in this
+   process runs a 4096³ GEMM (t = 128, the default set, A and B
+   sorted-balanced and C balanced at 50% D, 25% Q) on the grouped local
+   path — K/t grouped launches, within twice the per-class bound of the
+   ref local path and of single-device ``mp_matmul``, and bit for bit the
+   single-device grouped path; four ranks spawned on the card over gloo
+   run the 2x2, 1x4 and 4x1 grids on the same operands: every output
+   equals the 1x1 output bit for bit, every rank launches the grouped
+   kernel K/t times and moves the wire-byte model's share (counts read
+   in each rank and gathered); the grouped kernel's accumulate-into
+   launch is timed at the 1x1 and 2x2 local shapes beside its bound and
+   ``torch.matmul``; then phase 5's operator at n = 4096 with balanced
+   escalation is solved single-device (grouped residual), on the 1x1
+   grid and on a 2x2 grid of spawned ranks: all three converge with 0
+   fresh resolutions and 0 SUMMA table rebuilds and are equal bit for bit
+   (x, map, metric trajectory); it prints each solve's wall seconds and
+   the 2x2 solve's broadcast share.
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -114,6 +131,7 @@ It imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -2307,6 +2325,347 @@ def host_clock_ms(fn, iters: int = 10) -> float:
     return float(np.median(times))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: SUMMA on one card
+# ---------------------------------------------------------------------------
+
+#: SUMMA GEMM edge (M = N = K) and the grids of four ranks on the card
+SUMMA_SIZE = 4096
+SUMMA_GRIDS = ((2, 2), (1, 4), (4, 1))
+#: A and B are sorted-balanced in 4 segments, which serves every grid
+#: above and the 1x1 one; C is balanced in 4x4 groups
+SUMMA_SEGMENTS = 4
+#: the grid solves: phase 5's operator at n = 4096 (at phase 5's 8192 the
+#: balanced ladder escalates 11 times, 12 replicated numpy factorizations
+#: per solve: 121 / 128 / 169 s for the three solves, `summa_phase.py
+#: 8192`), tile 128, balanced escalation, RHS padded to 256 columns, the
+#: 2x2 grid's row extent as balance groups
+SUMMA_SOLVE_N = 4096
+SUMMA_NRHS_PAD = 256
+
+
+def summa_parity(out, other, A, B, C, dense, beta=0.0) -> float:
+    """Worst |out - other| over twice the registry-derived per-class
+    bound times the fp64 error scale (the reference's ``_assert_parity``:
+    each side carries its own rounding budget); ≤ 1 passes."""
+    from repro_torch.core.accuracy import class_error_bounds, error_scale
+    from repro_torch.core.layout import expand_map
+    k = A.shape[1]
+    bounds = class_error_bounds(A.cls, B.cls, C.cls, k, A.fset)
+    scale = error_scale(*dense, beta)
+    err = np.abs(out.to_dense().double().cpu().numpy()
+                 - other.to_dense().double().cpu().numpy())
+    sel = expand_map(C.cls, C.tile)
+    worst = 0.0
+    for cls, bound in bounds.items():
+        m = sel == cls
+        if m.any():
+            worst = max(worst, float((err[m] / (2 * bound * scale[m]
+                                                + 1e-6)).max()))
+    return worst
+
+
+def summa_operands(gen):
+    """A, B, C at SUMMA_SIZE, t = 128, the default format set, 50% D and
+    25% Q: A and B sorted-balanced, C balanced; and their dense values."""
+    import torch
+    from repro_torch.core import schedule
+    from repro_torch.core.formats import DEFAULT_FORMATS as FS
+    from repro_torch.core.layout import MPMatrix
+    from repro_torch.core.precision import Policy
+    t, g = TILE, SUMMA_SEGMENTS
+    mt = SUMMA_SIZE // t
+    pol = Policy(kind="ratio", ratio_high=0.5, ratio_low8=0.25, seed=8)
+    maps = (schedule.sorted_balanced_map(mt, mt, pol, axis=0, groups=g,
+                                         fset=FS),
+            schedule.sorted_balanced_map(mt, mt, pol, axis=1, groups=g,
+                                         fset=FS),
+            schedule.balanced_ratio_map(mt, mt, pol, g, g, fset=FS))
+    dense = [torch.randn((SUMMA_SIZE, SUMMA_SIZE), generator=gen,
+                         device=DEVICE) for _ in range(3)]
+    mats = [MPMatrix.from_dense(d, p, t, FS) for d, p in zip(dense, maps)]
+    return mats, [d.cpu().numpy() for d in dense]
+
+
+def summa_panel(A, B, C, P, Q) -> dict:
+    """The grouped kernel's accumulate-into launch at SUMMA's local shape
+    on a PxQ grid: rank (0, 0)'s mloc x t x nloc update by k-panel 1,
+    added to the fp32 sums of k-panel 0.  First the kernel is held
+    against its plain version started from equal sums, within the fp32
+    summation-order allowance 2·t·2^-24·(|A_panel|·|B_panel| + |sums|)
+    (the outputs stay fp32: no storage rounding or quantization to allow
+    for); then timed beside its plain version, torch.matmul bf16 and fp32
+    (TF32 off) at that shape, and the bound (operations by C class;
+    bytes: the panel's storage read once, the fp32 sums read and
+    written)."""
+    import torch
+    from repro_torch.core.layout import CompactMPMatrix, fp32_matmul
+    from repro_torch.core.precision import map_storage_bytes
+    from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.kernels import mp_gemm_tile as MT
+    t, fs = TILE, A.fset
+    mloc, nloc = SUMMA_SIZE // P, SUMMA_SIZE // Q
+    da, db = A.to_dense(), B.to_dense()
+
+    def panel(k):
+        cols = slice(k * t, (k + 1) * t)
+        return (CompactMPMatrix.from_dense(
+                    da[:mloc, cols], A.cls[:mloc // t, k:k + 1], t, fs),
+                CompactMPMatrix.from_dense(
+                    db[cols, :nloc], B.cls[k:k + 1, :nloc // t], t, fs))
+
+    pc = np.ascontiguousarray(C.cls[:mloc // t, :nloc // t])
+    counts = np.bincount(pc.reshape(-1), minlength=len(fs))
+    sums = tuple(torch.zeros((int(n), t, t), device=DEVICE) for n in counts)
+    GG.grouped_gemm_plain(*panel(0), pc, sums)
+    ap, bp = panel(1)
+    got, want = (tuple(x.clone() for x in sums) for _ in range(2))
+    GG.grouped_mp_gemm(ap, bp, pc, acc=got)
+    GG.grouped_gemm_plain(ap, bp, pc, want)
+    sync()
+
+    def dense(tiles):
+        return CompactMPMatrix(tiles, pc, CompactMPMatrix.make_slots(pc),
+                               t, (mloc, nloc), fs).padded_dense()
+
+    allow = 2.0 * t * 2.0 ** -24 * (
+        fp32_matmul(ap.padded_dense().abs(), bp.padded_dense().abs())
+        + dense(sums).abs())
+    err, ratio = MT.within(dense(got), dense(want), allow)
+    shape = f"{mloc}x{t}x{nloc}"
+    print(f"grouped SUMMA panel {P}x{Q} {shape} accumulate-into, kernel vs "
+          f"plain from equal fp32 sums: max|kernel-plain| {err:.3e}, "
+          f"worst/allowance {ratio:.3e} (2*t*2^-24*(|A||B| + |sums|))")
+    if not ratio <= 1.0:
+        fail(f"the grouped kernel's accumulate-into form at the {P}x{Q} "
+             f"SUMMA panel {shape} is outside the fp32 order allowance")
+    acc = got
+    ms = time_ms(lambda: GG.grouped_mp_gemm(ap, bp, pc, acc=acc), iters=20)
+    plain_ms = time_ms(lambda: GG.grouped_gemm_plain(ap, bp, pc, acc),
+                       iters=5, hold=False)
+    a32 = da[:mloc, t:2 * t].contiguous()
+    b32 = db[t:2 * t, :nloc].contiguous()
+    a16, b16 = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+    lib16 = time_ms(lambda: torch.matmul(a16, b16), iters=20)
+    lib32 = time_ms(lambda: torch.matmul(a32, b32), iters=20)
+    nbytes = (map_storage_bytes(ap.cls, t, fs)
+              + map_storage_bytes(bp.cls, t, fs) + 2 * mloc * nloc * 4)
+    bound_ms, by = _bound(nbytes, _ops_bound_s(pc, t, t, fs))
+    print(f"time grouped SUMMA panel {P}x{Q} {shape} (accumulate-into): "
+          f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
+          f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, torch.matmul "
+          f"bf16 {lib16:.4f} ms, fp32 (TF32 off) {lib32:.4f} ms "
+          "(yardsticks: C mixes fp32 and bf16 compute classes)")
+    return {"shape": shape, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "matmul_bf16_ms": lib16, "matmul_fp32_ms": lib32}
+
+
+def summa_phase(gen) -> dict:
+    """SUMMA on one card: a 1x1 grid over nccl in this process (over gloo
+    on the CPU), beside it four ranks spawned on the same card over gloo;
+    :func:`summa_gemms`, then :func:`summa_solves`."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.grid import Grid
+    t_phase = time.perf_counter()
+    card, backend = ((DEVICE + ":0", "nccl") if DEVICE == "cuda"
+                     else ("cpu", "gloo"))
+    if DEVICE == "cuda":   # the ranks share the card with this process
+        import torch
+        torch.cuda.empty_cache()
+    rdv = tempfile.mkdtemp(prefix="chip-smoke-rdv-")
+    dist.init_process_group(backend, init_method=f"file://{rdv}/rdv",
+                            world_size=1, rank=0)
+    try:
+        grid = Grid(1, 1, device=card, backend=backend)
+        out = summa_gemms(gen, grid, card)
+        sol = summa_solves(grid, card)
+    finally:
+        dist.destroy_process_group()
+        for f in os.listdir(rdv):
+            os.remove(os.path.join(rdv, f))
+        os.rmdir(rdv)
+    out["launches"] += sol.pop("launches")
+    out.update(sol, phase_s=time.perf_counter() - t_phase)
+    print(f"summa phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def summa_gemms(gen, grid, card: str) -> dict:
+    """(1) The 1x1 ``grid``: the grouped local path at SUMMA_SIZE³
+    against the ref path and single-device mp_matmul (within twice the
+    per-class bound), K/t grouped launches, and bit for bit the
+    single-device grouped path, whose kernel is held to its plain
+    version on these operands at the fp32 order allowance; (2) four ranks
+    spawned on ``card`` over gloo run the 2x2, 1x4 and 4x1 grids on the
+    same operands: each output equals the 1x1 output bit for bit, every
+    rank launches the grouped kernel K/t times and moves
+    summa_collective_bytes / 4 bytes (counted per slab in each rank and
+    gathered); then the grouped kernel's
+    accumulate-into launch at SUMMA's local shapes, checked against its
+    plain version and timed (:func:`summa_panel`)."""
+    import torch
+    from repro_torch.core.summa import (summa_collective_bytes,
+                                        summa_mp_gemm, summa_with_stats)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.grid import call_all, run_on_grid
+    from repro_torch.tune import dispatch as D
+    from repro_torch.tune.costmodel import GemmPlan
+    t, kt = TILE, SUMMA_SIZE // TILE
+    grouped = GemmPlan(path="grouped", bm=t, bn=t, bk=t)
+    ref = GemmPlan(path="ref", bm=t, bn=t, bk=t)
+    (A, B, C), dense = summa_operands(gen)
+    out = {"launches": 0}
+    secs = []
+    for _ in range(2):   # the first call also sets up the communicators
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        g11 = summa_mp_gemm(A, B, C, grid=grid, plan=grouped)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        n11 = ops.launch_counts()["grouped_gemm"]
+        out["launches"] += n11
+    r11 = summa_mp_gemm(A, B, C, grid=grid, plan=ref)
+    single = D.mp_matmul(A, B, C)
+    solo = D.execute_plan(grouped, A, B, zero_c(C))
+    sync()
+    vs_ref = summa_parity(g11, r11, A, B, C, dense)
+    vs_single = summa_parity(g11, single, A, B, C, dense)
+    same_solo = all(torch.equal(x, y) for x, y in zip(g11.bufs, solo.bufs))
+    print(f"summa 1x1 {grid.backend} {SUMMA_SIZE}^3 t={t} (A, B "
+          f"sorted-balanced in {SUMMA_SEGMENTS} segments, C balanced; "
+          f"50D25S25Q): grouped {secs[0]:.3f} s first, {secs[1]:.3f} s "
+          f"warm, {n11} grouped launches "
+          f"(K/t = {kt}); worst |grouped - ref| / 2·bound {vs_ref:.3e}, vs "
+          f"mp_matmul {vs_single:.3e}; bit for bit the single-device "
+          f"grouped path: {same_solo}")
+    if n11 != kt:
+        fail(f"the 1x1 SUMMA launched the grouped kernel {n11} times, not "
+             f"K/t = {kt}")
+    if not (vs_ref <= 1.0 and vs_single <= 1.0):
+        fail("the 1x1 SUMMA is outside twice the per-class bound")
+    if not same_solo:
+        fail("the 1x1 SUMMA (accumulate-into launches) differs from the "
+             "single-device grouped path")
+    err, ratio = kernel_vs_plain("grouped", A, B, zero_c(C))
+    print(f"grouped {SUMMA_SIZE}^3 t={t} on the SUMMA operands (store "
+          f"form): max|kernel-plain| {err:.3e}, worst/allowance "
+          f"{ratio:.3e} (2*K*2^-24*|A||B| + one output rounding)")
+    if not ratio <= 1.0:
+        fail("the grouped kernel on the SUMMA operands is outside "
+             "tolerance of its plain version")
+    cpu = [dataclasses.replace(m, bufs=tuple(b.cpu() for b in m.bufs))
+           for m in (A, B, C)]
+    hi = float((A.cls == A.fset.high).mean())
+    q8 = float((A.cls == A.fset.low8).mean())
+    t0 = time.perf_counter()
+    rows = run_on_grid(
+        2, 2, call_all, [(summa_with_stats, cpu, {"plan": grouped}, s)
+                         for s in SUMMA_GRIDS],
+        device=card, backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    for (P, Q), row in zip(SUMMA_GRIDS, rows):
+        model = summa_collective_bytes(SUMMA_SIZE, SUMMA_SIZE, SUMMA_SIZE,
+                                       t, P, Q, hi, q8, A.fset)
+        per_rank = model["total_bytes"] / (P * Q)
+        equal = all(torch.equal(x.cpu(), y.cpu()) for x, y in
+                    zip(row["out"].bufs, g11.bufs))
+        out["launches"] += sum(row["launches"])
+        print(f"summa {row['grid']} gloo on one card: per rank launches "
+              f"{row['launches']} (sum {sum(row['launches'])}), bytes "
+              f"{row['bytes']} (model {per_rank:.0f} each), broadcasts "
+              f"{row['broadcasts']}, seconds "
+              f"{[round(v, 3) for v in row['seconds']]} of which broadcast "
+              f"{[round(v, 3) for v in row['broadcast_seconds']]}; equal "
+              f"to the 1x1 output bit for bit: {equal}")
+        if not equal:
+            fail(f"the {row['grid']} SUMMA differs from the 1x1 output")
+        if any(n != kt for n in row["launches"]):
+            fail(f"{row['grid']}: a rank launched the grouped kernel "
+                 f"{row['launches']} times, not K/t = {kt} each")
+        if any(b != per_rank for b in row["bytes"]):
+            fail(f"{row['grid']}: wire bytes {row['bytes']} != the model's "
+                 f"{per_rank} per rank")
+    print(f"summa grids: {len(SUMMA_GRIDS)} grids in one spawn of 4 ranks, "
+          f"{spawn_s:.1f} s")
+    out["panel"] = {f"{P}x{Q}": summa_panel(A, B, C, P, Q)
+                    for P, Q in ((1, 1), (2, 2))}
+    return out
+
+
+def summa_solves(grid, card: str) -> dict:
+    """(3) Phase 5's operator (n = SUMMA_SOLVE_N, t = 128, tol
+    SOLVE_TOL) with balanced escalation: single-device with the grouped
+    residual path, on the 1x1 ``grid``, and on a 2x2 grid of ranks
+    spawned on ``card`` over gloo (grouped local path).  Each converges
+    within FORWARD_TOL with 0 fresh resolutions and 0 table rebuilds; the
+    2x2 solve equals the 1x1-grid solve (invariant b) and the
+    single-device grouped solve (invariant c) bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.solve import (SolveConfig, graded_spd,
+                                   rhs_for_solution, solve)
+    a = graded_spd(SUMMA_SOLVE_N, cond=1e4, rho=0.9, seed=0)
+    xt, b = rhs_for_solution(a, nrhs=1, seed=1)
+    common = dict(tile=TILE, ratio_high=0.0, ratio_low8=0.0, tol=SOLVE_TOL,
+                  escalation="balanced", balance_groups=2,
+                  nrhs_pad=SUMMA_NRHS_PAD)
+    reps, walls = {}, {}
+    t0 = time.perf_counter()
+    reps["single"] = solve(a, b, SolveConfig(residual_path="grouped",
+                                             **common), device=DEVICE)
+    walls["single"] = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reps["1x1"] = solve(a, b, SolveConfig(summa_grid=(1, 1),
+                                          local_path="grouped", **common),
+                        device=DEVICE, grid=grid)
+    walls["1x1"] = time.perf_counter() - t0
+    launches = ops.launch_counts()["grouped_gemm"]
+    t0 = time.perf_counter()
+    reps["2x2"] = solve(a, b, SolveConfig(summa_grid=(2, 2),
+                                          local_path="grouped", **common),
+                        device=card, backend="gloo")
+    walls["2x2"] = time.perf_counter() - t0
+    for label, rep in reps.items():
+        err = forward_error(rep.x, xt)
+        share = rep.broadcast_seconds / max(rep.total_seconds, 1e-12)
+        print(f"summa solve {label}: n={SUMMA_SOLVE_N} converged="
+              f"{rep.converged} sweeps {rep.sweeps} escalations "
+              f"{rep.escalations} factorizations {rep.factorizations} map "
+              f"{' -> '.join(rep.ratio_history)}; forward err {err:.3g}; "
+              f"wall {walls[label]:.2f} s (solve {rep.total_seconds:.2f} s, "
+              f"GEMM {rep.gemm_seconds:.2f} s, factorizations "
+              f"{rep.factor_seconds:.2f} s); broadcasts "
+              f"{rep.broadcast_seconds:.3f} s = {share:.1%} of the solve, "
+              f"{rep.broadcast_bytes} B (rank 0); fresh resolutions "
+              f"{rep.fresh_resolutions}, table rebuilds "
+              f"{rep.summa_recompiles}")
+        if not (rep.converged and err <= FORWARD_TOL):
+            fail(f"summa solve {label}: not converged within "
+                 f"{FORWARD_TOL} ({rep.metric_history}, err {err:.3g})")
+        if rep.fresh_resolutions or rep.summa_recompiles:
+            fail(f"summa solve {label}: {rep.fresh_resolutions} fresh "
+                 f"resolutions, {rep.summa_recompiles} table rebuilds")
+    d, s1, one = reps["2x2"], reps["single"], reps["1x1"]
+    same_b = (np.array_equal(d.x, one.x)
+              and np.array_equal(d.final_map, one.final_map)
+              and d.metric_history == one.metric_history)
+    same_c = (np.array_equal(d.x, s1.x)
+              and np.array_equal(d.final_map, s1.final_map)
+              and d.metric_history == s1.metric_history)
+    print(f"summa solve invariants: 2x2 == 1x1 grid bit for bit: {same_b}; "
+          f"2x2 == single-device grouped bit for bit: {same_c} "
+          f"(max|dx| / max|x| {forward_error(d.x, s1.x):.3g})")
+    if not same_b:
+        fail("the 2x2 solve differs from the 1x1-grid solve")
+    if not same_c:
+        fail("the 2x2 solve differs from the single-device grouped solve")
+    return {"launches": launches, "walls": walls,
+            "broadcast_share": d.broadcast_seconds / d.total_seconds}
+
+
 def ptxas_rows(log: str) -> list[str]:
     """One 'kernel<t>: registers, spill stores/loads' line per entry
     function of a ptxas -v report."""
@@ -2409,6 +2768,7 @@ def main() -> None:
     sol = solve_phase()
     parity_phase()
     tr = train_phase(cfg)
+    sm = summa_phase(torch.Generator(device=DEVICE).manual_seed(88))
     ks_rows = time_ksplit(gen, policy)
     tg = time_tile_grouped(gen)
     sp = time_split(gen)
@@ -2450,10 +2810,17 @@ def main() -> None:
          "max_abs_err": max(v for key, v in split_err.items()
                             if key[0] == "slices"),
          **sp["slice pass"]},
+        # launches: the grouped solve's, and phase 8's SUMMA local
+        # updates (the 1x1 GEMM, each rank of the three 4-rank grids, the
+        # 1x1-grid solve); summa_panel: one accumulate-into launch at
+        # SUMMA's local shape
         {"name": "grouped_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:119",
-         "launches": sol["grouped"]["launches"],
+         "launches": sol["grouped"]["launches"] + sm["launches"],
+         "launches_by_phase": {"solve": sol["grouped"]["launches"],
+                               "summa": sm["launches"]},
+         "summa_panel": sm["panel"],
          "max_abs_err": max(*gr_err.values(), *(
              v for (path, _, _), v in edge_err.items() if path == "grouped")),
          **tg[("grouped", "4096^3", "0D100S")]},
@@ -2489,7 +2856,10 @@ def main() -> None:
           f"peak {tr['peak_gb']:.2f} GB (phase {tr['phase_s']:.1f} s); "
           f"ksplit at m={train_row['m']} N=8192 {train_row['ms']:.4f} ms "
           f"(bound {train_row['bound_ms']:.4f}, torch.matmul "
-          f"{train_row['library_ms']:.4f}); total "
+          f"{train_row['library_ms']:.4f}); summa phase {sm['phase_s']:.1f} "
+          f"s, grid solves {[round(v, 2) for v in sm['walls'].values()]} s "
+          f"(single, 1x1, 2x2), 2x2 broadcast share "
+          f"{sm['broadcast_share']:.1%}; total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -32,8 +32,8 @@ uniform-HIGH C, an 8192² operand under 5D95S) as ``MPMatrix.from_dense``
 runs it: the class-map form where the checkout has one, else the
 per-class chain; their ``device`` sums every kernel and copy.
 
-Each ksplit and convert output's SHA-256 (prefix) shows whether the
-checkouts give the same bits.  Prints one JSON line per run, a summary
+Each kernel output's SHA-256 (prefix) shows whether the checkouts give
+the same bits.  Prints one JSON line per run, a summary
 per case, and the card's name and power limit; ``--out`` also writes the
 runs as JSON.
 """
@@ -53,11 +53,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KSPLIT_CASES = ((4, 2048, 1024), (4, 2048, 2048), (4, 2048, 8192),
                 (4, 2048, 92544), (1, 2048, 8192))
 #: GEMM cases (label, kernel, format-set key, ratio_high, seed), 4096³
-#: at t = 128: chip_smoke.py's kernels-line rows of the split and tile
-#: kernels
+#: at t = 128: chip_smoke.py's kernels-line rows of the split, tile and
+#: grouped kernels, and the tile and grouped kernels under 50D50S (both
+#: of the staged dot's paths in one launch)
 GEMM_CASES = (("split 4096^3 split2 50D50S", "split",
                "fp8_e4m3+bf16+split2_fp16", 0.5, 51),
-              ("tile 4096^3 0D100S", "tile", "fp8_e4m3+bf16+fp32", 0.0, 21))
+              ("tile 4096^3 0D100S", "tile", "fp8_e4m3+bf16+fp32", 0.0, 21),
+              ("tile 4096^3 50D50S", "tile", "fp8_e4m3+bf16+fp32", 0.5, 22),
+              ("grouped 4096^3 0D100S", "grouped", "fp8_e4m3+bf16+fp32",
+               0.0, 21),
+              ("grouped 4096^3 50D50S", "grouped", "fp8_e4m3+bf16+fp32",
+               0.5, 22))
 #: host-time runs: repeats of CALLS back-to-back calls
 HOST_REPEATS, HOST_CALLS = 5, 200
 
@@ -98,9 +104,10 @@ def worker(tree: str) -> dict:
     sys.path.insert(0, HERE)
     import torch
     import chip_smoke as S
-    from repro_torch.core.layout import MPMatrix
+    from repro_torch.core.layout import CompactMPMatrix, MPMatrix
     from repro_torch.core.precision import Policy
     from repro_torch.kernels import convert as CV
+    from repro_torch.kernels import grouped_gemm as GG
     from repro_torch.kernels import ksplit_gemm as K
     from repro_torch.kernels import mp_gemm_tile as MT
     from repro_torch.kernels import ops
@@ -138,12 +145,20 @@ def worker(tree: str) -> dict:
             run = lambda: SG.split_gemm_tile_multi(  # noqa: E731
                 A.bufs, B.bufs, C.bufs, *maps, tile=128, specs=specs)
             name = "split_"
+        elif kern == "grouped":
+            ac = CompactMPMatrix.from_dense(A.to_dense(), A.cls, 128, fs)
+            bc = CompactMPMatrix.from_dense(B.to_dense(), B.cls, 128, fs)
+            run = lambda: GG.grouped_mp_gemm(  # noqa: E731
+                ac, bc, C.cls).tiles
+            name = "grouped_gemm"
         else:
             specs = MT.format_specs(fs)
             run = lambda: MT.mp_gemm_tile_multi(  # noqa: E731
                 A.bufs, B.bufs, C.bufs, *maps, tile=128, specs=specs)
             name = "mp_gemm_tile"
-        out["cases"][label] = timed(S, run, name, 10)
+        row = timed(S, run, name, 10)
+        row["sha256"] = sha(torch.cat([o.float().view(-1) for o in run()]))
+        out["cases"][label] = row
         del A, B, C
     x = torch.randn((S.CONVERT_SIZE, S.CONVERT_SIZE), generator=gen,
                     device="cuda")

@@ -10,8 +10,8 @@ uint16/uint8 views (npz has no such dtypes), which are the bytes the
 reference writes through ``ml_dtypes``.  Writes go to a temporary
 directory that is renamed into place; :class:`AsyncCheckpointer` writes
 in a background thread.  Re-sharding on restore (the reference's
-``sharding_tree``) comes with ``torch.distributed`` (``ROADMAP.md``
-queue 1, item 6).
+``sharding_tree``) comes with data-parallel training across ranks
+(``ROADMAP.md`` queue 1, item 6b).
 """
 from __future__ import annotations
 

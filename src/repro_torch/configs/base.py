@@ -36,6 +36,9 @@ class ArchConfig:
     #: padded-prompt-length buckets of the serve scheduler (None → the
     #: serve defaults)
     serve_buckets: Optional[tuple] = None
+    #: P×Q grid of the SUMMA self-check the train launcher and the serve
+    #: engine run at setup (``--summa PxQ`` overrides from the CLI)
+    summa_grid: Optional[tuple] = None
     norm_eps: float = 1e-6
     tp: int = 1
     gated_mlp: bool = True

@@ -115,6 +115,16 @@ class PrecisionFormat:
         default_factory=lambda: {"default": 1.0})
     short: str = ""
 
+    def cost_on(self, device_kind: str) -> float:
+        """Relative matmul passes on ``device_kind`` (exact key, then its
+        family prefix, then ``"default"``)."""
+        if device_kind in self.pass_cost:
+            return float(self.pass_cost[device_kind])
+        family = device_kind.split("-")[0]
+        if family in self.pass_cost:
+            return float(self.pass_cost[family])
+        return float(self.pass_cost.get("default", 1.0))
+
     @property
     def buffer_dtype(self) -> torch.dtype:
         """dtype of the layout buffer a tile of this format lives in."""

@@ -14,6 +14,15 @@
 // conversion), accumulated in fp32, and integer classes get one absmax
 // quantize-dequantize per tile.
 //
+// The accumulate-into form (SUMMA's local update, one launch per k-panel;
+// the reference passes the fp32 output spec (compute, precision,
+// "float32") to _grouped_class_call there): the outputs are fp32 running
+// sums, each C tile's accumulator starts from its output tile and the sum
+// is written back in place, with no storage rounding and no per-tile
+// quantization.  A block reads its own tile before writing it, so the
+// launches of a k loop split one panel per launch run the same operations
+// as one launch over every panel.
+//
 // The TPU kernel fetched one candidate tile from every format buffer at
 // every k step and routed mismatched classes to an appended zero tile,
 // because a BlockSpec fetch cannot be skipped.  Here a block reads each
@@ -56,6 +65,7 @@ struct GroupedArgs {
   int nf;
   int kt, nt;
   int n_work;
+  int accumulate;             // 1: o[] are fp32 running sums, read then written
 };
 
 namespace {
@@ -72,11 +82,13 @@ grouped_gemm_kernel(const GroupedArgs a) {
   const int i = w[0], j = w[1], cls = w[2], slot = w[3];
   const int tx = threadIdx.x % G::TDX, ty = threadIdx.x / G::TDX;
 
+  const float* init = a.accumulate ? static_cast<const float*>(a.o[cls]) + slot * TT : nullptr;
   float acc[G::TMR][G::TMC];
 #pragma unroll
   for (int r = 0; r < G::TMR; ++r)
 #pragma unroll
-    for (int q = 0; q < G::TMC; ++q) acc[r][q] = 0.0f;
+    for (int q = 0; q < G::TMC; ++q)
+      acc[r][q] = init ? init[(ty + G::TDY * r) * T + tx + G::TDX * q] : 0.0f;
 
   for (int kk = 0; kk < a.kt; ++kk) {
     const int ca = a.pa[i * a.kt + kk], sa = a.a_slot[i * a.kt + kk];
@@ -114,26 +126,29 @@ struct GroupedSource {
   }
 };
 
-template <int T>
+// ACCUM: the accumulate-into form, a kernel of its own so that the store
+// form compiles as it did without it (no start-value path).
+template <int T, bool ACCUM>
 __global__ void __launch_bounds__(Big<T>::NTH, 1)
 grouped_gemm_staged(const GroupedArgs a) {
   extern __shared__ unsigned char smem[];
   constexpr long long TT = static_cast<long long>(T) * T;
   const int* w = a.work + 4 * static_cast<long long>(blockIdx.x);
   const int i = w[0], j = w[1], cls = w[2], slot = w[3];
+  const float* init = ACCUM ? static_cast<const float*>(a.o[cls]) + slot * TT : nullptr;
   float* out = tile_dot_staged<T>(smem, a.kt * (T / Big<T>::BK), a.comp[cls],
-                                  GroupedSource<T>{a, i, j});
+                                  GroupedSource<T>{a, i, j}, init);
   store_tile<T>(out, nullptr, 0, 0, 0, 1.0f, 0.0f, a.qmax[cls], a.o, a.odt, a.nf, cls,
                 slot * TT, T, false);
 }
 
-template <int T>
+template <int T, bool ACCUM>
 int launch_staged(const GroupedArgs& a, int smem, cudaStream_t st) {
   if (smem != Big<T>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(grouped_gemm_staged<T>,
+  cudaError_t e = cudaFuncSetAttribute(grouped_gemm_staged<T, ACCUM>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  grouped_gemm_staged<T><<<a.n_work, Big<T>::NTH, smem, st>>>(a);
+  grouped_gemm_staged<T, ACCUM><<<a.n_work, Big<T>::NTH, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,8 +168,12 @@ extern "C" int grouped_gemm_launch(const GroupedArgs* args, int tile, int smem, 
   switch (tile) {
     case 16: grouped_gemm_kernel<16><<<a.n_work, Geo<16>::NTH, 0, st>>>(a); break;
     case 32: grouped_gemm_kernel<32><<<a.n_work, Geo<32>::NTH, 0, st>>>(a); break;
-    case 64: return launch_staged<64>(a, smem, st);
-    case 128: return launch_staged<128>(a, smem, st);
+    case 64:
+      return a.accumulate ? launch_staged<64, true>(a, smem, st)
+                          : launch_staged<64, false>(a, smem, st);
+    case 128:
+      return a.accumulate ? launch_staged<128, true>(a, smem, st)
+                          : launch_staged<128, false>(a, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

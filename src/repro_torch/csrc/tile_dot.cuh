@@ -600,7 +600,7 @@ __device__ __forceinline__ void dot_mma(float (&acc)[Big<T>::ACC], unsigned char
   Codes cd = G::DIST < steps ? src.codes(G::DIST) : Codes{};
   Codes c2 = 2 < steps ? src.codes(2) : Codes{};
   fence_regs(acc);
-  wgmma_fence();   // the accumulators' zeros, before the first wgmma
+  wgmma_fence();   // the accumulators' first values, before the first wgmma
   for (int s = 0; s < steps; ++s) {
     cp_async_wait<G::DIST - 1>();   // stage s's copies are here
     fence_proxy_async();            // copies and conversions, read next by wgmma
@@ -795,14 +795,52 @@ __device__ __forceinline__ void dot_f32(float (&acc)[Big<T>::ACC], unsigned char
   }
 }
 
+// Each thread's accumulators from the fp32 tile at `init` (row stride T),
+// in the layout the path keeps them in (see the epilogue of
+// tile_dot_staged): the accumulate-into form starts a dot from a running
+// sum, and since fp32 round-trips through memory exactly, a dot split over
+// launches runs the same operations as one launch over all its stages.
+template <int T>
+__device__ __forceinline__ void load_acc(float (&acc)[Big<T>::ACC], const float* init,
+                                         bool mma) {
+  if (mma) {
+    const int lane = threadIdx.x & 31;
+    const int r0 = 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      const float2 u = *reinterpret_cast<const float2*>(init + r0 * T + c);
+      const float2 v = *reinterpret_cast<const float2*>(init + (r0 + 8) * T + c);
+      acc[4 * j] = u.x;
+      acc[4 * j + 1] = u.y;
+      acc[4 * j + 2] = v.x;
+      acc[4 * j + 3] = v.y;
+    }
+  } else {
+    using F = F32Geo<T>;
+#pragma unroll
+    for (int i = 0; i < F::RM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 u = *reinterpret_cast<const float4*>(init + F::row(i) * T + F::col(4 * h));
+        acc[i * 8 + 4 * h] = u.x;
+        acc[i * 8 + 4 * h + 1] = u.y;
+        acc[i * 8 + 4 * h + 2] = u.z;
+        acc[i * 8 + 4 * h + 3] = u.w;
+      }
+  }
+}
+
 // The staged dot of one C tile: stages 0..steps-1 of BK = 64 k each,
 // operands from the source `src` (see Codes); the tensor-core path for a bf16/fp16
-// compute dtype `ct`, else fp32 FMA.  Leaves the fp32 tile in shared
-// memory ([T][OUT_LD], reusing the ring) and returns it; every thread of
-// the block must call it.
+// compute dtype `ct`, else fp32 FMA.  The accumulators start at zero, or
+// from the fp32 tile `init` (row stride T) when it is given.  Leaves the
+// fp32 tile in shared memory ([T][OUT_LD], reusing the ring) and returns
+// it; every thread of the block must call it.
 template <int T, class Src>
 __device__ __forceinline__ float* tile_dot_staged(unsigned char* smem_raw, int steps, int ct,
-                                                  const Src& src) {
+                                                  const Src& src,
+                                                  const float* init = nullptr) {
   using G = Big<T>;
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* out = reinterpret_cast<float*>(ring);
@@ -810,6 +848,7 @@ __device__ __forceinline__ float* tile_dot_staged(unsigned char* smem_raw, int s
 #pragma unroll
   for (int i = 0; i < G::ACC; ++i) acc[i] = 0.0f;
   const bool mma = ct == DT_BF16 || ct == DT_F16;   // uniform per block
+  if (init) load_acc<T>(acc, init, mma);            // uniform per launch
   if (ct == DT_BF16) dot_mma<T, DT_BF16>(acc, ring, steps, src);
   else if (ct == DT_F16) dot_mma<T, DT_F16>(acc, ring, steps, src);
   else dot_f32<T>(acc, ring, steps, src);

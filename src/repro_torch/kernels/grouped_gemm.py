@@ -11,6 +11,12 @@ tile's class, which sets its compute dtype and storage.  C comes back
 compact, one tile array per class with slots from ``make_slots``.  One
 kernel launch covers every output class, over a host-built work list of
 (i, j, class, slot).
+
+The accumulate-into form (``acc=``, SUMMA's local update: the reference
+passes the fp32 output spec to ``_grouped_class_call`` there) adds A·B
+to fp32 running sums, one array per class, in place: no storage rounding
+and no per-tile quantization, so a k loop split one panel per call gives
+the bits of one call over every panel.
 """
 from __future__ import annotations
 
@@ -55,27 +61,40 @@ def _check(a: CompactMPMatrix, b: CompactMPMatrix, c_cls) -> np.ndarray:
 
 
 def grouped_gemm_plain(a: CompactMPMatrix, b: CompactMPMatrix,
-                       c_cls: np.ndarray) -> tuple:
-    """Plain version: per output class present, one fp32 dot of the
-    operands rounded to its compute dtype; that class's tiles gathered
-    in slot order, quantized per tile for integer classes, and stored."""
+                       c_cls: np.ndarray, acc: tuple | None = None) -> tuple:
+    """Plain version: per output class present, its tiles in slot order,
+    each summed k tile by k tile in k order (one fp32 t×t×t product of
+    the operands rounded to the class's compute dtype per k tile, added
+    to the tile's running fp32 sum), so a C tile's value depends on
+    neither the grid's shape nor how a k loop is split over calls; then
+    quantized per tile for integer classes and stored.  With ``acc`` the
+    sums start from ``acc`` and are written back into it, fp32, neither
+    rounded nor quantized (the accumulate-into form)."""
     t = a.tile
-    fset = a.fset
-    specs = _tile.format_specs(fset)
-    ad, bd = a.padded_dense(), b.padded_dense()
+    specs = _tile.format_specs(a.fset)
     mt, nt = c_cls.shape
+    kt = a.cls.shape[1]
+    ad = a.padded_dense().reshape(mt, t, kt, t).permute(0, 2, 1, 3)
+    bd = b.padded_dense().reshape(kt, t, nt, t).permute(0, 2, 1, 3)
+    dev = ad.device
     outs = []
     for code, (compute, buf_dtype, qmax) in enumerate(specs):
         idx = np.argwhere(c_cls == code)
         if not len(idx):
-            outs.append(torch.zeros((0, t, t), dtype=buf_dtype,
-                                    device=ad.device))
+            outs.append(acc[code] if acc is not None else torch.zeros(
+                (0, t, t), dtype=buf_dtype, device=dev))
             continue
-        acc = fp32_matmul(_tile._round(ad, compute),
-                          _tile._round(bd, compute))
-        tiles = acc.reshape(mt, t, nt, t).permute(0, 2, 1, 3)[
-            torch.from_numpy(idx[:, 0]).to(ad.device),
-            torch.from_numpy(idx[:, 1]).to(ad.device)]
+        ii = torch.from_numpy(idx[:, 0]).to(dev)
+        jj = torch.from_numpy(idx[:, 1]).to(dev)
+        ar, br = _tile._round(ad, compute), _tile._round(bd, compute)
+        tiles = (acc[code] if acc is not None else
+                 torch.zeros((len(idx), t, t), dtype=torch.float32,
+                             device=dev))
+        for kk in range(kt):
+            tiles = tiles + fp32_matmul(ar[ii, kk], br[kk, jj])
+        if acc is not None:
+            outs.append(acc[code].copy_(tiles))
+            continue
         if qmax:
             tiles = _tile.quantize_tiles(tiles.reshape(-1, t), t,
                                          qmax).reshape(-1, t, t)
@@ -96,7 +115,8 @@ class _Args(ctypes.Structure):
                 ("comp", ctypes.c_int * _MAX_NF),
                 ("qmax", ctypes.c_int * _MAX_NF),
                 ("nf", ctypes.c_int), ("kt", ctypes.c_int),
-                ("nt", ctypes.c_int), ("n_work", ctypes.c_int)]
+                ("nt", ctypes.c_int), ("n_work", ctypes.c_int),
+                ("accumulate", ctypes.c_int)]
 
 
 def work_list(c_cls: np.ndarray, ncodes: int) -> np.ndarray:
@@ -110,10 +130,56 @@ def work_list(c_cls: np.ndarray, ncodes: int) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate(rows), np.int32)
 
 
+def device_tables(a_cls, a_slot, b_cls, b_slot, c_cls: np.ndarray,
+                  ncodes: int, device: torch.device) -> tuple:
+    """The kernel's int32 tables on ``device``: A's and B's class and slot
+    maps and the work list of ``c_cls``, for a caller that launches one
+    layout many times (SUMMA's k-panels) to keep across launches."""
+    return tuple(_build.upload_int32(x, device) for x in
+                 (a_cls, a_slot, b_cls, b_slot, work_list(c_cls, ncodes)))
+
+
+def _check_tables(tables, a: CompactMPMatrix, b: CompactMPMatrix,
+                  c_cls: np.ndarray, device: torch.device) -> tuple:
+    tables = tuple(tables)
+    shapes = (a.cls.shape, a.slot.shape, b.cls.shape, b.slot.shape,
+              (c_cls.size, 4))
+    if len(tables) != len(shapes) or any(
+            x.dtype != torch.int32 or x.device != device
+            or tuple(x.shape) != tuple(s) for x, s in zip(tables, shapes)):
+        raise ValueError(
+            "tables must be device_tables of these operands' maps: int32 "
+            f"arrays of shapes {[tuple(s) for s in shapes]} on {device}")
+    return tables
+
+
+def _check_acc(acc, c_cls: np.ndarray, fset, t: int,
+               device: torch.device) -> tuple:
+    counts = np.bincount(c_cls.reshape(-1), minlength=len(fset))
+    acc = tuple(acc)
+    if len(acc) != len(fset):
+        raise ValueError(f"acc holds {len(acc)} arrays, the format set "
+                         f"{len(fset)} classes")
+    for code, x in enumerate(acc):
+        if (x.dtype != torch.float32 or tuple(x.shape)
+                != (int(counts[code]), t, t) or x.device != device
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"acc[{code}] must be a contiguous float32 "
+                f"[{int(counts[code])}, {t}, {t}] array on {device}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return acc
+
+
 def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
-                    c_cls: np.ndarray) -> CompactMPMatrix:
+                    c_cls: np.ndarray, *, acc=None,
+                    tables=None) -> CompactMPMatrix:
     """C = A·B with compact class-sorted operands and a per-tile output
-    class map ``c_cls`` int8[mt, nt]; returns a CompactMPMatrix.  CPU
+    class map ``c_cls`` int8[mt, nt]; returns a CompactMPMatrix.  With
+    ``acc`` (per class an fp32 ``[n_code, t, t]`` array in slot order)
+    it adds A·B into ``acc`` in place and returns it as C (the
+    accumulate-into form).  ``tables`` (:func:`device_tables` of these
+    maps) spares the kernel's per-call table build and upload.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (or
     raise)."""
     global launches
@@ -122,8 +188,10 @@ def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
     mt, nt = c_cls.shape
     kt = a.cls.shape[1]
     dev0 = a.tiles[0].device
+    if acc is not None:
+        acc = _check_acc(acc, c_cls, fset, t, dev0)
     if dev0.type == "cpu":
-        outs = grouped_gemm_plain(a, b, c_cls)
+        outs = grouped_gemm_plain(a, b, c_cls, acc)
     else:
         if not a.tiles[0].is_cuda:
             raise ValueError(f"unsupported device {dev0}")
@@ -144,12 +212,15 @@ def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
                 raise TypeError(f"spec ({compute}, {buf_dtype}) unsupported")
         _tile.check_aligned((*a.tiles, *b.tiles), t)
         plan = _tile.launch_plan(t, specs)
-        work = work_list(c_cls, len(fset))
-        counts = np.bincount(work[:, 2], minlength=len(fset))
-        outs = tuple(torch.empty((int(cnt), t, t), dtype=s[1], device=dev0)
-                     for cnt, s in zip(counts, specs))
-        tabs = [_build.upload_int32(x, dev0)
-                for x in (a.cls, a.slot, b.cls, b.slot, work)]
+        if tables is None:
+            tabs = device_tables(a.cls, a.slot, b.cls, b.slot, c_cls,
+                                 len(fset), dev0)
+        else:
+            tabs = _check_tables(tables, a, b, c_cls, dev0)
+        counts = np.bincount(c_cls.reshape(-1), minlength=len(fset))
+        outs = acc if acc is not None else tuple(
+            torch.empty((int(cnt), t, t), dtype=s[1], device=dev0)
+            for cnt, s in zip(counts, specs))
         args = _Args()
         codes = _build.DTYPE_CODES
         for f, (compute, buf_dtype, qmax) in enumerate(specs):
@@ -157,12 +228,14 @@ def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
             args.o[f] = outs[f].data_ptr()
             args.adt[f] = codes[a.tiles[f].dtype]
             args.bdt[f] = codes[b.tiles[f].dtype]
-            args.odt[f], args.comp[f] = codes[buf_dtype], codes[compute]
-            args.qmax[f] = int(qmax or 0)
+            args.odt[f] = codes[outs[f].dtype]
+            args.comp[f] = codes[compute]
+            args.qmax[f] = 0 if acc is not None else int(qmax or 0)
         (args.pa, args.a_slot, args.pb, args.b_slot,
          args.work) = (x.data_ptr() for x in tabs)
         args.nf, args.kt, args.nt = len(specs), kt, nt
-        args.n_work = len(work)
+        args.n_work = c_cls.size
+        args.accumulate = int(acc is not None)
         dev, stream = _build.cuda_args(a.tiles[0])
         lib = _build.load("grouped_gemm", [ctypes.POINTER(_Args),
                                            ctypes.c_int, ctypes.c_int,

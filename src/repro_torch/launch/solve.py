@@ -3,12 +3,19 @@
 
     python -m repro_torch.launch.solve --n 8192 --tile 128 --ratio 0D:100S
     python -m repro_torch.launch.solve --n 256 --device cpu
+    python -m repro_torch.launch.solve --summa 2x2 --device cpu
 
 Solves an ill-conditioned synthetic system (``repro_torch.solve.matrices``)
 with residual-driven tile-precision escalation on one card (``--device
 cuda``, the default) or with the kernels' plain versions on the CPU, and
 prints the HPL-MxP metric trajectory, the precision-map adaptation, the
 storage saving against uniform-HIGH and the mid-solve resolution audit.
+``--summa PxQ`` runs the residual GEMM as SUMMA on a P×Q grid of spawned
+ranks (``--local-path ref|grouped``; escalation defaults to ``balanced``).
+``--backend`` defaults to ``nccl`` when P·Q cards are visible (a card per
+rank) and to ``gloo`` otherwise (every rank on ``cuda:0``, or the CPU);
+the choice is printed before any work.  The reference's ``--devices``
+has no counterpart: the grid is ``--summa``.
 Exit status is nonzero unless the solve converged with zero fresh
 mid-solve plan resolutions and (tile escalation, store mode) a map
 cheaper than uniform-HIGH.
@@ -52,8 +59,9 @@ def _parse(argv=None):
     ap.add_argument("--method", default="lu", choices=["lu", "cg"])
     ap.add_argument("--tol", type=float, default=1.0)
     ap.add_argument("--max-sweeps", type=int, default=60)
-    ap.add_argument("--escalation", default="tile",
-                    choices=["tile", "balanced"])
+    ap.add_argument("--escalation", default="",
+                    choices=["", "tile", "balanced"],
+                    help="default: balanced with --summa, else tile")
     ap.add_argument("--compute-escalation", default="store",
                     choices=["store", "split", "auto"],
                     help="stalled tiles escalate storage (store), switch "
@@ -62,6 +70,14 @@ def _parse(argv=None):
     ap.add_argument("--split-format", default="split2_fp16",
                     help="split compound format the compute-higher mode "
                          "substitutes for HIGH")
+    ap.add_argument("--summa", default="",
+                    help="P x Q residual-GEMM grid of ranks, e.g. 2x2")
+    ap.add_argument("--local-path", default="ref",
+                    choices=["ref", "grouped"])
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the --summa grid "
+                         "(default: nccl when P*Q cards are visible, else "
+                         "gloo)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the GEMMs (cuda or cpu)")
     ap.add_argument("--seed", type=int, default=0)
@@ -77,12 +93,21 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet
+    from repro_torch.launch.grid import placement
     from repro_torch.solve import (SolveConfig, diag_dominant, graded_spd,
                                    rhs_for_solution, solve)
 
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    grid = (tuple(int(v) for v in args.summa.lower().split("x"))
+            if args.summa else None)
+    device, backend = args.device, args.backend
+    if grid:
+        device, backend = placement(*grid, args.device, args.backend)
+        print(f"summa grid {grid[0]}x{grid[1]}: ranks on {device} over "
+              f"{backend}")
+    escalation = args.escalation or ("balanced" if grid else "tile")
     hi, lo8 = _parse_ratio(args.ratio)
     fset = (FormatSet.parse(args.formats) if args.formats
             else DEFAULT_FORMATS)
@@ -95,13 +120,15 @@ def main(argv=None) -> int:
     cfg = SolveConfig(
         tile=args.tile, fset=fset, ratio_high=hi, ratio_low8=lo8,
         seed=args.seed, tol=args.tol, max_sweeps=args.max_sweeps,
-        method=args.method, escalation=args.escalation,
+        method=args.method, escalation=escalation, summa_grid=grid,
+        local_path=args.local_path,
         compute_escalation=args.compute_escalation,
         split_format=args.split_format)
     print(f"solve {args.matrix} n={args.n} nrhs={args.nrhs} "
           f"tile={args.tile} [{fset.key()}] start {args.ratio} "
-          f"method={args.method} device={args.device}")
-    rep = solve(a, b, cfg, device=args.device)
+          f"method={args.method} device={args.device}"
+          + (f" summa={grid[0]}x{grid[1]}" if grid else ""))
+    rep = solve(a, b, cfg, device=device, backend=backend)
 
     if args.compute_escalation != "store":
         print(f"compute escalation: {rep.compute_mode} "
@@ -125,7 +152,10 @@ def main(argv=None) -> int:
           f"{rep.factor_seconds:.2f}s, of which trailing-update copies "
           f"{rep.trail_copy_seconds:.2f}s; {rep.plan_keys} plans "
           f"prefetched; mid-solve fresh resolutions "
-          f"{rep.fresh_resolutions}")
+          f"{rep.fresh_resolutions}"
+          + (f"; SUMMA table rebuilds {rep.summa_recompiles}, broadcasts "
+             f"{rep.broadcast_seconds:.3f}s ({rep.broadcast_bytes} B, "
+             "rank 0)" if grid else ""))
     if args.stats:
         import json
         print("per-sweep wall-time (s):",
@@ -136,7 +166,8 @@ def main(argv=None) -> int:
     # balanced escalation may saturate at uniform-HIGH, and a split solve
     # saves compute passes, not bytes
     ok = (rep.converged and rep.fresh_resolutions == 0
-          and (args.escalation == "balanced" or rep.compute_mode == "split"
+          and rep.summa_recompiles == 0
+          and (escalation == "balanced" or rep.compute_mode == "split"
                or rep.storage_bytes < rep.uniform_high_bytes))
     if not ok:
         print("FAILED: not converged, mid-solve retune, or no storage "

@@ -8,9 +8,13 @@ cuda``, the default); the second its reduced twin with the kernels'
 plain versions on the CPU.  ``--inject-fault S`` raises a
 ``RestartSignal`` at step S, so the run restores its newest checkpoint
 and replays from there; ``--resume`` starts from the newest checkpoint
-in ``--ckpt-dir``.  The reference's multi-device options (``--devices``,
-``--mesh``, ``--summa``) exit non-zero: they wait for
-``torch.distributed`` (``ROADMAP.md`` queue 1, item 6).
+in ``--ckpt-dir``.  ``--summa PxQ`` (default: the arch's
+``summa_grid``) runs the SUMMA self-check at the config's
+tile/policy/format set on a P×Q grid of spawned ranks before training
+(``core.summa.config_selfcheck``: nccl when P·Q cards are visible, else
+gloo) and prints its report.  The reference's data-parallel options
+(``--devices``, ``--mesh``) exit non-zero: they wait for data-parallel
+training across ranks (``ROADMAP.md`` queue 1, item 6b).
 """
 import argparse
 import os
@@ -18,11 +22,10 @@ import tempfile
 
 #: reference options not served yet -> the ROADMAP.md queue-1 item
 UNPORTED = {
-    "devices": "--devices needs torch.distributed (ROADMAP.md queue 1, "
-               "item 6)",
-    "mesh": "--mesh needs torch.distributed (ROADMAP.md queue 1, item 6)",
-    "summa": "--summa needs core/summa.py over torch.distributed "
-             "(ROADMAP.md queue 1, item 6)",
+    "devices": "--devices needs data-parallel training across ranks "
+               "(ROADMAP.md queue 1, item 6b)",
+    "mesh": "--mesh needs data-parallel training across ranks "
+            "(ROADMAP.md queue 1, item 6b)",
 }
 
 
@@ -48,7 +51,9 @@ def _parse(argv=None):
                     help="torch device (cuda or cpu)")
     ap.add_argument("--devices", type=int, default=0, help="not ported")
     ap.add_argument("--mesh", default="", help="not ported")
-    ap.add_argument("--summa", default="", help="not ported")
+    ap.add_argument("--summa", default="",
+                    help="P x Q grid of the SUMMA self-check, e.g. 2x2 "
+                         "(default: the arch's summa_grid)")
     return ap.parse_args(argv)
 
 
@@ -83,6 +88,17 @@ def main(argv=None) -> int:
     if args.formats:
         cfg = dataclasses.replace(
             cfg, mp_formats=FormatSet.parse(args.formats).key())
+    grid = (tuple(int(v) for v in args.summa.lower().split("x"))
+            if args.summa else cfg.summa_grid)
+    if grid:
+        # validate the distributed SUMMA path at this config's
+        # tile/policy/format set before training starts
+        from repro_torch.core.summa import config_selfcheck
+        rep = config_selfcheck(cfg, grid, device=args.device)
+        print(f"SUMMA self-check {rep['grid']} [{rep['formats']}]: "
+              f"local path {rep['local_path']} ({rep['plan_source']}), "
+              f"rel err {rep['rel_err']:.2e}, "
+              f"wire {rep['wire_bytes_per_elem']:.2f} B/elem")
     ocfg = adamw.AdamWConfig(lr_peak=args.lr, warmup_steps=min(
         20, args.steps // 5), total_steps=args.steps)
 

@@ -5,8 +5,8 @@ Microbatch accumulation keeps the gradient accumulator in bf16 with an
 fp32 error-feedback residual, halving the accumulator's memory while the
 accumulated sum stays unbiased.  The reference's second use, the
 cross-pod hierarchical all-reduce (``cross_pod_mean``: bf16 with error
-feedback before the pod-axis sum), needs ``torch.distributed`` and is
-not ported here (``ROADMAP.md`` queue 1, item 6).
+feedback before the pod-axis sum), needs data-parallel training across
+ranks and is not ported here (``ROADMAP.md`` queue 1, item 6b).
 """
 from __future__ import annotations
 

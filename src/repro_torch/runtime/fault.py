@@ -5,7 +5,7 @@ The trainer emits per-step heartbeats; the watchdog declares a straggler
 when a step exceeds ``factor ×`` the running median and a failure when
 the heartbeat goes silent for ``dead_after`` seconds.  Recovery is
 checkpoint-restore; restoring onto a smaller mesh waits for
-``torch.distributed`` (``ROADMAP.md`` queue 1, item 6).
+data-parallel training across ranks (``ROADMAP.md`` queue 1, item 6b).
 """
 from __future__ import annotations
 

@@ -5,9 +5,8 @@
     eng = Engine(cfg, params, ServeConfig(max_batch=4))
 
 The defaults are the reference's: slot refill, the paged prefix cache
-and chunked long-prompt prefill are on.  The reference's SUMMA and
-cluster fields (``summa_grid``, ``replicas``, ``affinity``,
-``stall_timeout_s``) are not ported yet.
+and chunked long-prompt prefill are on.  The reference's cluster fields
+(``replicas``, ``affinity``, ``stall_timeout_s``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -51,6 +50,8 @@ class ServeConfig:
       exact-length buckets).
     * ``warmup`` — resolve plans and build the kernels at startup
       (honoured by the launcher; ``Engine.warmup()`` stays explicit).
+    * ``summa_grid`` — run the SUMMA self-check for this P×Q grid at
+      engine construction (None → ``ArchConfig.summa_grid``).
     """
     buckets: Optional[tuple] = None
     waste_cap: float = 0.75
@@ -59,6 +60,7 @@ class ServeConfig:
     max_dynamic: int = 8
     max_seq: int = 256
     rng_seed: int = 0
+    summa_grid: Optional[tuple] = None
     refill: bool = True
     prefix_cache: bool = True
     prefix_pages: int = 128

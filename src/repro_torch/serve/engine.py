@@ -178,6 +178,15 @@ class Engine:
         for tree in self.variants.values():
             self.gemm_plans.update(dispatch.tune_linear_params(
                 tree, m_hint=self.max_batch))
+        # the distributed SUMMA path (from ArchConfig or ServeConfig):
+        # checked against the single-device reference at this config's
+        # tile/policy/format set, on ranks of the engine's device type
+        self.summa_report = None
+        grid = config.summa_grid or cfg.summa_grid
+        if grid:
+            from repro_torch.core.summa import config_selfcheck
+            self.summa_report = config_selfcheck(
+                cfg, grid, device=self.device.type)
         self.refill_enabled = config.refill
         if config.prefix_cache:
             self.pool = PagePool(config.page_tokens, config.prefix_pages)

@@ -26,12 +26,24 @@ Escalation: ``"tile"`` promotes exactly the over-budget tiles;
 a split compound format (every GEMM then runs the split kernel), ``"auto"``
 takes whichever the cost model prices cheaper at the top rung.
 
-Not ported here: the SUMMA residual GEMM (``summa_grid``; ``ROADMAP.md``,
-queue 1, SUMMA over ``torch.distributed``) and the reference's ``obs``
-spans and events (they come with the port's ``obs`` tracing).  The port
-adds the device: ``solve(..., device=None)`` runs on ``cuda`` unless the
-caller passes ``device="cpu"``, and reports the seconds the trailing
-updates spend copying panels to the device and products back.
+With ``summa_grid=(P, Q)`` the residual GEMM runs as SUMMA
+(``core.summa``) on a P×Q grid of ranks, under the prefetched
+``summa{P}x{Q}`` plan keys, with ``local_path`` as its local update.
+Every rank runs the same solver (SPMD): the host work (numpy
+factorization, promotion decisions) is deterministic and replicated, only
+the residual GEMM is distributed, and rank 0's report is returned.
+``solve`` called outside a grid spawns the ranks itself
+(``launch.grid.run_on_grid``).  A P×Q solve equals the 1×1-grid solve bit
+for bit, and with ``local_path="grouped"`` it equals the single-device
+grouped solve (``residual_path="grouped"``, ``balance_groups=P`` and the
+same ``nrhs_pad``): the grouped kernel's accumulate-into form sums every
+C tile in the single launch's order.
+
+Not ported here: the reference's ``obs`` spans and events (they come
+with the port's ``obs`` tracing).  The port adds the device:
+``solve(..., device=None)`` runs on ``cuda`` unless the caller passes
+``device="cpu"``, and reports the seconds the trailing updates spend
+copying panels to the device and products back.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ import torch
 from repro_torch.core import accuracy as ACC
 from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet
 from repro_torch.core.layout import MPMatrix
+from repro_torch.core import summa as SU
 from repro_torch.core.precision import (Policy, make_map, map_ratio_string,
                                         map_storage_bytes, role_class_vector)
 from repro_torch.solve import lu as LU
@@ -63,7 +76,9 @@ PROMOTION_COORD_CAP = 128
 @dataclasses.dataclass(frozen=True)
 class SolveConfig:
     """Knobs of one adaptive-precision solve (see the reference for the
-    meaning of each; ``summa_grid`` must stay ``None`` here)."""
+    meaning of each).  ``warm`` builds SUMMA's static tables for every
+    rung of the ladder before the solve (the reference pre-traces them),
+    so promotion builds none mid-solve."""
 
     tile: int = 16
     fset: FormatSet = DEFAULT_FORMATS
@@ -84,7 +99,9 @@ class SolveConfig:
     balance_groups: int | None = None
     nrhs_pad: int | None = None
     summa_grid: tuple[int, int] | None = None
+    local_path: str = "ref"        # SUMMA local-update path (ref | grouped)
     residual_path: str | None = None   # force the residual GEMM's path
+    warm: bool = True              # build the SUMMA tables of every rung
 
 
 @dataclasses.dataclass
@@ -117,6 +134,14 @@ class SolveReport:
     factor_seconds: float = 0.0
     #: of which the trailing updates' panel uploads and product downloads
     trail_copy_seconds: float = 0.0
+    #: builds of SUMMA's static tables (slot tables, per-shard C maps,
+    #: owner steps) during the solve, after the warm pass: the counterpart
+    #: of the reference's jit cache misses, 0 when the ladder was warmed
+    summa_recompiles: int = 0
+    #: host seconds this rank spent in SUMMA's panel broadcasts, and their
+    #: bytes (0 without a grid)
+    broadcast_seconds: float = 0.0
+    broadcast_bytes: int = 0
 
 
 def _balanced_map(mt: int, nt: int, n_hi: int, n_lo8: int, groups: int,
@@ -130,7 +155,42 @@ def _balanced_map(mt: int, nt: int, n_hi: int, n_lo8: int, groups: int,
 
 
 def _groups(cfg: SolveConfig) -> int:
-    return cfg.balance_groups if cfg.balance_groups is not None else 1
+    if cfg.balance_groups is not None:
+        return cfg.balance_groups
+    return cfg.summa_grid[0] if cfg.summa_grid else 1
+
+
+def _rhs_width(cfg: SolveConfig, nrhs_logical: int) -> int:
+    """The padded RHS width: a multiple of the tile (and of SUMMA's
+    column quantum tile·Q), or ``nrhs_pad``."""
+    quantum = cfg.tile * (cfg.summa_grid[1] if cfg.summa_grid else 1)
+    nrhs = -(-nrhs_logical // quantum) * quantum
+    if cfg.nrhs_pad is not None:
+        if cfg.nrhs_pad < nrhs or cfg.nrhs_pad % quantum:
+            raise ValueError(
+                f"nrhs_pad={cfg.nrhs_pad} must be a multiple of {quantum} "
+                f"covering the {nrhs_logical} RHS columns")
+        nrhs = cfg.nrhs_pad
+    return nrhs
+
+
+def _check_grid(cfg: SolveConfig, n: int, nrhs: int) -> None:
+    """The reference's checks of a distributed solve's configuration."""
+    P, Q = cfg.summa_grid
+    t = cfg.tile
+    if cfg.escalation != "balanced":
+        raise ValueError(
+            "summa_grid needs escalation='balanced' (SUMMA requires "
+            "sorted-balanced maps; per-tile promotion breaks them)")
+    if cfg.compute_escalation != "store":
+        raise ValueError(
+            "compute_escalation needs a single-device solve (the SUMMA "
+            "local paths do not run split compound formats)")
+    if n % (P * t) or nrhs % (Q * t) or (n // t) % P or (n // t) % Q:
+        raise ValueError(
+            f"N={n}, nrhs={nrhs} incompatible with the {P}x{Q} grid "
+            f"at tile {t} (need N % (P·t) == nrhs % (Q·t) == 0 and "
+            f"K-panels divisible by both grid extents)")
 
 
 def _ladder(cfg: SolveConfig, mt: int, nt: int,
@@ -209,11 +269,8 @@ def _sync(device: torch.device) -> None:
 class _Solver:
     """State shared by the LU and CG drivers."""
 
-    def __init__(self, a, b, cfg: SolveConfig, device: torch.device):
-        if cfg.summa_grid is not None:
-            raise NotImplementedError(
-                "summa_grid: the SUMMA residual GEMM is not ported yet "
-                "(ROADMAP.md, queue 1: SUMMA over torch.distributed)")
+    def __init__(self, a, b, cfg: SolveConfig, device: torch.device,
+                 grid=None):
         t = cfg.tile
         self.device = device
         self.dev_spec = detect_device(device)
@@ -224,13 +281,7 @@ class _Solver:
                              f"got {self.a64.shape} tile {t}")
         b2 = np.asarray(b, np.float64).reshape(n, -1)
         self.nrhs_logical = b2.shape[1]
-        nrhs = -(-self.nrhs_logical // t) * t
-        if cfg.nrhs_pad is not None:
-            if cfg.nrhs_pad < nrhs or cfg.nrhs_pad % t:
-                raise ValueError(
-                    f"nrhs_pad={cfg.nrhs_pad} must be a multiple of {t} "
-                    f"covering the {self.nrhs_logical} RHS columns")
-            nrhs = cfg.nrhs_pad
+        nrhs = _rhs_width(cfg, self.nrhs_logical)
         self.b64 = np.zeros((n, nrhs))
         self.b64[:, : self.nrhs_logical] = b2
         self.n, self.nrhs = n, nrhs
@@ -238,9 +289,17 @@ class _Solver:
 
         # compute-higher escalation decides the format set before any
         # layout, ladder or plan exists
+        if cfg.summa_grid is not None:
+            _check_grid(cfg, n, nrhs)
         cfg, self.compute_mode, self.store_cost_s, self.split_cost_s = (
             _decide_compute(cfg, self.mt, self.rt, self.dev_spec))
         self.cfg = cfg
+        if cfg.summa_grid is not None:
+            if grid is None or grid.shape != tuple(cfg.summa_grid):
+                raise ValueError(
+                    f"summa_grid={cfg.summa_grid} runs on a grid of that "
+                    f"shape, got {grid and grid.shape}")
+        self.grid = grid if cfg.summa_grid is not None else None
 
         self.a32 = torch.from_numpy(self.a64.astype(np.float32)).to(device)
         self.ladder = _ladder(cfg, self.mt, self.mt, weights=self.a64)
@@ -258,8 +317,17 @@ class _Solver:
         self.ratio_history: list[str] = []
         self.sweep_seconds: list[float] = []
         self.promotions: list[dict] = []
-        self.book = TD.resolve_solve_plans(self.ladder, t, cfg.fset,
-                                           nrhs=nrhs, dev=self.dev_spec)
+        self.book = TD.resolve_solve_plans(
+            self.ladder, t, cfg.fset, nrhs=nrhs, summa_grid=cfg.summa_grid,
+            local_path=cfg.local_path, dev=self.dev_spec)
+        if self.grid is not None and cfg.warm:
+            # every rung's tables now, so promotion builds none mid-solve
+            for pa in self.ladder:
+                SU.prepare(pa, self.x_map, self.x_map, tile=t, fset=cfg.fset,
+                           grid=self.grid, local_path=cfg.local_path)
+        if self.grid is not None:
+            self.grid.reset_counters()
+        self.recompiles0 = SU.table_builds()
         # a snapshot, not a reset: the report counts this solve's delta
         self._fresh0 = TD.fresh_resolutions()
 
@@ -274,6 +342,12 @@ class _Solver:
         cfg = self.cfg
         x_mp = MPMatrix.from_dense(self._to_device(x32), self.x_map,
                                    cfg.tile, cfg.fset)
+        if self.grid is not None:
+            out = SU.summa_mp_gemm(self.A, x_mp, self.zero_c,
+                                   grid=self.grid)
+            res = out.to_dense().cpu().numpy()
+            self.gemm_seconds += time.perf_counter() - t0
+            return res
         if cfg.residual_path is not None:
             plan = GemmPlan(path=cfg.residual_path, bm=cfg.tile,
                             bn=cfg.tile, bk=cfg.tile)
@@ -412,7 +486,12 @@ class _Solver:
             store_cost_s=float(self.store_cost_s),
             split_cost_s=float(self.split_cost_s),
             factor_seconds=self.factor_seconds,
-            trail_copy_seconds=self.trail_copy_seconds)
+            trail_copy_seconds=self.trail_copy_seconds,
+            summa_recompiles=SU.table_builds() - self.recompiles0,
+            broadcast_seconds=(self.grid.broadcast_seconds
+                               if self.grid is not None else 0.0),
+            broadcast_bytes=(self.grid.bytes_sent
+                             if self.grid is not None else 0))
 
 
 def _robust_factor(sv: _Solver):
@@ -509,18 +588,47 @@ def _solve_cg(sv: _Solver, t0: float) -> SolveReport:
     return sv.report(x, False, iters, history, t0)
 
 
+def _solve_on_grid(grid, a: torch.Tensor, b: torch.Tensor,
+                   cfg: SolveConfig) -> SolveReport:
+    """One rank of a distributed solve (``run_on_grid``'s function)."""
+    return solve(a.numpy(), b.numpy(), cfg, device=grid.device, grid=grid)
+
+
 def solve(a, b, cfg: SolveConfig = SolveConfig(),
-          device: torch.device | str | None = None) -> SolveReport:
+          device: torch.device | str | None = None, *, grid=None,
+          backend: str | None = None) -> SolveReport:
     """Solve ``A·x = b`` with residual-driven adaptive tile precision.
 
     ``a`` is the exact operator (numpy, any float dtype), ``b`` one or
     more right-hand sides.  The GEMMs run on ``device`` (default
     ``cuda``; pass ``"cpu"`` for the plain versions); the report carries
     the solution, the escalated map and its storage bytes, the HPL-MxP
-    metric trajectory and the zero-mid-solve-resolution audit."""
+    metric trajectory and the zero-mid-solve-resolution audit.
+
+    With ``cfg.summa_grid`` the solve runs on ``grid`` (a
+    :class:`~repro_torch.launch.grid.Grid` of that shape, every rank
+    calling ``solve``); without one it checks the configuration, spawns
+    the P·Q ranks on ``device`` over ``backend``
+    (``launch.grid.placement``: ``None`` takes nccl when every rank can
+    have a card, else gloo) and returns rank 0's report."""
+    if cfg.summa_grid is not None and grid is None:
+        from repro_torch.launch.grid import placement, run_on_grid
+        a64 = np.asarray(a, np.float64)
+        if a64.ndim != 2 or a64.shape[0] != a64.shape[1]:
+            raise ValueError(f"operator must be square, got {a64.shape}")
+        n = a64.shape[0]
+        b64 = np.asarray(b, np.float64).reshape(n, -1)
+        _check_grid(cfg, n, _rhs_width(cfg, b64.shape[1]))
+        P, Q = cfg.summa_grid
+        rank_device, backend = placement(
+            P, Q, "cuda" if device is None else str(device), backend)
+        # torch tensors travel to the ranks through shared memory
+        return run_on_grid(P, Q, _solve_on_grid, torch.from_numpy(a64),
+                           torch.from_numpy(b64), cfg, device=rank_device,
+                           backend=backend)
     t0 = time.perf_counter()
     sv = _Solver(a, b, cfg, torch.device("cuda" if device is None
-                                         else device))
+                                         else device), grid)
     sv.ratio_history.append(map_ratio_string(sv.pa, sv.cfg.fset))
     if cfg.method == "cg":
         return _solve_cg(sv, t0)

@@ -67,6 +67,11 @@ class GemmProblem:
     n: int
     k: int
     tile: int
+    #: operation tag.  ``mp_gemm``/``linear``/``solve`` are single-device;
+    #: distributed SUMMA problems use ``summa{P}x{Q}`` (the grid's shape
+    #: is part of the plan-cache identity; ``m``/``n`` are then per-shard
+    #: extents, and a ``!ub`` suffix marks a C map that is not
+    #: shard-balanced)
     op: str = "mp_gemm"
     a_high: float = 0.0
     a_low8: float = 0.0
@@ -173,16 +178,27 @@ def validate_plan(plan: GemmPlan, prob: GemmProblem,
     """Reasons this plan cannot run here (empty list = valid)."""
     if plan.path not in PATHS:
         return [f"unknown path {plan.path!r}"]
+    is_summa = prob.op.startswith("summa")
+    if is_summa and plan.path not in ("ref", "grouped"):
+        return [f"SUMMA local update supports ref/grouped, not "
+                f"{plan.path!r}"]
     if plan.path == "ref":
         return []
     bad: list[str] = []
     t = prob.tile
     if (plan.bm, plan.bn, plan.bk) != (t, t, t):
         bad.append(f"port plans carry bm=bn=bk=tile={t}")
-    if plan.path in KERNEL_PATHS and not dev.kernels:
+    # on the CPU SUMMA's grouped local update runs the kernel's plain
+    # version (any tile), as the reference runs its Pallas kernel in
+    # interpret mode off the TPU; a card without the kernels cannot run
+    # it.  Single-device dispatch on the CPU keeps to ref: the cost model
+    # would otherwise route every C = A·B there through the plain version
+    plain = is_summa and plan.path == "grouped" and dev.kind == "cpu"
+    if plan.path in KERNEL_PATHS and not dev.kernels and not plain:
         bad.append(f"{plan.path} needs the CUDA kernels (sm_90a), not "
                    f"{dev.kind}")
-    if plan.path in ("tile", "split", "grouped") and t not in TILE_SIZES:
+    if (plan.path in ("tile", "split", "grouped") and t not in TILE_SIZES
+            and not plain):
         bad.append(f"{plan.path} kernel is built for tiles {TILE_SIZES}, "
                    f"not {t}")
     if plan.path in ("tile", "grouped") and split_c_classes(prob):
@@ -191,7 +207,14 @@ def validate_plan(plan: GemmPlan, prob: GemmProblem,
     if plan.path == "split" and not split_c_classes(prob):
         bad.append("split path needs at least one split-compound C class "
                    "(use the tile path otherwise)")
-    if plan.path == "grouped" and not (prob.alpha_one and prob.beta_zero):
+    if plan.path == "grouped" and is_summa:
+        # SUMMA applies alpha/beta after its panel loop; the kernel's work
+        # items must be the same in number on every shard
+        if prob.op.endswith("!ub"):
+            bad.append("grouped SUMMA local update needs a "
+                       "shard-balanced C map")
+    elif plan.path == "grouped" and not (prob.alpha_one
+                                         and prob.beta_zero):
         bad.append("grouped path computes C=A·B (alpha=1, beta=0)")
     if plan.path in ("ksplit_torch", "ksplit_cuda"):
         if any(isinstance(f, SplitFormat) for f in prob.fset.formats()):

@@ -14,7 +14,9 @@ prefetches every plan it can need (``resolve_solve_plans``).
 Counters (in :func:`repro_torch.obs.metrics_registry`):
 
 * ``tune.plan_resolutions{source=registry|cache|model}`` — a ``model``
-  resolution is fresh work; serving must do none after warmup;
+  resolution is fresh work; serving must do none after warmup (SUMMA
+  resolutions count under ``summa_registry|summa_cache|summa_default``,
+  a ``summa_default`` one being fresh too);
 * ``dispatch.calls{path, op, formats}`` — one per dispatched GEMM.
 """
 from __future__ import annotations
@@ -56,10 +58,11 @@ def resolution_counters() -> dict[str, int]:
 
 
 def fresh_resolutions(counters: dict[str, int] | None = None) -> int:
-    """Resolutions that did fresh (cost-model) work, not a registry or
-    cache hit."""
+    """Resolutions that did fresh work (cost-model ranking, or SUMMA's
+    un-prefetched default), not a registry or cache hit."""
     c = resolution_counters() if counters is None else counters
-    return int(c.get("model", 0))
+    return int(sum(v for k, v in c.items()
+                   if k.split("summa_")[-1] in ("model", "default")))
 
 
 def dispatch_counts(op: str | None = None) -> dict[str, int]:
@@ -378,6 +381,76 @@ def resolve_plans_for_buckets(params_by_tag: dict, buckets
 
 
 # ---------------------------------------------------------------------------
+# Distributed SUMMA integration (op = "summa{P}x{Q}")
+# ---------------------------------------------------------------------------
+
+#: local-update paths of the distributed SUMMA rank-update
+SUMMA_PATHS = ("ref", "grouped")
+
+
+def summa_problem_from_maps(pa, pb, pc, tile: int, P: int, Q: int,
+                            fset=None, *, alpha: float = 1.0,
+                            beta: float = 0.0,
+                            pad_free: bool = True) -> GemmProblem:
+    """Distributed plan-key problem from raw class maps.
+
+    The key carries the grid's shape (in the op tag), the *per-shard* M/N
+    extents (tile counts × tile), the full K, and the format-set tag, so a
+    plan tuned for one grid/shape/format combination is never served to
+    another.  A ``!ub`` op suffix marks C maps that are not shard-balanced
+    (the grouped local path is invalid for those)."""
+    from repro_torch.core import schedule
+    from repro_torch.core.formats import DEFAULT_FORMATS
+    fset = fset or DEFAULT_FORMATS
+    prob = GemmProblem.from_maps(pa, pb, pc, tile, alpha=alpha, beta=beta,
+                                 pad_free=pad_free, fset=fset)
+    balanced = schedule.is_shard_balanced(pc, P, Q, fset)
+    op = f"summa{P}x{Q}" + ("" if balanced else "!ub")
+    return dataclasses.replace(prob, op=op, m=prob.m // P, n=prob.n // Q)
+
+
+def summa_problem(a: MPMatrix, b: MPMatrix, c: MPMatrix, grid, *,
+                  alpha: float = 1.0, beta: float = 0.0) -> GemmProblem:
+    """Distributed plan-key problem for a SUMMA GEMM on ``grid`` (a
+    :class:`~repro_torch.launch.grid.Grid` or a ``(P, Q)`` pair; see
+    :func:`summa_problem_from_maps` for the key anatomy)."""
+    P, Q = getattr(grid, "shape", grid)
+    base = problem_of(a, b, c, alpha=alpha, beta=beta)
+    return summa_problem_from_maps(
+        a.cls, b.cls, c.cls, a.tile, int(P), int(Q), a.fset,
+        alpha=alpha, beta=beta, pad_free=base.pad_free)
+
+
+def resolve_summa_plan(prob: GemmProblem, dev: DeviceSpec | None = None
+                       ) -> tuple[GemmPlan, str]:
+    """registry > persisted cache > reference path.
+
+    Unlike single-device resolution there is no cost-model fallback: the
+    grouped local update runs only when a plan exists for this (grid,
+    per-shard shape, format set) key; otherwise the reference
+    one-dot-per-C-class update is used."""
+    dev = dev or detect_device()
+    hit = _lookup_plan(prob, dev)
+    if hit is not None:
+        _count_resolution("summa_" + hit[1])
+        return hit
+    t = prob.tile
+    _count_resolution("summa_default")
+    return GemmPlan(path="ref", bm=t, bn=t, bk=t), "default"
+
+
+def summa_mp_matmul(a: MPMatrix, b: MPMatrix, c: MPMatrix | None = None, *,
+                    grid, alpha: float = 1.0, beta: float = 0.0,
+                    plan: GemmPlan | None = None) -> MPMatrix:
+    """Distributed twin of :func:`mp_matmul`: C ← α·A·B + β·C over
+    ``grid`` with the local rank-update routed through the plan
+    registry/cache."""
+    from repro_torch.core.summa import summa_mp_gemm
+    return summa_mp_gemm(a, b, c, grid=grid, alpha=alpha, beta=beta,
+                         plan=plan)
+
+
+# ---------------------------------------------------------------------------
 # Refinement-solver integration (op = "solve")
 # ---------------------------------------------------------------------------
 
@@ -400,15 +473,20 @@ def solve_gemm_problem(pa: np.ndarray, tile: int, nrhs_t: int,
 
 
 def resolve_solve_plans(a_maps, tile: int, fset, *, nrhs: int,
+                        summa_grid: tuple[int, int] | None = None,
+                        local_path: str = "ref",
                         paths: Iterable[str] = SOLVE_PATHS,
                         dev: DeviceSpec | None = None) -> dict:
     """Escalation-ladder plan prefetch for the refinement solver: for
     every rung of ``a_maps`` (rung 0 = the starting map) a plan for the
     residual GEMM ``A·X`` and for each blocked-LU trailing update, all
     loaded into the registry under ``op="solve"`` keys (cost model only,
-    never measuring).  Returns ``{("residual", rung): plan, ("trail",
-    step, rung): plan, "keys": [...]}``; the solver passes these plans
-    explicitly, so a solve issues no fresh resolution after this call."""
+    never measuring); with ``summa_grid`` the distributed residual GEMM
+    is registered under its ``summa{P}x{Q}`` key with ``local_path``, so
+    promotion never falls back to an un-prefetched plan.  Returns
+    ``{("residual", rung): plan, ("trail", step, rung): plan, ("summa",
+    rung): plan, "keys": [...]}``; a solve issues no fresh resolution
+    after this call."""
     dev = dev or detect_device()
     if nrhs % tile:
         raise ValueError(f"nrhs={nrhs} must be a multiple of tile={tile}")
@@ -433,5 +511,20 @@ def resolve_solve_plans(a_maps, tile: int, fset, *, nrhs: int,
                 op="solve")
             book[("trail", k, rung)] = resolve_plan(tprob, dev, paths)[0]
             keys.append(S.plan_key(dev, tprob))
+        if summa_grid is not None:
+            P, Q = summa_grid
+            pb = np.full((kt, rt), fset.high, np.int8)
+            pc = np.full((mt, rt), fset.high, np.int8)
+            sprob = summa_problem_from_maps(pa, pb, pc, tile, P, Q, fset)
+            splan = GemmPlan(path=local_path, bm=tile, bn=tile, bk=tile)
+            bad = validate_plan(splan, sprob, dev)
+            if bad:
+                raise ValueError(
+                    f"solver SUMMA local path {local_path!r} invalid for "
+                    f"rung {rung}: {bad}")
+            skey = S.plan_key(dev, sprob)
+            register_plan(skey, splan)
+            book[("summa", rung)] = splan
+            keys.append(skey)
     book["keys"] = keys
     return book

@@ -206,10 +206,10 @@ def test_bridge_tensor_bits():
 def test_import_leaves_jax_and_reference_out():
     """``import repro_torch`` (every module: ``repro_torch.split``,
     ``repro_torch.solve``, ``repro_torch.serve.kv_pages``, the quant,
-    optim, data, checkpoint, runtime and train modules and the three
-    launchers among them)
+    optim, data, checkpoint, runtime and train modules, SUMMA, its
+    schedule and grid, and the three launchers among them)
     imports neither jax nor the JAX package — checked in a fresh
-    interpreter."""
+    interpreter, and in a rank it spawns (``run_on_grid``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -224,11 +224,17 @@ def test_import_leaves_jax_and_reference_out():
         "'repro_torch.optim.adamw', 'repro_torch.optim.grad_compress', "
         "'repro_torch.data.pipeline', 'repro_torch.checkpoint.ckpt', "
         "'repro_torch.runtime.fault', 'repro_torch.train.train_step', "
-        "'repro_torch.train.trainer'):\n"
+        "'repro_torch.train.trainer', 'repro_torch.core.summa', "
+        "'repro_torch.core.schedule', 'repro_torch.launch.grid'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "from repro_torch.launch.grid import rank_report, run_on_grid\n"
+        "rep = run_on_grid(1, 1, rank_report, device='cpu', "
+        "backend='gloo')\n"
+        "assert 'repro_torch' in rep['packages'], rep\n"
+        "assert not {'jax', 'repro'} & set(rep['packages']), rep\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.path.abspath(SRC)

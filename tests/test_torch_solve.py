@@ -165,7 +165,8 @@ def test_requantize_bit_exact():
 
 @pytest.mark.parametrize("kw", [
     dict(), dict(ratio_high=0.25, ratio_low8=0.125),
-    dict(escalation="balanced", balance_groups=2, ratio_low8=0.25)])
+    dict(escalation="balanced", balance_groups=2, ratio_low8=0.25),
+    dict(escalation="balanced", summa_grid=(4, 2))])
 def test_ladders_match(kw):
     mt, t = 8, 16
     w = JM.graded_spd(mt * t, seed=2)
@@ -205,6 +206,36 @@ def test_resolve_solve_plans_key_set_matches(key, monkeypatch):
     plan = D.GemmPlan("ref", t, t, t)
     D.register_plan(S.plan_key(DV.detect_device(), other), plan)
     assert D.resolve_plan(other) == (plan, "registry")
+
+
+@pytest.mark.parametrize("local_path", ["ref", "grouped"])
+def test_resolve_solve_plans_registers_summa_keys(local_path):
+    """With summa_grid both packages register the distributed residual
+    GEMM of every rung under the same ``summa{P}x{Q}`` problem, and a
+    prefetched one resolves from the registry (no fresh resolution)."""
+    t, mt = 8, 8
+    maps = PRF._ladder(PRF.SolveConfig(tile=t, escalation="balanced",
+                                       summa_grid=(2, 2)), mt, mt)
+    kw = dict(nrhs=16, summa_grid=(2, 2), local_path=local_path)
+    pb = D.resolve_solve_plans(maps, t, DEFAULT_FORMATS, **kw)
+    jb = JTD.resolve_solve_plans(maps, t, JFS.from_key(KEY), **kw)
+    assert set(pb) == set(jb)
+    assert {pb[k].path for k in pb if k[0] == "summa"} == {local_path}
+    skeys = [k.split("|", 1)[1] for k in pb["keys"] if "|summa" in k]
+    assert skeys == [k.split("|", 1)[1] for k in jb["keys"]
+                     if "|summa" in k] and len(skeys) == len(maps)
+    pc = np.full((mt, 2), DEFAULT_FORMATS.high, np.int8)
+    prob = D.summa_problem_from_maps(maps[-1], pc, pc, t, 2, 2,
+                                     DEFAULT_FORMATS)
+    fresh = D.fresh_resolutions()
+    plan, source = D.resolve_summa_plan(prob)
+    assert (plan.path, source) == (local_path, "registry")
+    assert D.fresh_resolutions() == fresh
+    # an un-prefetched SUMMA problem falls back to ref and counts as fresh
+    other = D.summa_problem_from_maps(maps[-1], pc, pc, t, 1, 2,
+                                      DEFAULT_FORMATS)
+    assert D.resolve_summa_plan(other)[1] == "default"
+    assert D.fresh_resolutions() == fresh + 1
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +290,8 @@ def test_solve_rejects_what_it_cannot_run():
     from repro_torch.solve import SolveConfig, diag_dominant, solve
     a = diag_dominant(64, seed=0)
     b = np.ones((64, 1))
-    with pytest.raises(NotImplementedError, match="SUMMA"):
+    # a grid needs the balanced ladder (checked before any rank spawns)
+    with pytest.raises(ValueError, match="balanced"):
         solve(a, b, SolveConfig(tile=16, summa_grid=(2, 2)), device="cpu")
     with pytest.raises(ValueError, match="square"):
         solve(a[:, :32], b, SolveConfig(tile=16), device="cpu")
@@ -279,8 +311,9 @@ def test_solve_rejects_what_it_cannot_run():
 def test_report_fields_cover_the_reference():
     port = {f.name for f in dataclasses.fields(PRF.SolveReport)}
     ref = {f.name for f in dataclasses.fields(JRF.SolveReport)}
-    assert ref - port == {"summa_recompiles"}
-    assert port - ref == {"factor_seconds", "trail_copy_seconds"}
+    assert ref - port == set()
+    assert port - ref == {"factor_seconds", "trail_copy_seconds",
+                          "broadcast_seconds", "broadcast_bytes"}
 
 
 # ---------------------------------------------------------------------------
@@ -300,3 +333,119 @@ def test_cli_end_to_end_on_cpu(capsys):
     # a solve stopped before it converges exits nonzero
     rc = L.main(["--n", "128", "--device", "cpu", "--max-sweeps", "1"])
     assert rc == 1
+
+
+# ---------------------------------------------------------------------------
+# distributed (SUMMA) solves: twins of tests/test_solve.py's four; the
+# ranks are spawned on the CPU over gloo
+# ---------------------------------------------------------------------------
+
+def test_distributed_solution_bitwise_vs_single_device():
+    """Invariant (b): the 2x2 grouped-SUMMA solve walks the 1x1-grid
+    solve's trajectory bit for bit (the reference's parameters; its
+    single-device side needs the grouped kernel at t = 8, which the port
+    compiles only from t = 16: invariant (c) is the next test)."""
+    from repro_torch.solve import (SolveConfig, graded_spd,
+                                   rhs_for_solution, solve)
+    n = 64
+    a = graded_spd(n, cond=1e4, rho=0.9, seed=0)
+    xt, b = rhs_for_solution(a, seed=1)
+    common = dict(tile=8, ratio_high=0.0, escalation="balanced",
+                  balance_groups=2, local_path="grouped", nrhs_pad=16,
+                  max_sweeps=25)
+    rep_1 = solve(a, b, PRF.SolveConfig(summa_grid=(1, 1), **common),
+                  device="cpu")
+    rep_d = solve(a, b, SolveConfig(summa_grid=(2, 2), **common),
+                  device="cpu")
+    assert rep_1.converged and rep_d.converged
+    assert rep_1.fresh_resolutions == 0 and rep_d.fresh_resolutions == 0
+    assert rep_d.summa_recompiles == 0       # ladder tables prebuilt
+    assert rep_d.escalations >= 1
+    np.testing.assert_array_equal(rep_1.final_map, rep_d.final_map)
+    np.testing.assert_array_equal(rep_1.x, rep_d.x)
+    assert rep_1.metric_history == rep_d.metric_history
+    assert np.abs(rep_d.x - xt).max() <= 1e-3 * np.abs(xt).max()
+
+
+def test_distributed_grouped_solve_equals_single_device_grouped(
+        monkeypatch):
+    """Invariant (c): the 2x2 grouped-SUMMA solve equals the single-device
+    grouped solve (``residual_path="grouped"``, the same ladder and RHS
+    width) bit for bit: the accumulate-into local update sums every C
+    tile in the single-device path's order (t = 16, the kernel's
+    smallest tile; the card spec is forced for the single-device plan)."""
+    from repro_torch.solve import (SolveConfig, graded_spd,
+                                   rhs_for_solution, solve)
+    n = 64
+    a = graded_spd(n, cond=1e4, rho=0.9, seed=0)
+    xt, b = rhs_for_solution(a, seed=1)
+    common = dict(tile=16, ratio_high=0.0, escalation="balanced",
+                  balance_groups=2, nrhs_pad=32, max_sweeps=25)
+    rep_d = solve(a, b, SolveConfig(summa_grid=(2, 2), local_path="grouped",
+                                    **common), device="cpu")
+    monkeypatch.setenv(DV.DEVICE_ENV, "gpu-h100")
+    rep_s = solve(a, b, SolveConfig(residual_path="grouped", **common),
+                  device="cpu")
+    assert rep_s.converged and rep_d.converged and rep_d.escalations >= 1
+    np.testing.assert_array_equal(rep_s.final_map, rep_d.final_map)
+    np.testing.assert_array_equal(rep_s.x, rep_d.x)
+    assert rep_s.metric_history == rep_d.metric_history
+
+
+def test_distributed_ref_path_matches_single_device():
+    """The ref-local-path 2x2 solve agrees with the single-device solve to
+    fp32 accumulation noise, with the same final map, and issues zero
+    fresh resolutions under the prefetched summa plan keys (warm off: no
+    table is built ahead, so the solve builds its rungs' tables)."""
+    from repro_torch.solve import (SolveConfig, graded_spd,
+                                   rhs_for_solution, solve)
+    n = 64
+    a = graded_spd(n, cond=1e3, rho=0.9, seed=3)
+    xt, b = rhs_for_solution(a, seed=4)
+    common = dict(tile=8, ratio_high=0.0, escalation="balanced",
+                  balance_groups=2, nrhs_pad=16, max_sweeps=25)
+    rep_s = solve(a, b, SolveConfig(**common), device="cpu")
+    rep_d = solve(a, b, SolveConfig(summa_grid=(2, 2), warm=False,
+                                    **common), device="cpu")
+    assert rep_d.converged and rep_d.fresh_resolutions == 0
+    assert rep_d.summa_recompiles >= 1   # built in the solve, not ahead
+    np.testing.assert_array_equal(rep_s.final_map, rep_d.final_map)
+    assert float(np.abs(rep_s.x - rep_d.x).max()
+                 / max(np.abs(rep_s.x).max(), 1e-30)) < 1e-3
+    assert np.abs(rep_d.x - xt).max() <= 1e-3 * np.abs(xt).max()
+
+
+def test_summa_grid_shape_validation():
+    from repro_torch.solve import (SolveConfig, graded_spd,
+                                   rhs_for_solution, solve)
+    a = graded_spd(48, cond=1e3, rho=0.9, seed=0)   # 48 % (2·16) != 0
+    _, b = rhs_for_solution(a, seed=0)
+    with pytest.raises(ValueError, match="incompatible"):
+        solve(a, b, SolveConfig(tile=16, summa_grid=(2, 2),
+                                escalation="balanced"), device="cpu")
+    a = graded_spd(64, cond=1e3, rho=0.9, seed=0)
+    _, b = rhs_for_solution(a, seed=0)
+    with pytest.raises(ValueError, match="balanced"):
+        solve(a, b, SolveConfig(tile=16, summa_grid=(2, 2),
+                                escalation="tile"), device="cpu")
+    with pytest.raises(ValueError, match="nrhs_pad"):
+        solve(a, b, SolveConfig(tile=16, summa_grid=(2, 2),
+                                escalation="balanced", nrhs_pad=16),
+              device="cpu")   # not a multiple of tile·Q = 32
+    with pytest.raises(ValueError, match="single-device"):
+        solve(a, b, SolveConfig(tile=16, summa_grid=(2, 2),
+                                escalation="balanced",
+                                compute_escalation="split"), device="cpu")
+
+
+def test_cli_summa_on_cpu(capsys):
+    """``--summa 2x2 --device cpu`` names the placement before any work,
+    defaults to the balanced ladder and solves on four spawned ranks."""
+    from repro_torch.launch import solve as L
+    rc = L.main(["--summa", "2x2", "--n", "128", "--device", "cpu",
+                 "--local-path", "grouped"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert out.splitlines()[0] == "summa grid 2x2: ranks on cpu over gloo"
+    assert "summa=2x2" in out and "converged=True" in out
+    assert "SUMMA table rebuilds 0" in out

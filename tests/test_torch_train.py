@@ -408,11 +408,25 @@ def test_train_launcher_trains_and_restarts_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--devices", "4"], ["--mesh", "2x2"],
-                                  ["--summa", "2x2"]])
+                                  ["--summa", "2x2", "--mesh", "2x2"]])
 def test_train_launcher_refuses_multi_device_options(flag):
+    """The data-parallel options still exit before any work, ``--summa``
+    (ported) or not beside them."""
     with pytest.raises(SystemExit) as ei:
         train_cli.main(["--smoke", "--device", "cpu", *flag])
     assert "item 6" in str(ei.value.code)
+
+
+def test_train_launcher_runs_the_summa_selfcheck(tmp_path):
+    """``--summa PxQ`` runs the SUMMA self-check on spawned ranks at the
+    config's tile/policy/format set, prints its report, then trains."""
+    out = _cli("--smoke", "--device", "cpu", "--steps", "2", "--summa",
+               "2x2", "--ckpt-dir", str(tmp_path / "ck"), timeout=300)
+    assert out.returncode == 0, out.stderr
+    line = next(x for x in out.stdout.splitlines()
+                if x.startswith("SUMMA self-check"))
+    assert line.startswith("SUMMA self-check 2x2 [fp8_e4m3+bf16+fp32]")
+    assert float(line.split("rel err ")[1].split(",")[0]) < 1e-2
 
 
 def test_train_launcher_defaults_to_the_card():
