@@ -13,23 +13,23 @@ Phases (each raises on failure, so a failing run never exits 0):
    the tile, grouped and split libraries (``cuobjdump -sass``): each must
    hold ``HGMMA`` (wgmma) instructions;
 2. hold each kernel to its plain PyTorch version on the card: the ksplit
-   kernel at the served InternLM2-1.8B shapes (m = 1 and 4, rows bitwise
-   equal across m and across two forced launch geometries) and at
-   m = 4096, the tile kernel at M = N = K = 1024 and 4096 and the grouped
-   kernel at 4096³, both at t = 64 and 128, over four class mixes and one
-   integer-class format set, and both on e4m3-overflow NaN, inf·0 and
-   subnormal operands; the split kernel at 4096³, t = 64 and 128, for
-   split2_fp16 and split3_e5m2 C classes and a mix with an int8 class,
-   on the same edge operands, plus its slices bit for bit (B = I), and
-   its slice pass alone against its plain version on both operands, bit
-   for bit, at each of those cases and at the solve's residual shape; at
-   t = 16 and 32 the split kernel bit for bit against ``split_gemm_ref``
-   (the same fixed summation order) for split2 and split3 C classes
-   beside fp8, bf16 and int8 ones; the convert kernel at 8192² into every
-   output dtype, bit for bit, and its class-map form (the layouts'
-   storage cast) bit for bit against its plain version under mixed and
-   split maps at 8192², at the solve's 8064² C and 8064×128 panel and on
-   a ragged shape;
+   kernel at the served InternLM2-1.8B, Qwen1.5-MoE-A2.7B and Gemma-3-4B
+   shapes (m = 1 and 4, rows bitwise equal across m and across two forced
+   launch geometries) and at m = 4096, the tile kernel at M = N = K = 1024
+   and 4096 and the grouped kernel at 4096³, both at t = 64 and 128, over
+   four class mixes and one integer-class format set, and both on
+   e4m3-overflow NaN, inf·0 and subnormal operands; the split kernel at
+   4096³, t = 64 and 128, for split2_fp16 and split3_e5m2 C classes and a
+   mix with an int8 class, on the same edge operands, plus its slices bit
+   for bit (B = I), and its slice pass alone against its plain version on
+   both operands, bit for bit, at each of those cases and at the solve's
+   residual shape; at t = 16 and 32 the split kernel bit for bit against
+   ``split_gemm_ref`` (the same fixed summation order) for split2 and
+   split3 C classes beside fp8, bf16 and int8 ones; the convert kernel at
+   8192² into every output dtype, bit for bit, and its class-map form (the
+   layouts' storage cast) bit for bit against its plain version under
+   mixed and split maps at 8192², at the solve's 8064² C and 8064×128
+   panel and on a ragged shape;
 3. ``mp_matmul`` at 1024³ through dispatch: the plan must be ``tile``
    (``split`` with split C classes), the kernel must launch, and the
    result must sit inside the registry-derived error bounds against numpy
@@ -40,8 +40,9 @@ Phases (each raises on failure, so a failing run never exits 0):
    warmup, every KSplit linear on the ksplit kernel;
    A profiled decode step then shows where its time goes (wall vs device
    busy time, top kernels by device time);
-4b. the serve state at full width: InternLM2-1.8B with the reference's
-   serve defaults (refill, paged prefix cache, chunked prefill;
+4b. the serve state at full width and 6 of 24 layers (the depth cut
+   keeps the run inside its time limit; every gate is depth-free):
+   InternLM2-1.8B with the reference's serve defaults (refill, paged prefix cache, chunked prefill;
    ``max_batch=4``, ``max_seq=320``) over a three-call stream — six
    requests sharing a 40-token prefix that retire early, so two enter as
    page-reused refills, two sampled requests (temperature 0.8, seeds 1
@@ -116,12 +117,38 @@ Phases (each raises on failure, so a failing run never exits 0):
    kernel K/t times and moves the wire-byte model's share (counts read
    in each rank and gathered); the grouped kernel's accumulate-into
    launch is timed at the 1x1 and 2x2 local shapes beside its bound and
-   ``torch.matmul``; then phase 5's operator at n = 4096 with balanced
+   ``torch.matmul``; then phase 5's operator at n = 2048 with balanced
    escalation is solved single-device (grouped residual), on the 1x1
    grid and on a 2x2 grid of spawned ranks: all three converge with 0
    fresh resolutions and 0 SUMMA table rebuilds and are equal bit for bit
    (x, map, metric trajectory); it prints each solve's wall seconds and
    the 2x2 solve's broadcast share.
+
+9. (run after 4c) the MoE and local/global families through the engine's
+   equal mode. Qwen1.5-MoE-A2.7B at full width (24 layers, 60 experts
+   top-4, random weights from a seeded generator; its parameter bytes by
+   kind printed): eight requests (four 32-token, four 64-token prompts, 12
+   new tokens, two sampled) at ``max_batch=4``. (a) At the published
+   capacity factor 1.25 the same stream twice gives the same tokens; the
+   dropped (token, expert) pairs per microbatch and the requests that
+   differ from their unbatched reference are printed, not gated (the
+   reference's batched behaviour). (b) At capacity factor 16 nothing drops
+   and batched tokens equal ``generate_reference``. (c) A 64-token row
+   decoded through the cache with the kernels agrees with
+   ``forward_prefill`` computed with the plain versions within twice the
+   plain stepped decode's gap, and that decode within twice the gap of a
+   summation-order change (the bulk with the ksplit segments summed as
+   one matmul). Every run replays the plain bulk's expert picks, since an
+   order change flips picks at small router margins; the (layer, token)
+   decisions where the kernel decode's own picks would differ are
+   counted, not gated. Then the median decode step
+   beside its byte bound, the idle share of profiled steps, the expert
+   products' and the ksplit kernel's device time, the bf16 upcast's time,
+   the ksplit launches read per step and the peak memory. Gemma-3-4B at
+   full depth (5:1 local/global, window 1024): two 64-token and two
+   32-token requests equal to ``generate_reference``; then its first
+   pattern period (6 layers) decoded through 2048 positions, past the
+   window, against the bulk forward under rule (c).
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -151,6 +178,11 @@ PEAK_FP32_FLOPS = 67e12
 #: served ksplit shapes (K, N) of InternLM2-1.8B on one card: wq, wk/wv,
 #: up/gate, lm_head; the large-M ksplit check; the tile-kernel checks
 SERVED_KN = ((2048, 2048), (2048, 1024), (2048, 8192), (2048, 92544))
+#: phase 9's further ksplit shapes (K, N): Qwen1.5-MoE-A2.7B's shared
+#: expert up/gate and lm_head (its wq/wk/wv are 2048 x 2048), Gemma-3-4B's
+#: wq, wk/wv, up/gate and lm_head
+FAMILY_KN = ((2048, 5632), (2048, 151936), (2560, 2560), (2560, 1280),
+             (2560, 10240), (2560, 262144))
 KSPLIT_BIG = (4096, 2048, 8192)
 TILE_SIZES = (1024, 4096)
 TILE = 128
@@ -338,7 +370,7 @@ def check_ksplit(gen, policy) -> dict:
     from repro_torch.kernels import ops
     out = {}
     for m in (1, 4):
-        for k, n in SERVED_KN:
+        for k, n in SERVED_KN + FAMILY_KN:
             x, ws = ksplit_case(4, k, n, gen, policy)
             y4 = ops.ksplit_matmul_kernel(x, ws)
             y = ops.ksplit_matmul_kernel(x[:m].contiguous(), ws)
@@ -355,6 +387,7 @@ def check_ksplit(gen, policy) -> dict:
             if not ratio <= 1.0:
                 fail(f"ksplit m={m} K={k} N={n} outside tolerance")
             out[(m, k, n)] = err
+            del x, ws, y4, y, yp
     mb, kb, nb = KSPLIT_BIG
     x, ws = ksplit_case(mb, kb, nb, gen, policy)
     y = ops.ksplit_matmul_kernel(x, ws)
@@ -979,6 +1012,10 @@ def serve(cfg, seed: int = 0) -> dict:
 #: phase 4b's KV-cache length: the 170-token prompt pads to 256 (two
 #: chunks of the largest bucket, 128) and decodes 16 tokens
 STATE_MAX_SEQ = 320
+#: phase 4b's depth: its gates (tokens equal the reference, refills,
+#: chunk skips, page leaks) do not depend on it, and 6 of the 24 layers
+#: take a quarter of the host-bound model steps (phase 9 added ~260 s)
+STATE_LAYERS = 6
 
 
 def state_stream(vocab: int, seed: int) -> list:
@@ -1048,7 +1085,8 @@ def serve_state(cfg, seed: int = 0) -> dict:
     caches = T.init_cache(cfg, 4, STATE_MAX_SEQ, DEVICE)
     scatter_ms = host_clock_ms(lambda: eng.write_pages(
         caches, 1, [eng.pool.payload(p) for p in pids]))
-    print(f"serve state: {len(reqs)} requests in 3 calls, {gen_toks} "
+    print(f"serve state: {cfg.n_layers} layers, {len(reqs)} requests in 3 "
+          f"calls, {gen_toks} "
           f"tokens in {wall_s:.3f} s = {gen_toks / wall_s:.2f} tokens/s; "
           f"microbatches {mb['total']}, refills {mb['refills']} "
           f"({mb['reused_refills']} page-reused), reused prefills "
@@ -1461,7 +1499,7 @@ def token_losses(params, cfg, batch):
     from repro_torch.models import common as C
     from repro_torch.models import transformer as T
     with torch.no_grad():
-        x = T._run_layers(params, cfg, batch["tokens"])
+        x, _ = T._run_layers(params, cfg, batch["tokens"])
         x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = params["lm_head"](x).float()
         lse = torch.logsumexp(logits, dim=-1)
@@ -2326,6 +2364,529 @@ def host_clock_ms(fn, iters: int = 10) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: serving the MoE and local/global families
+# ---------------------------------------------------------------------------
+
+#: phase 9's qwen2 stream: four 32-token and four 64-token prompts, 12 new
+#: tokens each, requests 1 and 5 sampled (temperature 0.8); the cache
+#: holds the 64-token bucket's 64 + 12 - 1 slots
+FAMILY_LENS = (32, 32, 32, 32, 64, 64, 64, 64)
+FAMILY_NEW = 12
+FAMILY_SAMPLED = (1, 5)
+FAMILY_MAX_SEQ = 80
+#: gate (b)'s capacity factor: C = ceil(4·4/60·16) = 5 >= the 4 rows of a
+#: decode step, so no (token, expert) pair can drop
+NO_DROP_CF = 16.0
+#: gate (c): the prompt decoded through the cache against the bulk forward
+ORDER_PROMPT = 64
+#: decode steps timed one by one (host clock, synchronized), then profiled
+DECODE_STEPS, PROFILE_DECODE_STEPS = 10, 3
+#: gemma3 at full depth: two 64-token and two 32-token requests
+GEMMA_LENS = (64, 64, 32, 32)
+GEMMA_NEW = 8
+#: gemma3 at one period of its pattern (5 local layers, 1 global): one row
+#: decoded through twice the 1024 window, so the local ring buffers wrap
+WINDOW_POSITIONS = 2048
+
+
+def bytes_by_kind(params) -> dict:
+    """Parameter bytes by kind (experts, shared expert, attention,
+    embedding, lm_head; norms and routers as other)."""
+    from repro_torch import tree as TR
+    out = dict.fromkeys(("experts", "shared", "attention", "embedding",
+                         "lm_head", "other"), 0)
+    for leaf in TR.walk(params):
+        key = leaf.key
+        if "/moe/shared/" in key:
+            kind = "shared"
+        elif "/moe/" in key and not key.endswith("/router"):
+            kind = "experts"
+        elif "/attn/" in key:
+            kind = "attention"
+        elif key == "embed":
+            kind = "embedding"
+        elif key.startswith("lm_head"):
+            kind = "lm_head"
+        else:
+            kind = "other"
+        out[kind] += sum(t.numel() * t.element_size() for t in leaf.parts)
+    return out
+
+
+def decode_step_bytes(cfg, kinds: dict, batch: int, position: int) -> int:
+    """Bytes one decode step must move: every weight but the embedding
+    table read once (every expert runs, its capacity slots full or not),
+    the batch's embedding rows, each layer's visible KV read and one slot
+    written, and the fp32 logits written."""
+    from repro_torch.models import transformer as T
+    dims = T.dims_of(cfg)
+    kv = 0
+    for mixer, _ in cfg.layer_kinds():
+        seen = position + 1
+        if mixer == "attn_local":
+            seen = min(seen, cfg.local_window)
+        kv += batch * (seen + 1) * dims.n_kv * dims.head_dim * 2 * 2
+    weights = sum(v for k, v in kinds.items() if k != "embedding")
+    return weights + batch * cfg.d_model * 2 + kv + batch * cfg.vocab * 4
+
+
+def family_stream(vocab: int, lens, new: int, seed: int,
+                  sampled=()) -> list:
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rng.integers(0, vocab, L).astype(np.int64),
+                    max_new_tokens=new,
+                    temperature=0.8 if i in sampled else 0.0, seed=i)
+            for i, L in enumerate(lens)]
+
+
+#: the reference's decode-against-bulk tolerance
+#: (``tests/test_models_smoke.py::test_decode_consistent_with_prefill``)
+DECODE_RTOL, DECODE_ATOL = 0.1, 0.15
+
+
+def _logit_gaps(a, b) -> dict:
+    """max |a - b|, ||a - b|| / ||b|| and the worst ratio to the
+    reference's decode tolerance (atol + rtol·|b|)."""
+    import torch
+    d = (a - b).abs()
+    return {"max": float(d.max()),
+            "rel": float(torch.linalg.vector_norm(a - b)
+                         / torch.linalg.vector_norm(b)),
+            "ref_ratio": float((d / (DECODE_ATOL
+                                     + DECODE_RTOL * b.abs())).max())}
+
+
+def _record_routing(log: list):
+    """Wrap ``moe.route`` to log each call's expert picks [T, k] and the
+    gap between the k-th and (k+1)-th probability [T]; returns the
+    function to restore."""
+    import torch
+    from repro_torch.models import moe as MOE
+    orig = MOE.route
+
+    def route(probs, top_k, capacity_factor, picks=None):
+        r = orig(probs, top_k, capacity_factor, picks)
+        top = torch.topk(probs.float(), top_k + 1, dim=-1).values
+        log.append((r.flat_e.reshape(-1, top_k), top[:, -2] - top[:, -1]))
+        return r
+
+    MOE.route = route
+    return lambda: setattr(MOE, "route", orig)
+
+
+def _replay_routing(recorded: list, stepped: bool, flips: list):
+    """Wrap ``moe.route`` to take the expert picks ``recorded`` (one
+    ``(picks [n, k], margin [n])`` per layer, from a bulk forward) in
+    place of the call's own: call ``i`` of a one-row stepped decode is
+    layer ``i % L`` at position ``i // L`` and takes that token's picks;
+    a bulk call takes its layer's whole table.  The gates still come from
+    the call's own probabilities.  Where the call's own top-k set differs
+    from the replayed one, the own top-k margin goes into ``flips``;
+    returns the function to restore."""
+    import torch
+    from repro_torch.models import moe as MOE
+    orig = MOE.route
+    L = len(recorded)
+    calls = [0]
+
+    def route(probs, top_k, capacity_factor, picks=None):
+        i = calls[0]
+        calls[0] += 1
+        want = recorded[i % L][0]
+        if stepped:
+            want = want[i // L:i // L + 1]
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)
+        own = top.indices[:, :top_k]
+        differ = (torch.sort(own, -1).values
+                  != torch.sort(want, -1).values).any(-1)
+        if bool(differ.any()):
+            gap = top.values[:, top_k - 1] - top.values[:, top_k]
+            flips.extend(float(g) for g in gap[differ].cpu())
+        return orig(probs, top_k, capacity_factor, want)
+
+    MOE.route = route
+    return lambda: setattr(MOE, "route", orig)
+
+
+def decode_vs_bulk(cfg, params, n: int, seed: int, label: str) -> dict:
+    """One row decoded through ``n`` positions of the cache with the kernels,
+    against ``forward_prefill``'s bulk last-position logits with the ksplit
+    kernel's plain version swapped in (``plain``). Two gates, each at
+    least one bf16 rounding of the largest logit: the kernel decode within
+    twice the plain stepped decode's gap (what the kernels add), and the
+    plain stepped decode within twice the gap of a pure summation-order
+    change, the bulk forward with the ksplit segments summed as one
+    matmul (``ksplit_one_matmul``): what the cached decode path adds,
+    which the first gate cannot see because both decodes share it.
+
+    Under MoE the plain bulk forward's expert picks of every (layer,
+    token) are recorded and replayed into every other run (gates from
+    each run's own router): at random weights the router's top-k margins
+    are ~3e-3 in probability, so any change of summation order flips some
+    picks, and each flip moves the logits by a whole expert's output.
+    With the picks fixed the gap measures what the cached decode
+    computes, not which expert a near-tie went to. How many of the kernel
+    decode's own picks would have differed, and their margins, is printed
+    and not gated."""
+    import torch
+    from repro_torch.kernels import ksplit_gemm as K
+    from repro_torch.models import transformer as T
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, n))).to(DEVICE)
+    moe = bool(cfg.n_experts)
+    recorded: list = []
+
+    def stepped():
+        caches = T.init_cache(cfg, 1, n, DEVICE)
+        for s in range(n):
+            logits, _ = T.forward_decode(params, cfg, toks[:, s:s + 1],
+                                         caches, s)
+        return logits[0, 0].float()
+
+    def bulk():
+        return T.forward_prefill(params, cfg, toks)[0, 0].float()
+
+    def routed(fn, wrap):
+        restore = wrap() if moe else (lambda: None)
+        try:
+            out = fn()
+            sync()
+        finally:
+            restore()
+        return out
+
+    def replay(stepped_run: bool, flips: list):
+        return lambda: _replay_routing(recorded, stepped_run, flips)
+
+    kernel_fn = K.ksplit_gemm_multi
+    others = {}
+    try:
+        K.ksplit_gemm_multi = K.ksplit_gemm_plain
+        bulk_p = routed(bulk, lambda: _record_routing(recorded))
+        others["plain_decode"] = routed(stepped, replay(True, []))
+        K.ksplit_gemm_multi = ksplit_one_matmul
+        others["bulk_order2"] = routed(bulk, replay(False, []))
+    finally:
+        K.ksplit_gemm_multi = kernel_fn
+    flips: list = []
+    t0 = time.perf_counter()
+    dec_k = routed(stepped, replay(True, flips))
+    stepped_s = time.perf_counter() - t0
+    gaps = {"kernel_decode": _logit_gaps(dec_k, bulk_p)}
+    gaps.update({k: _logit_gaps(v, bulk_p) for k, v in others.items()})
+    top = float(bulk_p.abs().max())
+    floor = 2.0 ** -8 * top
+    allow = max(2.0 * gaps["plain_decode"]["max"], floor)
+    allow_path = max(2.0 * gaps["bulk_order2"]["max"], floor)
+    out = {"gaps": gaps, "allowance": allow, "path_allowance": allow_path}
+    print(f"{label}: last logits through {n} positions (kernel decode "
+          f"{stepped_s:.1f} s) against the plain bulk forward (max |logit| "
+          f"{top:.3f}"
+          + ("; every run replays the bulk's expert picks" if moe else "")
+          + "): " + "; ".join(
+              f"{k} max {v['max']:.4e} rel {v['rel']:.3e} (reference "
+              f"test's tolerance ratio {v['ref_ratio']:.3f})"
+              for k, v in gaps.items())
+          + f"; kernel decode allowance {allow:.4e} = max(2 x plain_decode, "
+            f"2^-8 x max |logit|); plain decode allowance {allow_path:.4e} "
+            f"= max(2 x bulk_order2, 2^-8 x max |logit|)")
+    if moe:
+        margins = torch.cat([m for _, m in recorded]).float().cpu()
+        decisions = n * cfg.n_layers
+        out["routing"] = {"decisions": decisions, "flipped": len(flips),
+                          "flip_margin_max": max(flips, default=0.0),
+                          "margin_median": float(margins.median())}
+        print(f"{label}: routing (not gated): the kernel decode's own "
+              f"expert set differs from the replayed bulk one in "
+              f"{len(flips)} of {decisions} (layer, token) decisions; their "
+              f"top-k margins max {max(flips, default=0.0):.3e} (the bulk's "
+              f"median margin {float(margins.median()):.3e})")
+    if not gaps["kernel_decode"]["max"] <= allow:
+        fail(f"{label}: kernel decode and bulk logits differ by "
+             f"{gaps['kernel_decode']['max']:.4e} > {allow:.4e}")
+    if not gaps["plain_decode"]["max"] <= allow_path:
+        fail(f"{label}: plain decode and bulk logits differ by "
+             f"{gaps['plain_decode']['max']:.4e} > {allow_path:.4e}")
+    return out
+
+
+def moe_decode_profile(cfg, params, kinds: dict) -> dict:
+    """The decode step at batch 4 over zeroed caches (the timing needs no
+    real history): median wall (host clock around synchronized steps),
+    ksplit launches read per step, then steps under
+    ``torch.profiler`` with the expert products in a named range (device
+    busy, idle share, ksplit kernel and expert-product device time), the
+    held-event time of upcasting one layer's bf16 expert segments, and
+    the byte bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    B, p0 = 4, ORDER_PROMPT
+    caches = T.init_cache(cfg, B, p0 + DECODE_STEPS + PROFILE_DECODE_STEPS
+                          + 2, DEVICE)
+    tok = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (B, 1))).to(DEVICE)
+    T.forward_decode(params, cfg, tok, caches, p0)
+    sync()
+    walls, launches = [], []
+    for s in range(DECODE_STEPS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        T.forward_decode(params, cfg, tok, caches, p0 + 1 + s)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append(ops.launch_counts()["ksplit_gemm"])
+    wall_ms = float(np.median(walls))
+    range_name = "phase9.expert_product"
+    saved = {cls: cls.__call__ for cls in MOE.MOE_WEIGHTS}
+
+    def named(orig):
+        def call(self, x):
+            with record_function(range_name):
+                return orig(self, x)
+        return call
+
+    for cls, orig in saved.items():
+        cls.__call__ = named(orig)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for s in range(PROFILE_DECODE_STEPS):
+                T.forward_decode(params, cfg, tok, caches,
+                                 p0 + 1 + DECODE_STEPS + s)
+            sync()
+    finally:
+        for cls, orig in saved.items():
+            cls.__call__ = orig
+    events = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / PROFILE_DECODE_STEPS / 1e3)
+            for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    # the named range's device row is its span on the card, not a kernel
+    expert_ms = sum(ms for name, ms in rows if name == range_name)
+    rows = [r for r in rows if r[0] != range_name]
+    busy_ms = sum(ms for _, ms in rows) or None
+    ksplit_ms = sum(ms for name, ms in rows if "ksplit" in name)
+    moe0 = params["layers"][0]["moe"]
+    upcast_ms = sum(time_ms(lambda w=moe0[n].w_lo: w.float())
+                    for n in ("gate", "up", "down"))
+    nbytes = decode_step_bytes(cfg, kinds, B, p0 + DECODE_STEPS)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    idle = (f"{1 - busy_ms / wall_ms:.1%}" if busy_ms
+            else "not measured (the profiler saw no device time)")
+    print(f"moe decode step (batch {B}, position ~{p0 + DECODE_STEPS}): "
+          f"median wall {wall_ms:.2f} ms over {DECODE_STEPS} steps "
+          f"({[round(w, 2) for w in walls]}); byte bound {bound_ms:.2f} ms "
+          f"({nbytes / 1e9:.2f} GB at {PEAK_BYTES_S / 1e12:.2f} TB/s); "
+          f"ksplit launches per step {launches}")
+    print(f"moe decode profile ({PROFILE_DECODE_STEPS} steps): device busy "
+          f"{busy_ms or 0:.2f} ms/step, idle share {idle}; expert products' "
+          f"span {expert_ms:.2f} ms/step (of which the bf16 segments' fp32 "
+          f"upcast, timed apart: {upcast_ms:.3f} ms per layer x "
+          f"{cfg.n_layers} = {upcast_ms * cfg.n_layers:.2f} ms); ksplit "
+          f"kernel {ksplit_ms:.2f} ms/step")
+    for name, ms in rows[:8]:
+        print(f"profile   {ms:8.3f} ms/step  {name[:90]}")
+    if len(set(launches)) != 1 or launches[0] < 1:
+        fail(f"moe decode: ksplit launches per step {launches}")
+    return {"wall_ms": wall_ms, "bound_ms": bound_ms, "busy_ms": busy_ms,
+            "expert_ms": expert_ms, "ksplit_ms": ksplit_ms,
+            "upcast_ms_per_step": upcast_ms * cfg.n_layers,
+            "launches_per_step": launches[0]}
+
+
+def check_served(label, cfg, reqs, refs, st, launches) -> None:
+    """Every request equal to its reference, well-formed, no fresh plan
+    resolution after warmup, every KSplit linear on the kernel."""
+    bad = [i for i, (r, f) in enumerate(zip(reqs, refs))
+           if not r.done or r.out_tokens != f.out_tokens]
+    lin = st["linear_dispatch_since_warmup"]
+    fresh = st["plans"]["post_warmup_fresh_resolutions"]
+    print(f"{label}: batched tokens == unbatched reference for "
+          f"{len(reqs) - len(bad)}/{len(reqs)} requests; kernel launches "
+          f"{launches}; linear dispatch since warmup {lin}; post-warmup "
+          f"fresh resolutions {fresh}")
+    if bad:
+        fail(f"{label}: batched tokens differ from the reference for "
+             f"requests {bad}")
+    if fresh != 0:
+        fail(f"{label}: {fresh} fresh plan resolutions after warmup")
+    if launches["ksplit_gemm"] < 1 or lin.get("ksplit_torch", 0) != 0:
+        fail(f"{label}: KSplit linears off the ksplit kernel ({lin})")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab for t in r.out_tokens):
+            fail(f"{label}: malformed output tokens")
+
+
+def serve_moe(cfg, seed: int = 0) -> dict:
+    """Qwen1.5-MoE-A2.7B at full width through the engine's equal mode:
+    gates (a) determinism at the published capacity, (b) batched ==
+    unbatched where nothing drops, (c) cached decode against the bulk
+    forward; then the decode step beside its byte bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    sync()
+    init_s = time.perf_counter() - t_phase
+    kinds = bytes_by_kind(params)
+    total = sum(kinds.values())
+    print(f"serve moe {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+          f"E={cfg.n_experts} top-{cfg.top_k} capacity_factor "
+          f"{cfg.capacity_factor}, down {'K' if cfg.moe_ep else 'N'}-split; "
+          f"weights {total / 1e9:.3f} GB (" + ", ".join(
+              f"{k} {v / 1e9:.3f}" for k, v in kinds.items())
+          + f" GB), init {init_s:.1f} s")
+
+    def stream():
+        return family_stream(cfg.vocab, FAMILY_LENS, FAMILY_NEW, seed,
+                             FAMILY_SAMPLED)
+
+    sc = ServeConfig(max_batch=4, max_seq=FAMILY_MAX_SEQ)
+    eng = Engine(cfg, params, sc)
+    if eng.mode != "equal":
+        fail(f"serve moe: engine mode {eng.mode!r}, not equal")
+    eng.warmup()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run1 = eng.generate(stream())
+    sync()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = eng.stats()
+    drops = list(st["moe"]["dropped_per_microbatch"])
+    run2 = eng.generate(stream())
+    drops2 = eng.stats()["moe"]["dropped_per_microbatch"][len(drops):]
+    gen_toks = st["tokens"]["generated"]
+    refs = eng.generate_reference(stream())
+    differ = [i for i, (r, f) in enumerate(zip(run1, refs))
+              if r.out_tokens != f.out_tokens]
+    print(f"serve moe: {len(run1)} requests (prompts {list(FAMILY_LENS)}, "
+          f"{FAMILY_NEW} new, sampled {list(FAMILY_SAMPLED)}), {gen_toks} "
+          f"tokens in {wall_s:.3f} s = {gen_toks / wall_s:.2f} tokens/s; "
+          f"microbatches {st['microbatches']['total']}, prefill steps "
+          f"{st['prefill_steps']}, decode steps {st['decode_steps']}")
+    print(f"serve moe (a) capacity {cfg.capacity_factor}: dropped (token, "
+          f"expert) pairs per microbatch {drops} (replay {drops2}); "
+          f"requests differing from their unbatched reference {differ} "
+          f"(not gated: the reference's batched behaviour)")
+    if [r.out_tokens for r in run1] != [r.out_tokens for r in run2]:
+        fail("serve moe (a): the same stream twice gave different tokens")
+    if drops != drops2:
+        fail(f"serve moe (a): drops {drops} then {drops2}")
+    if len(set(tuple(r.out_tokens) for r in run1)) < 2:
+        fail("serve moe (a): every request produced the same tokens")
+    for r in run1:
+        if len(r.out_tokens) != FAMILY_NEW or not all(
+                0 <= t < cfg.vocab for t in r.out_tokens):
+            fail("serve moe: malformed output tokens")
+    lin = st["linear_dispatch_since_warmup"]
+    if st["plans"]["post_warmup_fresh_resolutions"] != 0 or lin.get(
+            "ksplit_torch", 0) != 0 or launches["ksplit_gemm"] < 1:
+        fail(f"serve moe: fresh resolutions or KSplit linears off the "
+             f"kernel ({st['plans']}, {lin}, {launches})")
+    cfg16 = dataclasses.replace(cfg, capacity_factor=NO_DROP_CF)
+    eng16 = Engine(cfg16, params, sc)
+    eng16.warmup()
+    ops.reset_launch_counts()
+    got = eng16.generate(stream())
+    launches16 = ops.launch_counts()
+    st16 = eng16.stats()
+    refs16 = eng16.generate_reference(stream())
+    print(f"serve moe (b) capacity {NO_DROP_CF}: dropped pairs per "
+          f"microbatch {st16['moe']['dropped_per_microbatch']}")
+    check_served("serve moe (b)", cfg16, got, refs16, st16, launches16)
+    if any(st16["moe"]["dropped_per_microbatch"]):
+        fail("serve moe (b): a pair dropped at C >= B")
+    order = decode_vs_bulk(cfg16, params, ORDER_PROMPT, seed,
+                           "serve moe (c)")
+    prof = moe_decode_profile(cfg, params, kinds)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phase_s = time.perf_counter() - t_phase
+    rate = prof["bound_ms"] / prof["wall_ms"]
+    print(f"serve moe: decode step {prof['wall_ms']:.2f} ms vs byte bound "
+          f"{prof['bound_ms']:.2f} ms ({rate:.1%} of the bound's rate); "
+          f"peak memory {peak_gb:.2f} GB; phase {phase_s:.1f} s")
+    del eng, eng16, params
+    free_card()
+    return {"launches": launches["ksplit_gemm"],
+            "launches16": launches16["ksplit_gemm"],
+            "tokens_per_s": gen_toks / wall_s, "drops": drops,
+            "differ": differ, "peak_gb": peak_gb, "weights_gb": total / 1e9,
+            "phase_s": phase_s, "order": order, **prof}
+
+
+def free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_windowed(cfg, seed: int = 0) -> dict:
+    """Gemma-3-4B through equal mode at full depth (tokens == reference),
+    then its first pattern period (5 local layers, 1 global) decoded
+    through WINDOW_POSITIONS positions against the bulk forward."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import LayerList
+    t_phase = time.perf_counter()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    eng = Engine(cfg, params, ServeConfig(
+        max_batch=4, max_seq=max(GEMMA_LENS) + GEMMA_NEW))
+    if eng.mode != "equal":
+        fail(f"serve gemma3: engine mode {eng.mode!r}, not equal")
+    eng.warmup()
+
+    def stream():
+        return family_stream(cfg.vocab, GEMMA_LENS, GEMMA_NEW, seed)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = eng.generate(stream())
+    sync()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = eng.stats()
+    refs = eng.generate_reference(stream())
+    gen_toks = st["tokens"]["generated"]
+    print(f"serve gemma3 {cfg.name}: {cfg.n_layers} layers "
+          f"({sum(m == 'attn_local' for m, _ in cfg.layer_kinds())} local, "
+          f"window {cfg.local_window}), weights "
+          f"{sum(bytes_by_kind(params).values()) / 1e9:.3f} GB; "
+          f"{len(reqs)} requests (prompts {list(GEMMA_LENS)}), {gen_toks} "
+          f"tokens in {wall_s:.3f} s = {gen_toks / wall_s:.2f} tokens/s, "
+          f"microbatches {st['microbatches']['total']}")
+    check_served("serve gemma3", cfg, reqs, refs, st, launches)
+    period = cfg.pattern_period()
+    cfg1 = dataclasses.replace(cfg, n_layers=period)
+    params1 = dict(params, layers=LayerList(params["layers"][:period],
+                                            period))
+    window = decode_vs_bulk(cfg1, params1, WINDOW_POSITIONS, seed,
+                            f"gemma3 window ({period} layers)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"serve gemma3: phase {phase_s:.1f} s")
+    del eng, params, params1
+    free_card()
+    return {"launches": launches["ksplit_gemm"],
+            "tokens_per_s": gen_toks / wall_s, "window": window,
+            "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: SUMMA on one card
 # ---------------------------------------------------------------------------
 
@@ -2335,12 +2896,13 @@ SUMMA_GRIDS = ((2, 2), (1, 4), (4, 1))
 #: A and B are sorted-balanced in 4 segments, which serves every grid
 #: above and the 1x1 one; C is balanced in 4x4 groups
 SUMMA_SEGMENTS = 4
-#: the grid solves: phase 5's operator at n = 4096 (at phase 5's 8192 the
+#: the grid solves: phase 5's operator at n = 2048 (at phase 5's 8192 the
 #: balanced ladder escalates 11 times, 12 replicated numpy factorizations
 #: per solve: 121 / 128 / 169 s for the three solves, `summa_phase.py
-#: 8192`), tile 128, balanced escalation, RHS padded to 256 columns, the
+#: 8192`; at 4096 15 / 15 / 35 s, cut to keep the run inside its time
+#: limit), tile 128, balanced escalation, RHS padded to 256 columns, the
 #: 2x2 grid's row extent as balance groups
-SUMMA_SOLVE_N = 4096
+SUMMA_SOLVE_N = 2048
 SUMMA_NRHS_PAD = 256
 
 
@@ -2763,8 +3325,10 @@ def main() -> None:
     from repro_torch.configs import get
     cfg = get("internlm2-1.8b")
     sv = serve(cfg)
-    ss = serve_state(cfg)
+    ss = serve_state(dataclasses.replace(cfg, n_layers=STATE_LAYERS))
     sq = serve_quant(cfg)
+    sm9 = serve_moe(get("qwen2-moe-a2.7b"))
+    sw9 = serve_windowed(get("gemma3-4b"))
     sol = solve_phase()
     parity_phase()
     tr = train_phase(cfg)
@@ -2780,11 +3344,15 @@ def main() -> None:
          "source": "src/repro_torch/csrc/ksplit_gemm.cu",
          "replaces": "src/repro/kernels/ksplit_gemm.py:97",
          "launches": (sv["launches"] + ss["launches"] + sq["launches"]
-                      + tr["launches"]),
+                      + tr["launches"] + sm9["launches"]
+                      + sm9["launches16"] + sw9["launches"]),
          "launches_by_phase": {"serve": sv["launches"],
                                "serve_state": ss["launches"],
                                "serve_quant": sq["launches"],
-                               "train": tr["launches"]},
+                               "train": tr["launches"],
+                               "serve_moe": sm9["launches"],
+                               "serve_moe_cf16": sm9["launches16"],
+                               "serve_gemma3": sw9["launches"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}},
@@ -2859,7 +3427,11 @@ def main() -> None:
           f"{train_row['library_ms']:.4f}); summa phase {sm['phase_s']:.1f} "
           f"s, grid solves {[round(v, 2) for v in sm['walls'].values()]} s "
           f"(single, 1x1, 2x2), 2x2 broadcast share "
-          f"{sm['broadcast_share']:.1%}; total "
+          f"{sm['broadcast_share']:.1%}; serve moe {sm9['tokens_per_s']:.2f} "
+          f"tokens/s, decode step {sm9['wall_ms']:.2f} ms (byte bound "
+          f"{sm9['bound_ms']:.2f} ms), peak {sm9['peak_gb']:.2f} GB (phase "
+          f"{sm9['phase_s']:.1f} s); serve gemma3 {sw9['tokens_per_s']:.2f} "
+          f"tokens/s (phase {sw9['phase_s']:.1f} s); total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

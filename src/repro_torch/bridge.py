@@ -1,8 +1,8 @@
-"""Parameter bridge: the JAX package's dense-decoder parameters and
-AdamW state, handed over as numpy arrays plus class maps, into the
-port's — so both packages compute from the same state in the parity
-tests.  (Checkpoints need no bridge: ``repro_torch.checkpoint`` reads
-and writes the reference's format.)
+"""Parameter bridge: the JAX package's decoder parameters (dense and
+MoE, full or local/global attention) and AdamW state, handed over as
+numpy arrays plus class maps, into the port's — so both packages compute
+from the same state in the parity tests.  (Checkpoints need no bridge:
+``repro_torch.checkpoint`` reads and writes the reference's format.)
 
 It imports no JAX.  The numpy tree follows the reference's layout::
 
@@ -13,8 +13,14 @@ It imports no JAX.  The numpy tree follows the reference's layout::
                           "mlp": {"up": LIN, "gate": LIN, "down": LIN}}},
                 ...]}
 
-where each segment's leaves carry a leading repeat dim R (the reference
-stacks the layers it scans), and each ``LIN`` is a dict
+where segment s holds positions ``pos0 .. pos{p-1}`` of the pattern
+(``ArchConfig.segments``), each leaf carrying a leading repeat dim R
+(the reference stacks the layers it scans); an MoE layer holds ``"moe":
+{"router": [R, d, E], "gate": MOE, "up": MOE, "down": MOE, "shared":
+{"up": LIN, "gate": LIN, "down": LIN}}`` in place of ``"mlp"``, each
+``MOE`` a dict ``{"kind": "moe_ksplit" | "moe_nsplit", "w_hi": array,
+"w_lo": array, "cls": k_cls / n_cls, "tile": int, "shape": (E, K, N)}``;
+and each ``LIN`` is a dict
 ``{"kind": "ksplit" | "nsplit" | "dense", "bufs": [array per class code]
 (or "w": array for dense), "cls": k_cls / n_cls, "tile": int,
 "shape": (K, N), "formats": FormatSet key, "b": array or None}``.
@@ -30,6 +36,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.formats import FormatSet
 from repro_torch.core.layout import KSplitWeight, NSplitWeight
 from repro_torch.core.linear import MPLinear
+from repro_torch.models.moe import MoEKSplit, MoENSplit
+from repro_torch.models.transformer import check_family
+from repro_torch.tree import LayerList, segment_layers
+
+_MOE_KINDS = {"moe_ksplit": MoEKSplit, "moe_nsplit": MoENSplit}
 
 #: numpy dtype name -> (same-width integer view, torch dtype)
 _BIT_VIEWS = {"bfloat16": (np.int16, torch.bfloat16),
@@ -69,35 +80,58 @@ def _linear(lin: dict, r: int | None, device) -> MPLinear:
     raise ValueError(f"unknown linear kind {kind!r}")
 
 
+def _moe_weight(lin: dict, r: int, device):
+    return _MOE_KINDS[lin["kind"]](
+        tensor_from_numpy(lin["w_hi"][r], device),
+        tensor_from_numpy(lin["w_lo"][r], device),
+        np.asarray(lin["cls"], np.int8), int(lin["tile"]),
+        tuple(int(s) for s in lin["shape"]))
+
+
 def _layer(p: dict, r: int, device) -> dict:
     vec = lambda a: tensor_from_numpy(a[r], device)   # noqa: E731
-    return {
-        "norm1": vec(p["norm1"]),
-        "attn": {k: _linear(v, r, device) for k, v in p["attn"].items()},
-        "norm2": vec(p["norm2"]),
-        "mlp": {k: _linear(v, r, device) for k, v in p["mlp"].items()},
-    }
+    out = {"norm1": vec(p["norm1"]),
+           "attn": {k: _linear(v, r, device) for k, v in p["attn"].items()},
+           "norm2": vec(p["norm2"])}
+    if "mlp" in p:
+        out["mlp"] = {k: _linear(v, r, device) for k, v in p["mlp"].items()}
+    if "moe" in p:
+        m = p["moe"]
+        moe = {"router": vec(m["router"])}
+        for name in ("gate", "up", "down"):
+            moe[name] = _moe_weight(m[name], r, device)
+        if "shared" in m:
+            moe["shared"] = {k: _linear(v, r, device)
+                             for k, v in m["shared"].items()}
+        out["moe"] = moe
+    return out
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The port's parameter dict (see :mod:`repro_torch.models.
     transformer`) from the reference's numpy tree."""
-    if cfg.family != "dense":
-        raise NotImplementedError("only dense decoders are bridged")
-    layers = []
-    for seg in tree["blocks"]:
-        if set(seg) != {"pos0"}:
-            raise ValueError("a dense decoder has one layer per period")
-        p = seg["pos0"]
-        for r in range(np.shape(p["norm1"])[0]):
-            layers.append(_layer(p, r, device))
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"tree holds {len(layers)} layers, config "
-                         f"{cfg.n_layers}")
+    check_family(cfg)
+    period = cfg.pattern_period()
+    segs = segment_layers(cfg.n_layers, period)
+    if len(tree["blocks"]) != len(segs):
+        raise ValueError(f"tree holds {len(tree['blocks'])} segments, "
+                         f"config {len(segs)}")
+    layers = [None] * cfg.n_layers
+    for seg, positions in zip(tree["blocks"], segs):
+        if set(seg) != {f"pos{q}" for q in range(len(positions))}:
+            raise ValueError(f"segment positions {sorted(seg)} do not "
+                             f"match the config's {len(positions)}")
+        for q, idx in enumerate(positions):
+            p = seg[f"pos{q}"]
+            if np.shape(p["norm1"])[0] != len(idx):
+                raise ValueError(f"pos{q} holds {np.shape(p['norm1'])[0]} "
+                                 f"repeats, config {len(idx)}")
+            for r, i in enumerate(idx):
+                layers[i] = _layer(p, r, device)
     return {"embed": tensor_from_numpy(tree["embed"], device),
             "final_norm": tensor_from_numpy(tree["final_norm"], device),
             "lm_head": _linear(tree["lm_head"], None, device),
-            "layers": layers}
+            "layers": LayerList(layers, period)}
 
 
 def opt_state_from_numpy(state: dict, cfg: ArchConfig, device="cuda"):

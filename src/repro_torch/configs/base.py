@@ -1,9 +1,16 @@
-"""Architecture configuration schema + registry (the dense part of
-``repro.configs.base``).
+"""Architecture configuration schema + registry (the attention families
+of ``repro.configs.base``: dense and MoE decoders, full or local/global
+attention).
 
 The port runs on one card, so there is no tensor parallelism: ``tp`` is
 1 by default and attention keeps the published kv-head count (the JAX
-package pads/duplicates heads for a 16-way model axis).
+package pads/duplicates heads for a 16-way model axis).  One decision
+of the reference's model axis changes numbers, not only placement: an
+MoE config whose expert count divides the axis stores its down
+projection K-split, otherwise N-split (``repro.models.moe.init_moe``).
+``ep_axis`` keeps that decision at the reference's published axis size,
+:data:`REFERENCE_TP`; :func:`reduced` sets it to the reduced ``tp``, as
+the reference's reduced configs decide at their own ``tp``.
 """
 from __future__ import annotations
 
@@ -15,11 +22,15 @@ from repro_torch.core.precision import Policy
 
 REGISTRY: dict[str, "ArchConfig"] = {}
 
+#: model-parallel axis size of the reference's production mesh (16x16
+#: pod), at which it decides expert parallelism (``moe_ep``)
+REFERENCE_TP = 16
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # only "dense" is ported so far
+    family: str                  # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,11 +38,28 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
+    # --- attention pattern ---------------------------------------------
+    attn_pattern: str = "full"   # full | local_global
+    local_window: int = 1024
+    global_every: int = 6        # 5 local : 1 global
     rope_theta: float = 500000.0
     use_rope: bool = True
+    # --- MoE --------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    shared_d_ff: int = 0
+    moe_every: int = 1       # apply MoE at layers i % moe_every == moe_offset
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    #: model-axis size at which ``moe_ep`` is decided (see module doc)
+    ep_axis: int = REFERENCE_TP
     # --- mixed-precision policy (the paper's technique) ------------------
     mp_policy: Policy = Policy(kind="ratio", ratio_high=0.5)
     mp_tile: int = 128
+    #: governs the dense stack (attention / MLP / lm_head); the MoE
+    #: experts and the shared expert stay on the default set, as in the
+    #: reference
     mp_formats: str = "fp8_e4m3+bf16+fp32"
     #: padded-prompt-length buckets of the serve scheduler (None → the
     #: serve defaults)
@@ -43,6 +71,69 @@ class ArchConfig:
     tp: int = 1
     gated_mlp: bool = True
     kv_dup_to_tp: bool = False
+    notes: str = ""
+
+    # ---------------------------------------------------------------------
+    def layer_kinds(self) -> list[tuple[str, str]]:
+        """[(mixer, ffn)] per layer: mixer ∈ {attn_full, attn_local},
+        ffn ∈ {mlp, moe}."""
+        kinds = []
+        for i in range(self.n_layers):
+            if self.attn_pattern == "local_global":
+                mixer = ("attn_full"
+                         if i % self.global_every == self.global_every - 1
+                         else "attn_local")
+            else:
+                mixer = "attn_full"
+            ffn = "moe" if self.n_experts else "mlp"
+            kinds.append((mixer, ffn))
+        return kinds
+
+    def pattern_period(self) -> int:
+        kinds = self.layer_kinds()
+        for p in range(1, len(kinds) + 1):
+            if all(kinds[i] == kinds[i % p] for i in range(len(kinds))):
+                return p
+        return len(kinds)
+
+    def segments(self) -> list[tuple[list[tuple[str, str]], int]]:
+        """[(pattern, repeats)]: the reference's scan schedule, whole
+        pattern periods then a tail.  The port runs its layers as a list;
+        this is where each layer sits in the reference's parameter tree
+        (``repro_torch.tree``)."""
+        kinds = self.layer_kinds()
+        p = self.pattern_period()
+        main = len(kinds) // p
+        segs = []
+        if main:
+            segs.append((kinds[:p], main))
+        tail = kinds[main * p:]
+        if tail:
+            segs.append((tail, 1))
+        return segs
+
+    @property
+    def moe_ep(self) -> bool:
+        """Expert parallel in the reference (E divides its model axis):
+        the down projection is K-split; otherwise N-split."""
+        return self.n_experts > 0 and self.n_experts % self.ep_axis == 0
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), as the
+        reference counts it."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        dh = self.head_dim or d // self.n_heads
+        total = v * d * 2  # embed + head
+        for mixer, ffn in self.layer_kinds():
+            if mixer.startswith("attn"):
+                total += d * dh * (self.n_heads * 2 + self.n_kv_heads * 2)
+            if ffn == "mlp":
+                total += 3 * d * f
+            elif ffn == "moe":
+                total += self.n_experts * 3 * d * f
+                if self.n_shared:
+                    total += 3 * d * self.shared_d_ff
+        return total
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -50,7 +141,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-_ARCH_MODULES = ["internlm2_1_8b"]
+_ARCH_MODULES = ["llama3_8b", "internlm2_1_8b", "gemma3_4b",
+                 "qwen2_moe_a2_7b", "phi35_moe"]
 
 
 def load_all() -> dict[str, ArchConfig]:
@@ -66,19 +158,26 @@ def get(name: str) -> ArchConfig:
 
 
 def reduced(cfg: ArchConfig, tp: int = 2) -> ArchConfig:
-    """Tiny same-family variant for CPU tests — the same shrink as the
-    reference's ``reduced`` for a dense config."""
+    """Tiny same-family variant for CPU tests — the reference's shrink:
+    keeps the block pattern, shrinks every dimension."""
+    period = cfg.pattern_period()
     kw = dict(
         name=cfg.name + "-smoke",
-        n_layers=2,
+        n_layers=max(2, min(2 * period, 8)),
         d_model=64,
         n_heads=4,
         n_kv_heads=max(1, min(4, cfg.n_kv_heads)),
         d_ff=0 if cfg.d_ff == 0 else 128,
         vocab=128,
         head_dim=16,
+        local_window=8,
+        n_experts=min(4, cfg.n_experts) if cfg.n_experts else 0,
+        top_k=min(2, cfg.top_k) if cfg.top_k else 0,
+        n_shared=min(1, cfg.n_shared),
+        shared_d_ff=64 if cfg.n_shared else 0,
         mp_tile=16,
         tp=tp,
+        ep_axis=tp,
         serve_buckets=(4, 8, 16, 32),
     )
     return dataclasses.replace(cfg, **kw)

@@ -11,4 +11,5 @@ register(ArchConfig(
     d_ff=8192,
     vocab=92544,
     rope_theta=1000000.0,
+    kv_dup_to_tp=True,
 ))

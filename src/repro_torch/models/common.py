@@ -1,7 +1,7 @@
-"""Shared model components of the dense decoder: RMSNorm, RoPE, GQA
-attention (prefill and one-token decode with a ``kv_valid`` mask and
-per-row positions/slots), the gated MLP and the embedding (twin of the
-dense part of ``repro.models.common``).
+"""Shared model components: RMSNorm, RoPE, GQA attention (causal or
+sliding-window prefill; one-token decode with a ``kv_valid`` mask and
+per-row positions/slots, or a ring buffer for a window), the gated MLP
+and the embedding (twin of ``repro.models.common``).
 
 Every large matmul is an :class:`~repro_torch.core.linear.MPLinear`:
 wq/wk/wv/up/gate are KSplit (the ksplit kernel on the card), wo/down are
@@ -141,21 +141,71 @@ def _attend(q, k, v, valid) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
+def sliding_window_attention(q, k, v, *, window: int) -> torch.Tensor:
+    """Banded causal attention with window ``w``: block i of queries
+    attends kv blocks (i-1, i) of width w, each query the last w keys
+    (itself included) — the keys the decode ring buffer holds.
+    q, k, v: [B, S, H, dh]; S % w == 0 when S > w.  Returns [B, S, H, dh]
+    fp32.
+
+    The reference's band mask (``repro.models.common``, ``kj > qi - w``)
+    admits the whole previous block, up to 2w - 1 keys, so past the window
+    its bulk forward disagrees with its own decode; the port keeps the
+    w-key window of decode (``ROADMAP.md`` queue 3, F8)."""
+    B, S, H, dh = q.shape
+    w = window
+    dev = q.device
+    if S <= w:
+        causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+        return _attend(q, k, v, causal[None, None])
+    assert S % w == 0, (S, w)
+    nb = S // w
+    scale = 1.0 / math.sqrt(dh)
+
+    def blocks(t):                                    # [B, H, nb, w, dh]
+        return t.transpose(1, 2).reshape(B, H, nb, w, dh)
+
+    qb = blocks(q.float() * scale)
+    kb, vb = blocks(k), blocks(v)
+
+    def band(t):                       # (previous block, this block)
+        prev = torch.cat([torch.zeros_like(t[:, :, :1]), t[:, :, :-1]], 2)
+        return torch.cat([prev, t], 3).float()       # [B, H, nb, 2w, dh]
+
+    s = fp32_matmul(qb, band(kb).transpose(-1, -2))  # [B, H, nb, w, 2w]
+    qi = torch.arange(w, device=dev)[:, None]
+    kj = torch.arange(2 * w, device=dev)[None, :]
+    valid = (kj - w <= qi) & (kj > qi)                # causal + window
+    first = torch.arange(nb, device=dev)[:, None, None] == 0
+    valid = valid[None] & (~first | (kj[None] >= w))
+    s = torch.where(valid[None, None], s, torch.full_like(s, MASKED))
+    p = torch.softmax(s, dim=-1)
+    out = fp32_matmul(p, band(vb))                    # [B, H, nb, w, dh]
+    return out.reshape(B, H, S, dh).transpose(1, 2)
+
+
 def attention_block(params, x, dims: AttnDims, *, positions,
-                    rope_theta=10000.0, use_rope=True) -> torch.Tensor:
-    """Causal prefill attention.  x: [B, S, d]."""
+                    window: int | None = None, rope_theta=10000.0,
+                    use_rope=True) -> torch.Tensor:
+    """Causal prefill attention, windowed when ``window`` is set.
+    x: [B, S, d]."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, dims, positions, rope_theta, use_rope)
     k = _repeat_kv(k, dims.group)
     v = _repeat_kv(v, dims.group)
-    causal = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-    out = _attend(q, k, v, causal[None, None]).to(ACT_DTYPE)
-    out = out.reshape(B, S, dims.n_q * dims.head_dim)
+    if window is not None:
+        out = sliding_window_attention(q, k, v, window=window)
+    else:
+        causal = torch.ones((S, S), dtype=torch.bool,
+                            device=x.device).tril()
+        out = _attend(q, k, v, causal[None, None])
+    out = out.to(ACT_DTYPE).reshape(B, S, dims.n_q * dims.head_dim)
     return params["wo"](out).to(ACT_DTYPE)
 
 
 def decode_attention(params, x, dims: AttnDims, cache_k, cache_v, *,
-                     position, rope_theta=10000.0, use_rope: bool = True,
+                     position, rope_theta=10000.0,
+                     window: int | None = None, use_rope: bool = True,
                      slot: Optional[torch.Tensor] = None,
                      kv_valid: Optional[torch.Tensor] = None):
     """One-token decode.  x: [B, 1, d]; cache_k/v: [B, S_max, n_kv, dh],
@@ -164,13 +214,18 @@ def decode_attention(params, x, dims: AttnDims, cache_k, cache_v, *,
 
     ``position`` is an int (shared) or a [B] tensor (per-row, RoPE); a
     per-row position needs the cache ``slot`` ([B] tensor or int) and a
-    [B, S_max] ``kv_valid`` visibility mask, as in the reference."""
+    [B, S_max] ``kv_valid`` visibility mask, as in the reference.  With a
+    ``window`` the cache is a ring buffer of the last S_max positions:
+    slot ``position % S_max``, every filled slot visible; a window refuses
+    ``kv_valid`` and a per-row slot, as the reference does."""
     B = x.shape[0]
     nq, dh = dims.n_q, dims.head_dim
     S_max = cache_k.shape[1]
     batched = torch.is_tensor(position) and position.ndim != 0
     if batched and (slot is None or kv_valid is None):
         raise ValueError("per-request position needs explicit slot+kv_valid")
+    if kv_valid is not None and window is not None:
+        raise ValueError("kv_valid masking is full-attention only")
     if batched:
         pos = position.reshape(B, 1)
     else:
@@ -181,15 +236,23 @@ def decode_attention(params, x, dims: AttnDims, cache_k, cache_v, *,
         slot = position
     rows = torch.arange(B, device=x.device)
     if torch.is_tensor(slot) and slot.ndim != 0:
+        if window is not None:
+            raise ValueError("per-row slot vector is full-attention only")
         idx = slot.reshape(B)
         cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
     else:
-        cache_k[:, int(slot)] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, int(slot)] = v[:, 0].to(cache_v.dtype)
+        at = int(slot) % S_max if window is not None else int(slot)
+        cache_k[:, at] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, at] = v[:, 0].to(cache_v.dtype)
     if kv_valid is None:
         kv_pos = torch.arange(S_max, device=x.device)
-        kv_valid = (kv_pos[None, :] <= int(position)).expand(B, S_max)
+        if window is not None:
+            # in a ring buffer every slot is within the window once full
+            seen = kv_pos < min(int(position) + 1, S_max)
+        else:
+            seen = kv_pos <= int(position)
+        kv_valid = seen[None, :].expand(B, S_max)
     kk = _repeat_kv(cache_k, dims.group)
     vv = _repeat_kv(cache_v, dims.group)
     out = _attend(q, kk, vv, kv_valid[:, None, None, :]).to(ACT_DTYPE)

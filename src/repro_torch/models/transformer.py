@@ -1,15 +1,23 @@
-"""Dense decoder: init, KV caches, the training forward, prefill and
-one-token decode (twin of the dense family of
-``repro.models.transformer``).
+"""Decoder model: init, KV caches, the training forward, prefill and
+one-token decode for the dense and MoE families, with full or
+local/global attention (twin of ``repro.models.transformer`` for those
+families).
 
 Parameters are a plain dict::
 
     {"embed": bf16[V, d], "final_norm": f32[d], "lm_head": MPLinear,
-     "layers": [{"norm1", "attn": {wq, wk, wv, wo}, "norm2",
-                 "mlp": {up, gate, down}}, ...]}
+     "layers": LayerList([{"norm1", "attn": {wq, wk, wv, wo}, "norm2",
+                           "mlp": {up, gate, down}
+                           | "moe": {router, gate, up, down, [shared]}},
+                          ...])}
 
-Layers run in a Python loop (the reference's ``scan`` over stacked
-layers has no counterpart that an eager decode step needs).
+Layer i's kinds are ``cfg.layer_kinds()[i]``: mixer ``attn_full`` or
+``attn_local`` (a sliding window of ``cfg.local_window``; its cache is a
+ring buffer of ``min(seq_len, local_window)`` slots), ffn ``mlp`` or
+``moe``.  Layers run in a Python loop; the reference scans them in
+segments of whole pattern periods, and :class:`~repro_torch.tree.
+LayerList` carries the period so the port's trees walk as the
+reference's (``repro_torch.tree``).
 """
 from __future__ import annotations
 
@@ -21,7 +29,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.formats import FormatSet
 from repro_torch.core.linear import init_mp_linear
 from repro_torch.models import common as C
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import ACT_DTYPE
+from repro_torch.tree import LayerList
+
+#: families the port serves; the rest wait in ROADMAP.md queue 1, item 7
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def dims_of(cfg: ArchConfig) -> C.AttnDims:
@@ -29,106 +42,166 @@ def dims_of(cfg: ArchConfig) -> C.AttnDims:
                        cfg.head_dim, cfg.kv_dup_to_tp)
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only dense decoders are ported")
+            f"family {cfg.family!r} is not ported: the hybrid (Mamba), "
+            "ssm (xLSTM), audio and vision families wait in ROADMAP.md "
+            "queue 1, item 7")
+
+
+def _window(cfg: ArchConfig, mixer: str):
+    return cfg.local_window if mixer == "attn_local" else None
+
+
+def _init_layer(gen, cfg: ArchConfig, ffn: str) -> dict:
+    dev = gen.device
+    fs = FormatSet.from_key(cfg.mp_formats)
+    p: dict[str, Any] = {
+        "norm1": C.init_rms_norm(cfg.d_model, dev),
+        "attn": C.init_attention(gen, cfg.d_model, dims_of(cfg),
+                                 cfg.mp_policy, cfg.mp_tile, fset=fs,
+                                 device=dev),
+        "norm2": C.init_rms_norm(cfg.d_model, dev),
+    }
+    if ffn == "mlp":
+        p["mlp"] = C.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mp_policy,
+                              cfg.mp_tile, gated=cfg.gated_mlp, fset=fs,
+                              device=dev)
+    else:
+        p["moe"] = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                cfg.top_k, cfg.mp_policy,
+                                n_shared=cfg.n_shared,
+                                shared_d_ff=cfg.shared_d_ff or None,
+                                tile=cfg.mp_tile, ep=cfg.moe_ep)
+    return p
 
 
 def init_model(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random weights from a seeded generator, on the generator's device
     (``torch.Generator(device="cuda").manual_seed(s)`` for the card)."""
-    _check_dense(cfg)
+    check_family(cfg)
     dev = gen.device
     fs = FormatSet.from_key(cfg.mp_formats)
-    dims = dims_of(cfg)
     params: dict[str, Any] = {
         "embed": C.init_embedding(gen, cfg.vocab, cfg.d_model, dev),
         "final_norm": C.init_rms_norm(cfg.d_model, dev),
         "lm_head": init_mp_linear(gen, cfg.d_model, cfg.vocab,
                                   cfg.mp_policy, split="ksplit",
                                   tile=cfg.mp_tile, fset=fs, device=dev),
-        "layers": [],
     }
-    for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "norm1": C.init_rms_norm(cfg.d_model, dev),
-            "attn": C.init_attention(gen, cfg.d_model, dims, cfg.mp_policy,
-                                     cfg.mp_tile, fset=fs, device=dev),
-            "norm2": C.init_rms_norm(cfg.d_model, dev),
-            "mlp": C.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mp_policy,
-                              cfg.mp_tile, gated=cfg.gated_mlp, fset=fs,
-                              device=dev),
-        })
+    params["layers"] = LayerList(
+        [_init_layer(gen, cfg, ffn) for _, ffn in cfg.layer_kinds()],
+        cfg.pattern_period())
     return params
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                device="cuda") -> list[dict]:
-    """One zeroed ``{"k", "v"}`` pair of [B, S, n_kv, dh] bf16 per layer."""
+    """One zeroed ``{"k", "v"}`` pair of [B, S, n_kv, dh] bf16 per layer;
+    a local layer's S is ``min(seq_len, local_window)``."""
     dims = dims_of(cfg)
-    shape = (batch, seq_len, dims.n_kv, dims.head_dim)
-    return [{"k": torch.zeros(shape, dtype=ACT_DTYPE, device=device),
-             "v": torch.zeros(shape, dtype=ACT_DTYPE, device=device)}
-            for _ in range(cfg.n_layers)]
+    out = []
+    for mixer, _ in cfg.layer_kinds():
+        s = min(seq_len, cfg.local_window) if mixer == "attn_local" \
+            else seq_len
+        shape = (batch, s, dims.n_kv, dims.head_dim)
+        out.append({"k": torch.zeros(shape, dtype=ACT_DTYPE, device=device),
+                    "v": torch.zeros(shape, dtype=ACT_DTYPE, device=device)})
+    return out
 
 
-def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor
-                ) -> torch.Tensor:
-    """Embed ``tokens`` [B, S] and run every layer with causal attention
-    over the full sequence; returns the residual stream [B, S, d]."""
+def _ffn(lp, cfg: ArchConfig, ffn: str, h, aux: bool = False,
+         drops: list | None = None):
+    """(ffn output, the MoE aux loss when ``aux``, else None)."""
+    if ffn == "mlp":
+        return C.mlp_block(lp["mlp"], h), None
+    out = MOE.moe_block(lp["moe"], h, top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor,
+                        return_aux=aux, drops=drops)
+    return out if aux else (out, None)
+
+
+def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor):
+    """Embed ``tokens`` [B, S] and run every layer over the full sequence
+    (causal, windowed on local layers); returns the residual stream
+    [B, S, d] and the summed MoE aux loss."""
     dims = dims_of(cfg)
     x = C.embed(params["embed"], tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    for lp in params["layers"]:
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for lp, (mixer, ffn) in zip(params["layers"], cfg.layer_kinds()):
         h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
         x = x + C.attention_block(lp["attn"], h, dims, positions=positions,
+                                  window=_window(cfg, mixer),
                                   rope_theta=cfg.rope_theta,
                                   use_rope=cfg.use_rope)
         h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = (x + C.mlp_block(lp["mlp"], h2)).to(ACT_DTYPE)
-    return x
+        out, a = _ffn(lp, cfg, ffn, h2, aux=True)
+        x = (x + out).to(ACT_DTYPE)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward_train(params, cfg: ArchConfig, batch: dict):
     """Training forward: ``batch`` {"tokens", "labels"} [B, S] → (loss,
     metrics).  No remat: the reference's ``jax.checkpoint`` saves memory
     and changes no number."""
-    _check_dense(cfg)
-    x = _run_layers(params, cfg, batch["tokens"])
+    check_family(cfg)
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE training (the load-balance aux loss in the loss and the "
+            "experts' backward) is not ported: ROADMAP.md queue 1, item 7")
+    S = batch["tokens"].shape[1]
+    if cfg.attn_pattern == "local_global" and S > cfg.local_window:
+        raise NotImplementedError(
+            f"training at S = {S} past the local window "
+            f"{cfg.local_window}: the reference's bulk band admits up to "
+            "2w - 1 keys where its decode holds w, and the port's band "
+            "holds w, so the two trainings would differ (ROADMAP.md "
+            "queue 3, F8)")
+    x, aux = _run_layers(params, cfg, batch["tokens"])
     x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
     loss = C.cross_entropy(params["lm_head"](x), batch["labels"])
-    return loss, {"ce": loss, "aux": torch.zeros((), device=loss.device)}
+    return loss, {"ce": loss, "aux": aux}
 
 
 def forward_prefill(params, cfg: ArchConfig, tokens: torch.Tensor
                     ) -> torch.Tensor:
-    """Run the prompt [B, S] with causal attention; last-position logits
-    [B, 1, V]."""
-    _check_dense(cfg)
-    x = _run_layers(params, cfg, tokens)
+    """Run the prompt [B, S] (causal; windowed on local layers);
+    last-position logits [B, 1, V].  Past the window the local layers
+    attend to the last w keys, as the reference's decode does, not to its
+    bulk band of up to 2w - 1 (``ROADMAP.md`` queue 3, F8)."""
+    check_family(cfg)
+    x, _ = _run_layers(params, cfg, tokens)
     x = C.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return params["lm_head"](x)
 
 
 def forward_decode(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
-                   position, *, slot=None, kv_valid=None):
+                   position, *, slot=None, kv_valid=None,
+                   moe_drops: list | None = None):
     """One-token decode step.  tokens: [B, 1]; caches from
     :func:`init_cache` (updated in place).  ``position`` is an int or a
     per-row [B] tensor (then with ``slot`` and ``kv_valid``, as in
-    :func:`~repro_torch.models.common.decode_attention`).  Returns
-    (logits [B, 1, V] fp32, caches)."""
-    _check_dense(cfg)
+    :func:`~repro_torch.models.common.decode_attention`; full attention
+    only).  ``moe_drops``, when given, collects each MoE layer's count of
+    dropped (token, expert) pairs (device scalars).  Returns (logits
+    [B, 1, V] fp32, caches)."""
+    check_family(cfg)
     dims = dims_of(cfg)
     x = C.embed(params["embed"], tokens)
-    for lp, cache in zip(params["layers"], caches):
+    for lp, cache, (mixer, ffn) in zip(params["layers"], caches,
+                                       cfg.layer_kinds()):
         h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
         x = x + C.decode_attention(
             lp["attn"], h, dims, cache["k"], cache["v"], position=position,
-            rope_theta=cfg.rope_theta, use_rope=cfg.use_rope, slot=slot,
-            kv_valid=kv_valid)
+            rope_theta=cfg.rope_theta, window=_window(cfg, mixer),
+            use_rope=cfg.use_rope, slot=slot, kv_valid=kv_valid)
         h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = (x + C.mlp_block(lp["mlp"], h2)).to(ACT_DTYPE)
+        out, _ = _ffn(lp, cfg, ffn, h2, drops=moe_drops)
+        x = (x + out).to(ACT_DTYPE)
     x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return params["lm_head"](x), caches

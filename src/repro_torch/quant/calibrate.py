@@ -34,6 +34,7 @@ import torch
 from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet, format_set
 from repro_torch.core.layout import KSplitWeight
 from repro_torch.core.linear import MPLinear
+from repro_torch.tree import LayerList
 
 
 def _absmax(x, axis: int) -> np.ndarray:
@@ -125,7 +126,9 @@ def _rebuild(group: list, fn) -> list:
         return outs
     if isinstance(first, list):
         # a list's items are the layers: they share each weight's map
-        return [_rebuild(g, fn) for g in group]
+        return [LayerList(_rebuild(g, fn), g.period)
+                if isinstance(g, LayerList) else _rebuild(g, fn)
+                for g in group]
     if isinstance(first, MPLinear) and isinstance(first.w, KSplitWeight):
         return [MPLinear(w, m.b)
                 for w, m in zip(fn([m.w for m in group]), group)]

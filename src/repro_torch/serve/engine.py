@@ -1,11 +1,29 @@
 """Serving engine: shape-bucketed continuous batching with plan-warmed
 dispatch, slot retire-and-refill, block-paged prefix-KV reuse, chunked
-long-prompt prefill and per-request sampling streams — the masked-mode
-path of ``repro.serve.engine``.
+long-prompt prefill and per-request sampling streams — both batching
+modes of ``repro.serve.engine``.
+
+The mode follows the family, as in the reference: full-attention dense
+decoders serve in ``masked`` mode (below); sliding-window attention
+(gemma3's local layers) and MoE serve in ``equal`` mode, where a bucket
+holds requests of one exact length and every row shares a scalar
+position — prefill steps the decode function over positions ``0 .. S-1``,
+decode runs at ``S + t - 1``, filler rows repeat the last real request
+(after the real rows, so under MoE they never take a real row's expert
+capacity), and refill, the prefix cache and chunked prefill are off.
+Equal mode is exact for windowed attention.  Under MoE capacity routing
+it is not: a decode step routes the B rows' tokens together, and with
+the configured ``capacity_factor`` (1.25) a (token, expert) pair that
+two rows both pick can drop for the later row, which the same request
+served alone keeps.  The engine reproduces the reference's batched
+behaviour, drops included, and ``stats()["moe"]`` counts the dropped
+pairs per microbatch; batched equals unbatched where nothing drops
+(``capacity_factor`` with C ≥ B).
 
 Requests are admitted into :class:`~repro_torch.serve.scheduler.
 ShapeBucketScheduler` and drained as fixed-shape microbatches (bucket
-batch × padded length).  A microbatch is right-padded; its prefill steps
+batch × padded length).  In masked mode a microbatch is right-padded
+(different lengths share a bucket); its prefill steps
 the decode function over the padded prompt at a shared position, then
 decode threads per-row positions and a KV visibility mask through
 ``forward_decode``.  On top of that, as in the reference:
@@ -41,7 +59,8 @@ decoding at ``pos = L``.
 
 Exactness: :meth:`generate_reference` serves each request alone — exact
 prompt length, no padding, no other request in the batch — through the
-same decode step at the engine's batch width (the idle rows repeat the
+same decode step (per-row positions in masked mode, the scalar position
+in equal mode) at the engine's batch width (the idle rows repeat the
 request, as the engine's filler rows do).  Every launch then has the
 serving shapes, so cuBLAS and PyTorch's reductions pick the same
 algorithms, and a row's result does not depend on the other rows; the
@@ -161,16 +180,15 @@ class Engine:
                  config: Optional[ServeConfig] = None, *,
                  variants: Optional[dict] = None):
         config = config or ServeConfig()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: only dense (masked mode) is ported")
+        T.check_family(cfg)
         self.config = config
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.max_batch, self.max_seq = config.max_batch, config.max_seq
         #: weights per format-set tag (a request's ``fset`` picks one)
         self.variants = {"default": params, **(variants or {})}
-        self.mode = "masked"
+        self.mode = ("masked" if cfg.attn_pattern == "full"
+                     and cfg.n_experts == 0 else "equal")
         # tune-once at setup: a plan for every mixed-precision layer of
         # every variant at the decode batch size
         dispatch.warm_registry()
@@ -187,8 +205,10 @@ class Engine:
             from repro_torch.core.summa import config_selfcheck
             self.summa_report = config_selfcheck(
                 cfg, grid, device=self.device.type)
-        self.refill_enabled = config.refill
-        if config.prefix_cache:
+        # refill, paged prefix reuse and chunked prefill need per-row
+        # cache progress: masked mode only
+        self.refill_enabled = config.refill and self.mode == "masked"
+        if config.prefix_cache and self.mode == "masked":
             self.pool = PagePool(config.page_tokens, config.prefix_pages)
             self.prefix = PagedPrefixCache(self.pool)
         else:
@@ -206,7 +226,9 @@ class Engine:
         # prompts longer than every configured bucket round up to a
         # multiple of the largest bucket width and prefill chunk by chunk
         self._max_cfg_pad = max(fitting)
-        self._chunk = self._max_cfg_pad if config.chunked_prefill else 0
+        self._chunk = (self._max_cfg_pad
+                       if config.chunked_prefill and self.mode == "masked"
+                       else 0)
         self._chunk_warmed = False
         self.metrics = MetricsRegistry()
         self.scheduler = ShapeBucketScheduler(
@@ -218,6 +240,8 @@ class Engine:
         #: refill prefill caches, one per batch width, zeroed per refill
         self._scratch: dict[int, list] = {}
         self._kv_pos = torch.arange(self.max_seq, device=self.device)
+        #: MoE (token, expert) pairs dropped, per equal-mode microbatch
+        self.moe_dropped: list[int] = []
 
     def _prefix_len(self, pad_len: int) -> int:
         """Reusable-prefix point of a bucket: ``pad_len // 2`` aligned
@@ -342,8 +366,12 @@ class Engine:
             if mb is None:
                 return
             bucket, reqs = mb
-            if reqs:
+            if not reqs:
+                continue
+            if self.mode == "masked":
                 self._serve_microbatch(bucket, reqs)
+            else:
+                self._serve_microbatch_equal(bucket, reqs)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Snapshot a host staging buffer onto the device.  The numpy copy
@@ -354,8 +382,8 @@ class Engine:
     # -- model steps ------------------------------------------------------
 
     def _prefill(self, params, caches, toks: np.ndarray,
-                 lengths: np.ndarray, start: int, stop: int
-                 ) -> torch.Tensor:
+                 lengths: np.ndarray, start: int, stop: int,
+                 moe_drops: list | None = None) -> torch.Tensor:
         """Step the decode function over positions ``start .. stop-1`` of
         ``toks`` [B, S] (caches already hold positions ``< start``: copied
         pages or skipped chunks).  Returns the logits [B, V] at each row's
@@ -368,7 +396,7 @@ class Engine:
         for s in range(start, stop):
             logits, _ = T.forward_decode(params, self.cfg,
                                          toks_d[:, s - start:s - start + 1],
-                                         caches, s)
+                                         caches, s, moe_drops=moe_drops)
             if last is None:
                 last = torch.empty_like(logits[:, 0])
             for i in np.flatnonzero(lengths == s + 1):
@@ -522,6 +550,89 @@ class Engine:
             if process_retirements():
                 pos_d, active_d = decode_state()
         m.counter("serve.decode_steps").inc(steps)
+        bucket.warmed = True
+        m.counter("serve.serve_time_s").inc(time.perf_counter() - t0)
+        m.histogram("serve.microbatch.size").observe(n_real)
+        if n_real > 1:
+            m.counter("serve.microbatch.multi").inc()
+
+    # -- equal mode: shared-position decode --------------------------------
+
+    def _decode_equal(self, params, caches, cur: torch.Tensor,
+                      position: int, moe_drops: list | None = None
+                      ) -> torch.Tensor:
+        """One decode step at the shared scalar ``position``; logits
+        [B, V]."""
+        logits, _ = T.forward_decode(params, self.cfg, cur[:, None], caches,
+                                     position, moe_drops=moe_drops)
+        return logits[:, 0]
+
+    def _serve_microbatch_equal(self, bucket, reqs: list[Request]) -> None:
+        """Equal-length batching: every row has length ``S`` and shares
+        the scalar position; requests retire (latency stamped, tokens
+        read out) the step they finish, and the loop ends with the last
+        real row.  Real rows keep sampling after they retire (the
+        reference's loop does), so a retired row routes its MoE tokens as
+        it would there."""
+        key = bucket.key
+        params = self.variants[key.fset]
+        S, B, n_real = key.pad_len, bucket.batch, len(reqs)
+        was_warm = bucket.warmed
+        if was_warm:
+            bucket.hits += 1
+        else:
+            bucket.misses += 1
+        m = self.metrics
+        t0 = time.perf_counter()
+        toks = np.zeros((B, S), np.int64)
+        temps = np.zeros(B, np.float32)
+        seeds = np.zeros(B, np.int64)
+        rows: list[_Row] = []
+        for i in range(B):
+            r = reqs[min(i, n_real - 1)]      # fillers repeat the last
+            toks[i, :len(r.prompt)] = r.prompt
+            if i < n_real:
+                temps[i], seeds[i] = r.temperature, r.seed
+                rows.append(_Row(req=r, length=len(r.prompt), emitted=1,
+                                 active=True, cold=not was_warm))
+            else:
+                rows.append(_Row(req=None, length=len(r.prompt)))
+        draw = np.arange(B) < n_real
+        hist: list[np.ndarray] = []
+        devbuf: list = []
+        drops: list = []
+        caches = T.init_cache(self.cfg, B, self.max_seq, self.device)
+        last = self._prefill(params, caches, toks, np.full(B, S), 0, S,
+                             drops)
+        cur = self._sample(last, temps, seeds, np.zeros(B, np.int64), draw)
+        devbuf.append(cur)
+        bucket.padded_tokens += int((B - n_real) * S)
+
+        def process_retirements() -> None:
+            ret = [i for i in range(B)
+                   if rows[i].active and rows[i].req is not None
+                   and rows[i].emitted >= rows[i].req.max_new_tokens]
+            if ret:
+                self._drain(devbuf, hist)
+                for i in ret:
+                    self._finalize(rows[i], i, bucket, hist, S, t0)
+
+        process_retirements()
+        t = 1
+        while any(r.active for r in rows):
+            logits = self._decode_equal(params, caches, cur, S + t - 1,
+                                        drops)
+            cur = self._sample(logits, temps, seeds,
+                               np.full(B, t, np.int64), draw)
+            devbuf.append(cur)
+            for r in rows:
+                if r.active:
+                    r.emitted += 1
+            t += 1
+            process_retirements()
+        m.counter("serve.decode_steps").inc(t - 1)
+        if self.cfg.n_experts:
+            self.moe_dropped.append(int(torch.stack(drops).sum()))
         bucket.warmed = True
         m.counter("serve.serve_time_s").inc(time.perf_counter() - t0)
         m.histogram("serve.microbatch.size").observe(n_real)
@@ -756,7 +867,9 @@ class Engine:
         co-batched request — at the engine's batch width (every row holds
         the request; row 0's tokens are kept, and only row 0 samples).
         The baseline the batched path must match token for token, greedy
-        and sampled alike."""
+        and sampled alike (under MoE, where no token drops).  In equal
+        mode it decodes at the shared scalar position, as the reference's
+        unbatched path does."""
         B = self.max_batch
         zeros = np.zeros(B, np.int64)
         draw = np.arange(B) == 0
@@ -772,7 +885,11 @@ class Engine:
             out = [cur]
             pos = torch.full((B,), L, dtype=torch.int64, device=self.device)
             for step in range(1, r.max_new_tokens):
-                logits = self._decode(params, caches, cur, pos)
+                if self.mode == "equal":
+                    logits = self._decode_equal(params, caches, cur,
+                                                L + step - 1)
+                else:
+                    logits = self._decode(params, caches, cur, pos)
                 cur = self._sample(logits, temps, seeds, zeros + step, draw)
                 out.append(cur)
                 pos = pos + 1
@@ -834,4 +951,6 @@ class Engine:
             "kv_pages": (self.pool.stats() if self.pool is not None
                          else None),
             "scheduler": self.scheduler.stats(),
+            "moe": ({"dropped_per_microbatch": list(self.moe_dropped)}
+                    if self.cfg.n_experts else None),
         }

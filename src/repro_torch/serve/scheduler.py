@@ -31,6 +31,10 @@ Two batching modes, chosen by the engine per model family:
   attention, and MoE): padding cannot be masked out of the recurrent
   state / capacity routing, so a bucket only ever holds requests of one
   exact length (pad_len == L; configured lengths can still be pre-warmed).
+  Exact for windowed attention; under MoE capacity routing a decode
+  step routes every row's token together, so batched differs from
+  unbatched whenever a (token, expert) pair drops past its expert's
+  capacity.
 """
 from __future__ import annotations
 

@@ -2,11 +2,15 @@
 reference's pytrees.
 
 The reference's trees are JAX pytrees: dicts (walked in sorted key
-order), lists, named tuples, ``MPLinear`` (children ``w``, ``b``) and the
-layout weights (one child per buffer), with ``None`` an empty subtree.
-Its layers are scanned: they sit in one segment,
-``params["blocks"][0]["pos0"]``, each leaf stacked along a leading layer
-dim.  The port keeps its layers as a list under ``"layers"``.
+order), lists, named tuples, ``MPLinear`` (children ``w``, ``b``), the
+layout weights (one child per buffer) and the MoE expert weights
+(children ``w_hi``, ``w_lo``), with ``None`` an empty subtree.  Its
+layers are scanned in segments of whole pattern periods plus a tail
+(``ArchConfig.segments``): layer ``r·p + q`` of the main segment sits at
+``params["blocks"][0]["pos{q}"]``, repeat ``r`` of each leaf stacked
+along a leading dim; tail layer ``q`` at ``["blocks"][1]["pos{q}"]`` with
+a repeat dim of 1.  The port keeps its layers as a :class:`LayerList`
+under ``"layers"``, which carries the period ``p``.
 
 :func:`walk` visits a port tree in the reference's leaf order under the
 reference's key paths; a leaf under ``"layers"`` is *stacked*: its parts
@@ -24,9 +28,20 @@ import torch
 
 from repro_torch.core.layout import KSplitWeight, NSplitWeight
 from repro_torch.core.linear import MPLinear
+from repro_torch.models.moe import MOE_WEIGHTS
 
-#: the port's layer list; the reference's scanned segment in its place
+#: the port's layer list; the reference's scanned segments in its place
 LAYERS = "layers"
+
+
+class LayerList(list):
+    """The port's layers, with the pattern period of the reference's
+    scan (``ArchConfig.pattern_period()``).  A plain list under
+    ``"layers"`` is refused: its period would be a guess."""
+
+    def __init__(self, layers=(), period: int = 1):
+        super().__init__(layers)
+        self.period = int(period)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +70,17 @@ class Key:
         return f"[{self.name}]" if self.kind == "seq" else str(self.name)
 
 
-#: where the port's layer list sits in the reference's tree
-SEGMENT = (Key("dict", "blocks"), Key("seq", 0), Key("dict", "pos0"))
+def segment_layers(n_layers: int, period: int) -> list[list[list[int]]]:
+    """``[segment][pos] -> layer indices``, one per repeat in order."""
+    main = n_layers // period
+    segs = []
+    if main:
+        segs.append([[r * period + q for r in range(main)]
+                     for q in range(period)])
+    tail = n_layers - main * period
+    if tail:
+        segs.append([[main * period + q] for q in range(tail)])
+    return segs
 
 
 @dataclasses.dataclass
@@ -90,8 +114,14 @@ def _visit(node, path: tuple) -> Iterator[tuple[tuple, object]]:
         yield path, node
     elif isinstance(node, dict):
         for k, v in _sorted_items(node):
-            if k == LAYERS and isinstance(v, list):
-                yield from _visit_layers(v, path + SEGMENT)
+            if k == LAYERS:
+                if not isinstance(v, LayerList):
+                    raise TypeError(
+                        f"'layers' is a {type(v).__name__}, not a "
+                        "LayerList: wrap it as LayerList(layers, "
+                        "cfg.pattern_period()) so it walks in the "
+                        "reference's segments")
+                yield from _visit_layers(v, path, v.period)
             else:
                 yield from _visit(v, path + (Key("dict", k),))
     elif isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -106,19 +136,27 @@ def _visit(node, path: tuple) -> Iterator[tuple[tuple, object]]:
     elif isinstance(node, (KSplitWeight, NSplitWeight)):
         for i, b in enumerate(node.bufs):
             yield path + (Key("flat", i),), b
+    elif isinstance(node, MOE_WEIGHTS):
+        yield path + (Key("flat", 0),), node.w_hi
+        yield path + (Key("flat", 1),), node.w_lo
     else:
         raise TypeError(f"not a tree node: {type(node).__name__}")
 
 
-def _visit_layers(layers: list, path: tuple):
-    per_layer = [list(_visit(layer, ())) for layer in layers]
-    if not per_layer:
-        return
-    for i, got in enumerate(per_layer[1:], 1):
-        if [p for p, _ in got] != [p for p, _ in per_layer[0]]:
-            raise ValueError(f"layer {i} differs in structure from layer 0")
-    for j, (sub, _) in enumerate(per_layer[0]):
-        yield path + sub, [got[j][1] for got in per_layer]
+def _visit_layers(layers: list, path: tuple, period: int):
+    for s, positions in enumerate(segment_layers(len(layers), period)):
+        # the reference walks a segment's positions in sorted key order
+        for q in sorted(range(len(positions)), key=lambda q: f"pos{q}"):
+            idx = positions[q]
+            per_layer = [list(_visit(layers[i], ())) for i in idx]
+            for i, got in zip(idx[1:], per_layer[1:]):
+                if [p for p, _ in got] != [p for p, _ in per_layer[0]]:
+                    raise ValueError(f"layer {i} differs in structure "
+                                     f"from layer {idx[0]}")
+            for j, (sub, _) in enumerate(per_layer[0]):
+                yield (path + (Key("dict", "blocks"), Key("seq", s),
+                               Key("dict", f"pos{q}")) + sub,
+                       [got[j][1] for got in per_layer])
 
 
 def walk(tree) -> list[Leaf]:
@@ -143,6 +181,9 @@ def map_tensors(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: map_tensors(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, LayerList):
+        return LayerList((map_tensors(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree)), tree.period)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(map_tensors(fn, v, *(r[i] for r in rest))
                             for i, v in enumerate(tree)))
@@ -156,6 +197,10 @@ def map_tensors(fn: Callable, tree, *rest):
         return dataclasses.replace(tree, bufs=tuple(
             fn(b, *(r.bufs[i] for r in rest))
             for i, b in enumerate(tree.bufs)))
+    if isinstance(tree, MOE_WEIGHTS):
+        return dataclasses.replace(
+            tree, w_hi=fn(tree.w_hi, *(r.w_hi for r in rest)),
+            w_lo=fn(tree.w_lo, *(r.w_lo for r in rest)))
     raise TypeError(f"not a tree node: {type(tree).__name__}")
 
 

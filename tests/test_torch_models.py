@@ -29,6 +29,8 @@ from repro.core.layout import KSplitWeight as JKSplit
 from repro.core.layout import NSplitWeight as JNSplit
 from repro.core.linear import MPLinear as JMPLinear
 from repro.models import transformer as JT
+from repro.models.moe import MoEKSplit as JMoEKSplit
+from repro.models.moe import MoENSplit as JMoENSplit
 from repro.obs import metrics as JM
 from repro.tune import dispatch as JD
 from repro.tune import search as JS
@@ -65,6 +67,12 @@ def _isolated(tmp_path, monkeypatch):
 def numpy_tree(node):
     """The reference's parameter tree as numpy arrays plus class maps (the
     bridge's input format)."""
+    if isinstance(node, (JMoEKSplit, JMoENSplit)):
+        ks = isinstance(node, JMoEKSplit)
+        return {"kind": "moe_ksplit" if ks else "moe_nsplit",
+                "w_hi": np.asarray(node.w_hi), "w_lo": np.asarray(node.w_lo),
+                "cls": np.asarray((node.k_cls if ks else node.n_cls).arr),
+                "tile": node.tile, "shape": node.shape}
     if isinstance(node, JMPLinear):
         w = node.w
         b = None if node.b is None else np.asarray(node.b)

@@ -13,8 +13,9 @@
 * The sampler's distribution, and a request's stream independent of its
   row and batch.
 
-Equal mode waits for the other model families (``ROADMAP.md`` queue 1);
-the mixed-format stream is served in ``tests/test_torch_quant.py``.
+Equal mode (the MoE and local/global families) is tested in
+``tests/test_torch_serve_equal.py``; the mixed-format stream is served in
+``tests/test_torch_quant.py``.
 """
 import numpy as np
 import pytest

@@ -58,7 +58,7 @@ def main(argv=None) -> int:
         try:
             loss, _, grads = loss_and_grads(params, cfg, batch)
             with torch.no_grad():
-                x = T._run_layers(params, cfg, batch["tokens"])
+                x, _ = T._run_layers(params, cfg, batch["tokens"])
         finally:
             K.ksplit_gemm_multi = kernel_fn
         return float(loss), grads, x.float()
