@@ -12,24 +12,24 @@ Phases (each raises on failure, so a failing run never exits 0):
    every kernel's registers and spills from ptxas, and read the SASS of
    the tile, grouped and split libraries (``cuobjdump -sass``): each must
    hold ``HGMMA`` (wgmma) instructions;
-2. hold each kernel to its plain PyTorch version on the card: the ksplit
-   kernel at the served InternLM2-1.8B, Qwen1.5-MoE-A2.7B and Gemma-3-4B
-   shapes (m = 1 and 4, rows bitwise equal across m and across two forced
-   launch geometries) and at m = 4096, the tile kernel at M = N = K = 1024
-   and 4096 and the grouped kernel at 4096³, both at t = 64 and 128, over
-   four class mixes and one integer-class format set, and both on
+2. hold each kernel to its plain PyTorch version on the card: the ksplit kernel
+   at the served InternLM2-1.8B, Qwen1.5-MoE-A2.7B, Gemma-3-4B and
+   xLSTM-1.3B shapes (m = 1 and 4, rows bitwise equal across m and across
+   two forced launch geometries) and at m = 4096, the tile kernel at M = N =
+   K = 1024 and 4096 and the grouped kernel at 4096³, both at t = 64 and
+   128, over four class mixes and one integer-class format set, and both on
    e4m3-overflow NaN, inf·0 and subnormal operands; the split kernel at
    4096³, t = 64 and 128, for split2_fp16 and split3_e5m2 C classes and a
    mix with an int8 class, on the same edge operands, plus its slices bit
    for bit (B = I), and its slice pass alone against its plain version on
    both operands, bit for bit, at each of those cases and at the solve's
    residual shape; at t = 16 and 32 the split kernel bit for bit against
-   ``split_gemm_ref`` (the same fixed summation order) for split2 and
-   split3 C classes beside fp8, bf16 and int8 ones; the convert kernel at
-   8192² into every output dtype, bit for bit, and its class-map form (the
-   layouts' storage cast) bit for bit against its plain version under
-   mixed and split maps at 8192², at the solve's 8064² C and 8064×128
-   panel and on a ragged shape;
+   ``split_gemm_ref`` (the same fixed summation order) for split2 and split3
+   C classes beside fp8, bf16 and int8 ones; the convert kernel at 8192²
+   into every output dtype, bit for bit, and its class-map form (the
+   layouts' storage cast) bit for bit against its plain version under mixed
+   and split maps at 8192², at the solve's 8064² C and 8064×128 panel and on
+   a ragged shape;
 3. ``mp_matmul`` at 1024³ through dispatch: the plan must be ``tile``
    (``split`` with split C classes), the kernel must launch, and the
    result must sit inside the registry-derived error bounds against numpy
@@ -139,9 +139,12 @@ Phases (each raises on failure, so a failing run never exits 0):
    plain stepped decode's gap, and that decode within twice the gap of a
    summation-order change (the bulk with the ksplit segments summed as
    one matmul). Every run replays the plain bulk's expert picks, since an
-   order change flips picks at small router margins; the (layer, token)
-   decisions where the kernel decode's own picks would differ are
-   counted, not gated. Then the median decode step
+   order change flips picks at small router margins; the kernel decode's
+   own picks may differ from the bulk's only at decisions whose bulk
+   top-k margin is within twice the largest margin at which the plain
+   orders' own picks differ (floored at 2^-8 of the largest router
+   probability), and each run's differing picks are printed. Then the
+   median decode step
    beside its byte bound, the idle share of profiled steps, the expert
    products' and the ksplit kernel's device time, the bf16 upcast's time,
    the ksplit launches read per step and the peak memory. Gemma-3-4B at
@@ -149,6 +152,20 @@ Phases (each raises on failure, so a failing run never exits 0):
    32-token requests equal to ``generate_reference``; then its first
    pattern period (6 layers) decoded through 2048 positions, past the
    window, against the bulk forward under rule (c).
+10. (run after 9) the xLSTM family through the engine's equal mode:
+   xLSTM-1.3B at full width (48 layers, 42 mLSTM and 6 sLSTM, d 2048,
+   4 heads, vocab 50304; random weights from a seeded generator; its
+   fp32 recurrent state per row printed), two 32-token and two 64-token
+   requests at ``max_batch=4``, 12 new tokens each: every request equal
+   to ``generate_reference``, 49 ksplit launches in every model step
+   (42 ``up_proj``, 6 ``ff_up``, the lm_head: counted per step), no
+   fresh resolution, every KSplit linear on the kernel; then the first
+   pattern period (1 sLSTM, 7 mLSTM layers) decoded through 128
+   positions against the bulk forward under rule (c) (the gaps also
+   printed as shares of the reference test's tolerance, not gated), and
+   the decode step's median wall beside its byte bound (weights, state
+   read and written), its idle share over profiled steps and the peak
+   memory.
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -178,11 +195,12 @@ PEAK_FP32_FLOPS = 67e12
 #: served ksplit shapes (K, N) of InternLM2-1.8B on one card: wq, wk/wv,
 #: up/gate, lm_head; the large-M ksplit check; the tile-kernel checks
 SERVED_KN = ((2048, 2048), (2048, 1024), (2048, 8192), (2048, 92544))
-#: phase 9's further ksplit shapes (K, N): Qwen1.5-MoE-A2.7B's shared
-#: expert up/gate and lm_head (its wq/wk/wv are 2048 x 2048), Gemma-3-4B's
-#: wq, wk/wv, up/gate and lm_head
+#: phases 9 and 10's further ksplit shapes (K, N): Qwen1.5-MoE-A2.7B's
+#: shared expert up/gate and lm_head (its wq/wk/wv are 2048 x 2048),
+#: Gemma-3-4B's wq, wk/wv, up/gate and lm_head, xLSTM-1.3B's sLSTM ff_up
+#: and lm_head (its mLSTM up_proj is 2048 x 8192)
 FAMILY_KN = ((2048, 5632), (2048, 151936), (2560, 2560), (2560, 1280),
-             (2560, 10240), (2560, 262144))
+             (2560, 10240), (2560, 262144), (2048, 2688), (2048, 50304))
 KSPLIT_BIG = (4096, 2048, 8192)
 TILE_SIZES = (1024, 4096)
 TILE = 128
@@ -2390,14 +2408,17 @@ WINDOW_POSITIONS = 2048
 
 
 def bytes_by_kind(params) -> dict:
-    """Parameter bytes by kind (experts, shared expert, attention,
-    embedding, lm_head; norms and routers as other)."""
+    """Parameter bytes by kind (experts, shared expert, attention, the
+    recurrent xLSTM cells, embedding, lm_head; norms and routers as
+    other); a kind the model lacks is left out."""
     from repro_torch import tree as TR
-    out = dict.fromkeys(("experts", "shared", "attention", "embedding",
-                         "lm_head", "other"), 0)
+    out = dict.fromkeys(("experts", "shared", "attention", "recurrent",
+                         "embedding", "lm_head", "other"), 0)
     for leaf in TR.walk(params):
         key = leaf.key
-        if "/moe/shared/" in key:
+        if "/mlstm/" in key or "/slstm/" in key:
+            kind = "recurrent"
+        elif "/moe/shared/" in key:
             kind = "shared"
         elif "/moe/" in key and not key.endswith("/router"):
             kind = "experts"
@@ -2410,7 +2431,7 @@ def bytes_by_kind(params) -> dict:
         else:
             kind = "other"
         out[kind] += sum(t.numel() * t.element_size() for t in leaf.parts)
-    return out
+    return {k: v for k, v in out.items() if v or k == "other"}
 
 
 def decode_step_bytes(cfg, kinds: dict, batch: int, position: int) -> int:
@@ -2458,9 +2479,9 @@ def _logit_gaps(a, b) -> dict:
 
 
 def _record_routing(log: list):
-    """Wrap ``moe.route`` to log each call's expert picks [T, k] and the
-    gap between the k-th and (k+1)-th probability [T]; returns the
-    function to restore."""
+    """Wrap ``moe.route`` to log each call's expert picks [T, k], the gap
+    between the k-th and (k+1)-th probability [T] and the largest
+    probability [T]; returns the function to restore."""
     import torch
     from repro_torch.models import moe as MOE
     orig = MOE.route
@@ -2468,7 +2489,8 @@ def _record_routing(log: list):
     def route(probs, top_k, capacity_factor, picks=None):
         r = orig(probs, top_k, capacity_factor, picks)
         top = torch.topk(probs.float(), top_k + 1, dim=-1).values
-        log.append((r.flat_e.reshape(-1, top_k), top[:, -2] - top[:, -1]))
+        log.append((r.flat_e.reshape(-1, top_k), top[:, -2] - top[:, -1],
+                    top[:, 0]))
         return r
 
     MOE.route = route
@@ -2477,13 +2499,14 @@ def _record_routing(log: list):
 
 def _replay_routing(recorded: list, stepped: bool, flips: list):
     """Wrap ``moe.route`` to take the expert picks ``recorded`` (one
-    ``(picks [n, k], margin [n])`` per layer, from a bulk forward) in
-    place of the call's own: call ``i`` of a one-row stepped decode is
-    layer ``i % L`` at position ``i // L`` and takes that token's picks;
-    a bulk call takes its layer's whole table.  The gates still come from
-    the call's own probabilities.  Where the call's own top-k set differs
-    from the replayed one, the own top-k margin goes into ``flips``;
-    returns the function to restore."""
+    ``(picks [n, k], margin [n], top p [n])`` per layer, from a bulk
+    forward) in place of the call's own: call ``i`` of a one-row stepped
+    decode is layer ``i % L`` at position ``i // L`` and takes that
+    token's picks; a bulk call takes its layer's whole table.  The gates
+    still come from the call's own probabilities.  Where the call's own
+    top-k set differs from the replayed one, the bulk's top-k margin of
+    that decision goes into ``flips``; returns the function to
+    restore."""
     import torch
     from repro_torch.models import moe as MOE
     orig = MOE.route
@@ -2493,16 +2516,16 @@ def _replay_routing(recorded: list, stepped: bool, flips: list):
     def route(probs, top_k, capacity_factor, picks=None):
         i = calls[0]
         calls[0] += 1
-        want = recorded[i % L][0]
+        want, margin = recorded[i % L][0], recorded[i % L][1]
         if stepped:
             want = want[i // L:i // L + 1]
+            margin = margin[i // L:i // L + 1]
         top = torch.sort(probs, dim=-1, descending=True, stable=True)
         own = top.indices[:, :top_k]
         differ = (torch.sort(own, -1).values
                   != torch.sort(want, -1).values).any(-1)
         if bool(differ.any()):
-            gap = top.values[:, top_k - 1] - top.values[:, top_k]
-            flips.extend(float(g) for g in gap[differ].cpu())
+            flips.extend(float(g) for g in margin[differ].cpu())
         return orig(probs, top_k, capacity_factor, want)
 
     MOE.route = route
@@ -2526,9 +2549,14 @@ def decode_vs_bulk(cfg, params, n: int, seed: int, label: str) -> dict:
     are ~3e-3 in probability, so any change of summation order flips some
     picks, and each flip moves the logits by a whole expert's output.
     With the picks fixed the gap measures what the cached decode
-    computes, not which expert a near-tie went to. How many of the kernel
-    decode's own picks would have differed, and their margins, is printed
-    and not gated."""
+    computes, not which expert a near-tie went to.  The picks each run
+    would have made itself are compared with the replayed ones, and a
+    third gate, checked first, holds the kernel decode's own picks: none
+    may differ from the bulk's at a decision whose bulk top-k margin
+    exceeds the own-pick bound, twice the largest such margin at which
+    the two plain orders' own picks differ, floored at one bf16 rounding
+    of the largest router probability (2^-8·max p).  A routing fault that
+    only the stepped decode makes flips picks at ordinary margins."""
     import torch
     from repro_torch.kernels import ksplit_gemm as K
     from repro_torch.models import transformer as T
@@ -2561,17 +2589,20 @@ def decode_vs_bulk(cfg, params, n: int, seed: int, label: str) -> dict:
 
     kernel_fn = K.ksplit_gemm_multi
     others = {}
+    flips = {k: [] for k in ("plain_decode", "bulk_order2",
+                             "kernel_decode")}
     try:
         K.ksplit_gemm_multi = K.ksplit_gemm_plain
         bulk_p = routed(bulk, lambda: _record_routing(recorded))
-        others["plain_decode"] = routed(stepped, replay(True, []))
+        others["plain_decode"] = routed(
+            stepped, replay(True, flips["plain_decode"]))
         K.ksplit_gemm_multi = ksplit_one_matmul
-        others["bulk_order2"] = routed(bulk, replay(False, []))
+        others["bulk_order2"] = routed(
+            bulk, replay(False, flips["bulk_order2"]))
     finally:
         K.ksplit_gemm_multi = kernel_fn
-    flips: list = []
     t0 = time.perf_counter()
-    dec_k = routed(stepped, replay(True, flips))
+    dec_k = routed(stepped, replay(True, flips["kernel_decode"]))
     stepped_s = time.perf_counter() - t0
     gaps = {"kernel_decode": _logit_gaps(dec_k, bulk_p)}
     gaps.update({k: _logit_gaps(v, bulk_p) for k, v in others.items()})
@@ -2592,16 +2623,33 @@ def decode_vs_bulk(cfg, params, n: int, seed: int, label: str) -> dict:
             f"2^-8 x max |logit|); plain decode allowance {allow_path:.4e} "
             f"= max(2 x bulk_order2, 2^-8 x max |logit|)")
     if moe:
-        margins = torch.cat([m for _, m in recorded]).float().cpu()
+        margins = torch.cat([m for _, m, _ in recorded]).float().cpu()
+        max_p = float(torch.cat([p for _, _, p in recorded]).max())
+        plain_max = max(flips["plain_decode"] + flips["bulk_order2"],
+                        default=0.0)
+        bound = max(2.0 * plain_max, 2.0 ** -8 * max_p)
+        above = [g for g in flips["kernel_decode"] if g > bound]
         decisions = n * cfg.n_layers
-        out["routing"] = {"decisions": decisions, "flipped": len(flips),
-                          "flip_margin_max": max(flips, default=0.0),
+        out["routing"] = {"decisions": decisions,
+                          "flipped": {k: len(v) for k, v in flips.items()},
+                          "flip_margin_max": {k: max(v, default=0.0)
+                                              for k, v in flips.items()},
+                          "own_pick_bound": bound, "above_bound": len(above),
                           "margin_median": float(margins.median())}
-        print(f"{label}: routing (not gated): the kernel decode's own "
-              f"expert set differs from the replayed bulk one in "
-              f"{len(flips)} of {decisions} (layer, token) decisions; their "
-              f"top-k margins max {max(flips, default=0.0):.3e} (the bulk's "
-              f"median margin {float(margins.median()):.3e})")
+        print(f"{label}: routing: {decisions} (layer, token) decisions, the "
+              f"bulk's median top-k margin {float(margins.median()):.3e}; "
+              "own picks differing from the bulk's: " + "; ".join(
+                  f"{k} {len(v)} (bulk margins max {max(v, default=0.0):.3e})"
+                  for k, v in flips.items())
+              + f"; own-pick bound {bound:.3e} = max(2 x the plain orders' "
+                f"largest flip margin, 2^-8 x max p = "
+                f"{2.0 ** -8 * max_p:.3e}); kernel decode flips above it "
+                f"{len(above)}")
+        if above:
+            fail(f"{label}: the kernel decode's own expert picks differ from "
+                 f"the bulk's at {len(above)} decisions with a bulk margin "
+                 f"above the own-pick bound {bound:.3e} (largest "
+                 f"{max(above):.3e})")
     if not gaps["kernel_decode"]["max"] <= allow:
         fail(f"{label}: kernel decode and bulk logits differ by "
              f"{gaps['kernel_decode']['max']:.4e} > {allow:.4e}")
@@ -2884,6 +2932,199 @@ def serve_windowed(cfg, seed: int = 0) -> dict:
     return {"launches": launches["ksplit_gemm"],
             "tokens_per_s": gen_toks / wall_s, "window": window,
             "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: serving the xLSTM family
+# ---------------------------------------------------------------------------
+
+#: phase 10's stream: two 32-token and two 64-token prompts, 12 new tokens
+XLSTM_LENS = (32, 32, 64, 64)
+XLSTM_NEW = 12
+#: ksplit launches in every xLSTM-1.3B model step: 42 mLSTM up_proj, 6
+#: sLSTM ff_up and the lm_head
+XLSTM_STEP_LAUNCHES = 49
+#: positions of the first pattern period decoded against the bulk forward
+XLSTM_POSITIONS = 128
+
+
+def state_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size()
+               for c in caches for t in c.values())
+
+
+def count_step_launches(steps: list):
+    """Wrap ``transformer.forward_decode`` so every model step appends the
+    ksplit launches it made (read from the counters before and after);
+    returns the function to restore."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    orig = T.forward_decode
+
+    def forward_decode(*args, **kw):
+        n0 = ops.launch_counts()["ksplit_gemm"]
+        out = orig(*args, **kw)
+        steps.append(ops.launch_counts()["ksplit_gemm"] - n0)
+        return out
+
+    T.forward_decode = forward_decode
+    return lambda: setattr(T, "forward_decode", orig)
+
+
+def xlstm_decode_profile(cfg, params, kinds: dict, row_state: int) -> dict:
+    """The decode step at batch 4 over zeroed state (the timing needs no
+    history): median wall (host clock around synchronized steps) beside
+    the byte bound (every weight but the embedding table read once, the
+    batch's embedding rows, each row's recurrent state read and written
+    once, the fp32 logits written), ksplit launches read per step, then
+    steps under ``torch.profiler`` (device busy, idle share, top
+    kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    B = 4
+    caches = T.init_cache(cfg, B, 1, DEVICE)
+    tok = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab, (B, 1))).to(DEVICE)
+    T.forward_decode(params, cfg, tok, caches, 0)
+    sync()
+    walls, launches = [], []
+    for s in range(DECODE_STEPS):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        T.forward_decode(params, cfg, tok, caches, 1 + s)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append(ops.launch_counts()["ksplit_gemm"])
+    wall_ms = float(np.median(walls))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in range(PROFILE_DECODE_STEPS):
+            T.forward_decode(params, cfg, tok, caches, 1 + DECODE_STEPS + s)
+        sync()
+    rows = [(e.key, e.self_device_time_total / PROFILE_DECODE_STEPS / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms in rows) or None
+    ksplit_ms = sum(ms for name, ms in rows if "ksplit" in name)
+    weights = sum(v for k, v in kinds.items() if k != "embedding")
+    nbytes = (weights + B * cfg.d_model * 2 + 2 * B * row_state
+              + B * cfg.vocab * 4)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    idle = (f"{1 - busy_ms / wall_ms:.1%}" if busy_ms
+            else "not measured (the profiler saw no device time)")
+    print(f"serve xlstm decode step (batch {B}): median wall {wall_ms:.2f} "
+          f"ms over {DECODE_STEPS} steps ({[round(w, 2) for w in walls]}); "
+          f"byte bound {bound_ms:.2f} ms ({nbytes / 1e9:.2f} GB at "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s: weights {weights / 1e9:.3f} GB, "
+          f"state read and written {2 * B * row_state / 1e9:.3f} GB); ksplit "
+          f"launches per step {launches}")
+    print(f"serve xlstm decode profile ({PROFILE_DECODE_STEPS} steps): device "
+          f"busy {busy_ms or 0:.2f} ms/step, idle share {idle}; ksplit "
+          f"kernel {ksplit_ms:.2f} ms/step")
+    for name, ms in rows[:8]:
+        print(f"profile   {ms:8.3f} ms/step  {name[:90]}")
+    if any(n != XLSTM_STEP_LAUNCHES for n in launches):
+        fail(f"serve xlstm decode: ksplit launches per step {launches}, not "
+             f"{XLSTM_STEP_LAUNCHES}")
+    return {"wall_ms": wall_ms, "bound_ms": bound_ms, "busy_ms": busy_ms,
+            "ksplit_ms": ksplit_ms, "launches_per_step": launches[0]}
+
+
+def serve_xlstm(cfg, seed: int = 0) -> dict:
+    """xLSTM-1.3B at full width through the engine's equal mode: four
+    requests equal to their unbatched reference, 49 ksplit launches in
+    every model step, no fresh resolution, every KSplit linear on the
+    kernel; the first pattern period (1 sLSTM, 7 mLSTM layers) decoded
+    through XLSTM_POSITIONS positions against the bulk forward; the decode
+    step beside its byte bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import LayerList
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    sync()
+    init_s = time.perf_counter() - t_phase
+    kinds = bytes_by_kind(params)
+    row_state = state_bytes(T.init_cache(cfg, 1, 1, DEVICE))
+    kinds_of = [m for m, _ in cfg.layer_kinds()]
+    print(f"serve xlstm {cfg.name}: {cfg.n_layers} layers "
+          f"({kinds_of.count('mlstm')} mLSTM, {kinds_of.count('slstm')} "
+          f"sLSTM) d={cfg.d_model} heads={cfg.n_heads} vocab={cfg.vocab}; "
+          f"weights {sum(kinds.values()) / 1e9:.3f} GB (" + ", ".join(
+              f"{k} {v / 1e9:.3f}" for k, v in kinds.items())
+          + f" GB), init {init_s:.1f} s; recurrent state "
+          f"{row_state / 1e6:.2f} MB per row (fp32)")
+    eng = Engine(cfg, params, ServeConfig(
+        max_batch=4, max_seq=max(XLSTM_LENS) + XLSTM_NEW))
+    if eng.mode != "equal":
+        fail(f"serve xlstm: engine mode {eng.mode!r}, not equal")
+    eng.warmup()
+
+    def stream():
+        return family_stream(cfg.vocab, XLSTM_LENS, XLSTM_NEW, seed)
+
+    steps: list = []
+    restore = count_step_launches(steps)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = eng.generate(stream())
+        sync()
+        wall_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        restore()
+    st = eng.stats()
+    t0 = time.perf_counter()
+    refs = eng.generate_reference(stream())
+    ref_s = time.perf_counter() - t0
+    gen_toks = st["tokens"]["generated"]
+    print(f"serve xlstm: {len(reqs)} requests (prompts {list(XLSTM_LENS)}, "
+          f"{XLSTM_NEW} new), {gen_toks} tokens in {wall_s:.3f} s = "
+          f"{gen_toks / wall_s:.2f} tokens/s; microbatches "
+          f"{st['microbatches']['total']}, prefill steps "
+          f"{st['prefill_steps']}, decode steps {st['decode_steps']}; "
+          f"unbatched reference {ref_s:.1f} s; ksplit launches per model "
+          f"step: {len(steps)} steps, all {sorted(set(steps))}")
+    check_served("serve xlstm", cfg, reqs, refs, st, launches)
+    if (len(steps) != st["prefill_steps"] + st["decode_steps"]
+            or any(n != XLSTM_STEP_LAUNCHES for n in steps)
+            or launches["ksplit_gemm"] != sum(steps)):
+        fail(f"serve xlstm: ksplit launches per model step {steps}, not "
+             f"{XLSTM_STEP_LAUNCHES} in each of the "
+             f"{st['prefill_steps'] + st['decode_steps']} steps")
+    period = cfg.pattern_period()
+    cfg1 = dataclasses.replace(cfg, n_layers=period)
+    params1 = dict(params, layers=LayerList(params["layers"][:period],
+                                            period))
+    t0 = time.perf_counter()
+    order = decode_vs_bulk(cfg1, params1, XLSTM_POSITIONS, seed,
+                           f"serve xlstm first period ({period} layers)")
+    order_s = time.perf_counter() - t0
+    prof = xlstm_decode_profile(cfg, params, kinds, row_state)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phase_s = time.perf_counter() - t_phase
+    rate = prof["bound_ms"] / prof["wall_ms"]
+    print(f"serve xlstm: decode step {prof['wall_ms']:.2f} ms vs byte bound "
+          f"{prof['bound_ms']:.2f} ms ({rate:.1%} of the bound's rate); "
+          f"state {row_state / 1e6:.2f} MB per row; "
+          f"peak memory {peak_gb:.2f} GB; decode vs bulk {order_s:.1f} s; "
+          f"phase {phase_s:.1f} s")
+    del eng, params, params1
+    free_card()
+    return {"launches": launches["ksplit_gemm"],
+            "tokens_per_s": gen_toks / wall_s, "order": order,
+            "row_state_mb": row_state / 1e6, "peak_gb": peak_gb,
+            "weights_gb": sum(kinds.values()) / 1e9, "phase_s": phase_s,
+            **prof}
 
 
 # ---------------------------------------------------------------------------
@@ -3329,6 +3570,7 @@ def main() -> None:
     sq = serve_quant(cfg)
     sm9 = serve_moe(get("qwen2-moe-a2.7b"))
     sw9 = serve_windowed(get("gemma3-4b"))
+    sx10 = serve_xlstm(get("xlstm-1.3b"))
     sol = solve_phase()
     parity_phase()
     tr = train_phase(cfg)
@@ -3345,14 +3587,16 @@ def main() -> None:
          "replaces": "src/repro/kernels/ksplit_gemm.py:97",
          "launches": (sv["launches"] + ss["launches"] + sq["launches"]
                       + tr["launches"] + sm9["launches"]
-                      + sm9["launches16"] + sw9["launches"]),
+                      + sm9["launches16"] + sw9["launches"]
+                      + sx10["launches"]),
          "launches_by_phase": {"serve": sv["launches"],
                                "serve_state": ss["launches"],
                                "serve_quant": sq["launches"],
                                "train": tr["launches"],
                                "serve_moe": sm9["launches"],
                                "serve_moe_cf16": sm9["launches16"],
-                               "serve_gemma3": sw9["launches"]},
+                               "serve_gemma3": sw9["launches"],
+                               "serve_xlstm": sx10["launches"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}},
@@ -3431,7 +3675,11 @@ def main() -> None:
           f"tokens/s, decode step {sm9['wall_ms']:.2f} ms (byte bound "
           f"{sm9['bound_ms']:.2f} ms), peak {sm9['peak_gb']:.2f} GB (phase "
           f"{sm9['phase_s']:.1f} s); serve gemma3 {sw9['tokens_per_s']:.2f} "
-          f"tokens/s (phase {sw9['phase_s']:.1f} s); total "
+          f"tokens/s (phase {sw9['phase_s']:.1f} s); serve xlstm "
+          f"{sx10['tokens_per_s']:.2f} tokens/s, decode step "
+          f"{sx10['wall_ms']:.2f} ms (byte bound {sx10['bound_ms']:.2f} ms), "
+          f"peak {sx10['peak_gb']:.2f} GB (phase {sx10['phase_s']:.1f} s); "
+          f"total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,7 @@
-"""Parameter bridge: the JAX package's decoder parameters (dense and
-MoE, full or local/global attention) and AdamW state, handed over as
+"""Parameter bridge: the JAX package's decoder parameters (dense and MoE,
+full or local/global attention, xLSTM) and AdamW state, handed over as
 numpy arrays plus class maps, into the port's — so both packages compute
-from the same state in the parity tests.  (Checkpoints need no bridge:
+from the same state in the parity tests. (Checkpoints need no bridge:
 ``repro_torch.checkpoint`` reads and writes the reference's format.)
 
 It imports no JAX.  The numpy tree follows the reference's layout::
@@ -17,7 +17,11 @@ where segment s holds positions ``pos0 .. pos{p-1}`` of the pattern
 (``ArchConfig.segments``), each leaf carrying a leading repeat dim R
 (the reference stacks the layers it scans); an MoE layer holds ``"moe":
 {"router": [R, d, E], "gate": MOE, "up": MOE, "down": MOE, "shared":
-{"up": LIN, "gate": LIN, "down": LIN}}`` in place of ``"mlp"``, each
+{"up": LIN, "gate": LIN, "down": LIN}}`` in place of ``"mlp"``; an
+xLSTM layer holds only ``"norm1"`` and ``"mlstm": {"up_proj": LIN,
+"conv_w", "conv_b", "wq", "wk", "wv", "w_if", "b_if", "skip",
+"down_proj": LIN}`` or ``"slstm": {"w_in", "b_in", "r", "ff_up": LIN,
+"ff_down": LIN}`` (every other leaf an array with the repeat dim); each
 ``MOE`` a dict ``{"kind": "moe_ksplit" | "moe_nsplit", "w_hi": array,
 "w_lo": array, "cls": k_cls / n_cls, "tile": int, "shape": (E, K, N)}``;
 and each ``LIN`` is a dict
@@ -88,11 +92,24 @@ def _moe_weight(lin: dict, r: int, device):
         tuple(int(s) for s in lin["shape"]))
 
 
+def _cell(p: dict, r: int, device) -> dict:
+    """An xLSTM cell's dict: linears as MPLinear, arrays as tensors."""
+    return {k: (_linear(v, r, device) if isinstance(v, dict)
+                else tensor_from_numpy(v[r], device))
+            for k, v in p.items()}
+
+
 def _layer(p: dict, r: int, device) -> dict:
     vec = lambda a: tensor_from_numpy(a[r], device)   # noqa: E731
-    out = {"norm1": vec(p["norm1"]),
-           "attn": {k: _linear(v, r, device) for k, v in p["attn"].items()},
-           "norm2": vec(p["norm2"])}
+    out = {"norm1": vec(p["norm1"])}
+    for cell in ("mlstm", "slstm"):
+        if cell in p:
+            out[cell] = _cell(p[cell], r, device)
+    if "attn" in p:
+        out["attn"] = {k: _linear(v, r, device)
+                       for k, v in p["attn"].items()}
+    if "norm2" in p:
+        out["norm2"] = vec(p["norm2"])
     if "mlp" in p:
         out["mlp"] = {k: _linear(v, r, device) for k, v in p["mlp"].items()}
     if "moe" in p:

@@ -1,6 +1,7 @@
-"""Architecture configuration schema + registry (the attention families
-of ``repro.configs.base``: dense and MoE decoders, full or local/global
-attention).
+"""Architecture configuration schema + registry (twin of
+``repro.configs.base`` for the families the port serves: dense and MoE
+decoders with full or local/global attention, and the xLSTM recurrent
+stack; the Mamba-hybrid fields are here for the next slice).
 
 The port runs on one card, so there is no tensor parallelism: ``tp`` is
 1 by default and attention keeps the published kv-head count (the JAX
@@ -30,7 +31,7 @@ REFERENCE_TP = 16
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe
+    family: str                  # dense | moe | ssm (hybrid: not yet)
     n_layers: int
     d_model: int
     n_heads: int
@@ -44,6 +45,8 @@ class ArchConfig:
     global_every: int = 6        # 5 local : 1 global
     rope_theta: float = 500000.0
     use_rope: bool = True
+    encoder_only: bool = False   # no counterpart yet (item 7)
+    frontend: str = "none"       # none only (audio / vision: item 7)
     # --- MoE --------------------------------------------------------------
     n_experts: int = 0
     top_k: int = 0
@@ -54,6 +57,13 @@ class ArchConfig:
     capacity_factor: float = 1.25
     #: model-axis size at which ``moe_ep`` is decided (see module doc)
     ep_axis: int = REFERENCE_TP
+    # --- hybrid / ssm ------------------------------------------------------
+    block_type: str = "attn"     # attn | mamba_hybrid | xlstm
+    attn_every: int = 0          # hybrid: layer i % attn_every == attn_offset
+    attn_offset: int = 0
+    slstm_every: int = 8         # xlstm: i % slstm_every == 0 → sLSTM
+    mamba_d_state: int = 16
+    mamba_expand: int = 2
     # --- mixed-precision policy (the paper's technique) ------------------
     mp_policy: Policy = Policy(kind="ratio", ratio_high=0.5)
     mp_tile: int = 128
@@ -75,17 +85,28 @@ class ArchConfig:
 
     # ---------------------------------------------------------------------
     def layer_kinds(self) -> list[tuple[str, str]]:
-        """[(mixer, ffn)] per layer: mixer ∈ {attn_full, attn_local},
-        ffn ∈ {mlp, moe}."""
+        """[(mixer, ffn)] per layer: mixer ∈ {attn_full, attn_local,
+        mamba, mlstm, slstm}, ffn ∈ {mlp, moe, none}."""
         kinds = []
         for i in range(self.n_layers):
-            if self.attn_pattern == "local_global":
-                mixer = ("attn_full"
-                         if i % self.global_every == self.global_every - 1
-                         else "attn_local")
+            if self.block_type == "xlstm":
+                mixer = "slstm" if (self.slstm_every
+                                    and i % self.slstm_every == 0) else "mlstm"
+                ffn = "none"   # cells carry their own FFN/projections
+            elif self.block_type == "mamba_hybrid":
+                mixer = ("attn_full" if self.attn_every
+                         and i % self.attn_every == self.attn_offset
+                         else "mamba")
+                ffn = ("moe" if self.n_experts
+                       and i % self.moe_every == self.moe_offset else "mlp")
             else:
-                mixer = "attn_full"
-            ffn = "moe" if self.n_experts else "mlp"
+                if self.attn_pattern == "local_global":
+                    mixer = ("attn_full"
+                             if i % self.global_every == self.global_every - 1
+                             else "attn_local")
+                else:
+                    mixer = "attn_full"
+                ffn = "moe" if self.n_experts else "mlp"
             kinds.append((mixer, ffn))
         return kinds
 
@@ -127,6 +148,16 @@ class ArchConfig:
         for mixer, ffn in self.layer_kinds():
             if mixer.startswith("attn"):
                 total += d * dh * (self.n_heads * 2 + self.n_kv_heads * 2)
+            elif mixer == "mamba":
+                din = self.mamba_expand * d
+                total += d * 2 * din + din * d + din * (
+                    d // 16 + 2 * self.mamba_d_state)
+            elif mixer == "mlstm":
+                din = 2 * d
+                total += (d * 2 * din + 3 * din * din // self.n_heads
+                          + din * d)
+            elif mixer == "slstm":
+                total += 4 * d * d + int(4 / 3 * d) * d * 2
             if ffn == "mlp":
                 total += 3 * d * f
             elif ffn == "moe":
@@ -142,7 +173,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 _ARCH_MODULES = ["llama3_8b", "internlm2_1_8b", "gemma3_4b",
-                 "qwen2_moe_a2_7b", "phi35_moe"]
+                 "qwen2_moe_a2_7b", "phi35_moe", "xlstm_1_3b"]
 
 
 def load_all() -> dict[str, ArchConfig]:
@@ -178,6 +209,7 @@ def reduced(cfg: ArchConfig, tp: int = 2) -> ArchConfig:
         mp_tile=16,
         tp=tp,
         ep_axis=tp,
+        mamba_d_state=4,
         serve_buckets=(4, 8, 16, 32),
     )
     return dataclasses.replace(cfg, **kw)

@@ -156,10 +156,11 @@ class MPMatrix:
                    fset: FormatSet = DEFAULT_FORMATS) -> "MPMatrix":
         """The storage cast of ``w`` under ``cls_map``: one
         ``convert_by_class`` (one launch on the card) unless the set has
-        a class that form does not take (a per-tile-scaled integer), which
-        keeps the per-class path (:func:`per_class_cast`)."""
+        a class that form does not take (a per-tile-scaled integer) or the
+        tile is not a whole number of the kernel's 8-element vectors;
+        those keep the per-class path (:func:`per_class_cast`)."""
         cls_map = _check_codes(np.asarray(cls_map, np.int8), fset)
-        if _cv.class_map_form(fset):
+        if _cv.class_map_form(fset) and tile % _cv.CLASS_TILE_MULTIPLE == 0:
             bufs = _cv.convert_by_class(w.float(), cls_map, tile, fset)
         else:
             bufs = per_class_cast(w, cls_map, tile, fset)

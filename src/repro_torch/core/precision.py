@@ -11,11 +11,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet
 
 __all__ = ["Policy", "PAPER_RATIOS", "make_map", "map_ratio_string",
-           "map_storage_bytes", "role_class_vector", "tile_grid"]
+           "map_storage_bytes", "quantize_tile", "role_class_vector",
+           "tile_grid"]
 
 
 def tile_grid(shape: tuple[int, int], tile: int) -> tuple[int, int]:
@@ -173,6 +175,14 @@ def make_map(shape: tuple[int, int], tile: int, policy: Policy,
             raise ValueError("outlier_aware policy needs weights")
         return _outlier_map(np.asarray(weights), tile, policy, fset)
     raise ValueError(f"unknown policy kind {policy.kind!r}")
+
+
+def quantize_tile(x: torch.Tensor, cls: int,
+                  fset: FormatSet = DEFAULT_FORMATS) -> torch.Tensor:
+    """Round-trip a tile through its storage precision (the value the
+    consumer's receiver-side conversion produces).  ``x`` is one tile:
+    per-tile-scaled formats compute a single scale over it."""
+    return fset.fmt(int(cls)).roundtrip(x)
 
 
 #: named policies of the paper's sweep (Figs. 2-4)

@@ -72,6 +72,10 @@ def convert(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
+#: the class-map kernel's tiles are whole 8-element vectors
+CLASS_TILE_MULTIPLE = 8
+
+
 def class_map_form(fset: FormatSet) -> bool:
     """Whether ``fset``'s storage cast can take :func:`convert_by_class`:
     every class a plain float cast into a dtype the kernel writes, or the
@@ -87,13 +91,14 @@ def class_map_form(fset: FormatSet) -> bool:
     return len(fset) <= _MAX_NF
 
 
-def _grid(x: torch.Tensor, cls_map: np.ndarray, tile: int
-          ) -> tuple[int, int]:
+def _grid(x: torch.Tensor, cls_map: np.ndarray, tile: int,
+          multiple: int = 1) -> tuple[int, int]:
     """The map's tile grid (mt, nt); it must cover ``x`` with tiles of a
-    multiple of 8 elements."""
+    multiple of ``multiple`` elements."""
     mt, nt = cls_map.shape
-    if tile % 8 or mt * tile < x.shape[0] or nt * tile < x.shape[1]:
-        raise ValueError(f"tile {tile} (a multiple of 8) x map "
+    if tile < 1 or tile % multiple or mt * tile < x.shape[0] \
+            or nt * tile < x.shape[1]:
+        raise ValueError(f"tile {tile} (a multiple of {multiple}) x map "
                          f"{cls_map.shape} must cover x {tuple(x.shape)}")
     return mt, nt
 
@@ -155,7 +160,7 @@ def convert_by_class(x: torch.Tensor, cls_map, tile: int,
                          "map form does not take (per-tile-scaled integer "
                          "classes keep the per-class path)")
     cls_map = np.asarray(cls_map)
-    mt, nt = _grid(x, cls_map, tile)
+    mt, nt = _grid(x, cls_map, tile, CLASS_TILE_MULTIPLE)
     m, n = x.shape
     x = x.contiguous()
     outs = tuple(torch.empty((mt * tile, nt * tile),

@@ -7,16 +7,16 @@ through the shape-bucketed engine.
 
 The first serves InternLM2-1.8B at full width on the card (``--device
 cuda``, the default); the second its reduced twin with the kernels'
-plain versions on the CPU.  ``--arch`` takes every registered config:
-``qwen2-moe-a2.7b`` (MoE) and ``gemma3-4b`` (local/global attention)
-serve in the engine's equal mode, where refill, the prefix cache and
-chunked prefill are off; ``phi3.5-moe-42b-a6.6b`` fits one card only
-reduced (``--smoke``).  Every knob maps onto
-:class:`repro_torch.serve.ServeConfig`; refill, the paged prefix cache
-and chunked prefill are on unless switched off.  The engine resolves
-every plan and builds the kernels before serving unless ``--no-warmup``
-is passed; ``--stats`` prints ``Engine.stats()`` as JSON after the
-stream drains.
+plain versions on the CPU. ``--arch`` takes every registered config:
+``qwen2-moe-a2.7b`` (MoE), ``gemma3-4b`` (local/global attention) and
+``xlstm-1.3b`` (recurrent cells) serve in the engine's equal mode, where
+refill, the prefix cache and chunked prefill are off;
+``phi3.5-moe-42b-a6.6b`` fits one card only reduced (``--smoke``). Every
+knob maps onto :class:`repro_torch.serve.ServeConfig`; refill, the paged
+prefix cache and chunked prefill are on unless switched off. The engine
+resolves every plan and builds the kernels before serving unless
+``--no-warmup`` is passed; ``--stats`` prints ``Engine.stats()`` as JSON
+after the stream drains.
 
 ``--ckpt DIR`` serves the params of a training checkpoint (written by
 either package); ``--quantize SPEC`` serves every request through an

@@ -1,23 +1,26 @@
-"""Decoder model: init, KV caches, the training forward, prefill and
+"""Decoder model: init, caches, the training forward, prefill and
 one-token decode for the dense and MoE families, with full or
-local/global attention (twin of ``repro.models.transformer`` for those
-families).
+local/global attention, and the xLSTM stack (twin of
+``repro.models.transformer`` for those families).
 
 Parameters are a plain dict::
 
     {"embed": bf16[V, d], "final_norm": f32[d], "lm_head": MPLinear,
      "layers": LayerList([{"norm1", "attn": {wq, wk, wv, wo}, "norm2",
                            "mlp": {up, gate, down}
-                           | "moe": {router, gate, up, down, [shared]}},
+                           | "moe": {router, gate, up, down, [shared]}}
+                          | {"norm1", "mlstm" | "slstm": {...}},
                           ...])}
 
 Layer i's kinds are ``cfg.layer_kinds()[i]``: mixer ``attn_full`` or
 ``attn_local`` (a sliding window of ``cfg.local_window``; its cache is a
-ring buffer of ``min(seq_len, local_window)`` slots), ffn ``mlp`` or
-``moe``.  Layers run in a Python loop; the reference scans them in
-segments of whole pattern periods, and :class:`~repro_torch.tree.
-LayerList` carries the period so the port's trees walk as the
-reference's (``repro_torch.tree``).
+ring buffer of ``min(seq_len, local_window)`` slots), or ``mlstm`` /
+``slstm`` (``models.xlstm``; the cache is the cell's fp32 recurrent
+state, replaced or updated in place each step); ffn ``mlp``, ``moe`` or
+``none`` (the xLSTM cells carry their own).  Layers run in a Python
+loop; the reference scans them in segments of whole pattern periods,
+and :class:`~repro_torch.tree.LayerList` carries the period so the
+port's trees walk as the reference's (``repro_torch.tree``).
 """
 from __future__ import annotations
 
@@ -30,11 +33,12 @@ from repro_torch.core.formats import FormatSet
 from repro_torch.core.linear import init_mp_linear
 from repro_torch.models import common as C
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as X
 from repro_torch.models.common import ACT_DTYPE
 from repro_torch.tree import LayerList
 
 #: families the port serves; the rest wait in ROADMAP.md queue 1, item 7
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def dims_of(cfg: ArchConfig) -> C.AttnDims:
@@ -46,29 +50,34 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported: the hybrid (Mamba), "
-            "ssm (xLSTM), audio and vision families wait in ROADMAP.md "
-            "queue 1, item 7")
+            "audio and vision families wait in ROADMAP.md queue 1, item 7")
 
 
 def _window(cfg: ArchConfig, mixer: str):
     return cfg.local_window if mixer == "attn_local" else None
 
 
-def _init_layer(gen, cfg: ArchConfig, ffn: str) -> dict:
+def _init_layer(gen, cfg: ArchConfig, mixer: str, ffn: str) -> dict:
     dev = gen.device
     fs = FormatSet.from_key(cfg.mp_formats)
-    p: dict[str, Any] = {
-        "norm1": C.init_rms_norm(cfg.d_model, dev),
-        "attn": C.init_attention(gen, cfg.d_model, dims_of(cfg),
-                                 cfg.mp_policy, cfg.mp_tile, fset=fs,
-                                 device=dev),
-        "norm2": C.init_rms_norm(cfg.d_model, dev),
-    }
+    p: dict[str, Any] = {"norm1": C.init_rms_norm(cfg.d_model, dev)}
+    if mixer == "mlstm":
+        p["mlstm"] = X.init_mlstm(gen, cfg.d_model, cfg.n_heads,
+                                  cfg.mp_policy, tile=cfg.mp_tile)
+    elif mixer == "slstm":
+        p["slstm"] = X.init_slstm(gen, cfg.d_model, cfg.n_heads,
+                                  cfg.mp_policy, tile=cfg.mp_tile)
+    else:
+        p["attn"] = C.init_attention(gen, cfg.d_model, dims_of(cfg),
+                                     cfg.mp_policy, cfg.mp_tile, fset=fs,
+                                     device=dev)
+    if ffn != "none":
+        p["norm2"] = C.init_rms_norm(cfg.d_model, dev)
     if ffn == "mlp":
         p["mlp"] = C.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mp_policy,
                               cfg.mp_tile, gated=cfg.gated_mlp, fset=fs,
                               device=dev)
-    else:
+    elif ffn == "moe":
         p["moe"] = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
                                 cfg.top_k, cfg.mp_policy,
                                 n_shared=cfg.n_shared,
@@ -91,18 +100,28 @@ def init_model(gen: torch.Generator, cfg: ArchConfig) -> dict:
                                   tile=cfg.mp_tile, fset=fs, device=dev),
     }
     params["layers"] = LayerList(
-        [_init_layer(gen, cfg, ffn) for _, ffn in cfg.layer_kinds()],
+        [_init_layer(gen, cfg, mixer, ffn)
+         for mixer, ffn in cfg.layer_kinds()],
         cfg.pattern_period())
     return params
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                device="cuda") -> list[dict]:
-    """One zeroed ``{"k", "v"}`` pair of [B, S, n_kv, dh] bf16 per layer;
-    a local layer's S is ``min(seq_len, local_window)``."""
+    """One zeroed cache per layer: a ``{"k", "v"}`` pair of [B, S, n_kv,
+    dh] bf16 for attention (a local layer's S is ``min(seq_len,
+    local_window)``), the fp32 recurrent state for an xLSTM cell."""
     dims = dims_of(cfg)
     out = []
     for mixer, _ in cfg.layer_kinds():
+        if mixer == "mlstm":
+            out.append(X.init_mlstm_state(batch, cfg.d_model, cfg.n_heads,
+                                          device=device))
+            continue
+        if mixer == "slstm":
+            out.append(X.init_slstm_state(batch, cfg.d_model, cfg.n_heads,
+                                          device=device))
+            continue
         s = min(seq_len, cfg.local_window) if mixer == "attn_local" \
             else seq_len
         shape = (batch, s, dims.n_kv, dims.head_dim)
@@ -133,10 +152,19 @@ def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor):
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for lp, (mixer, ffn) in zip(params["layers"], cfg.layer_kinds()):
         h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        x = x + C.attention_block(lp["attn"], h, dims, positions=positions,
-                                  window=_window(cfg, mixer),
-                                  rope_theta=cfg.rope_theta,
-                                  use_rope=cfg.use_rope)
+        if mixer == "mlstm":
+            x = x + X.mlstm_block(lp["mlstm"], h, n_heads=cfg.n_heads)
+        elif mixer == "slstm":
+            x = x + X.slstm_block(lp["slstm"], h, n_heads=cfg.n_heads)
+        else:
+            x = x + C.attention_block(lp["attn"], h, dims,
+                                      positions=positions,
+                                      window=_window(cfg, mixer),
+                                      rope_theta=cfg.rope_theta,
+                                      use_rope=cfg.use_rope)
+        if ffn == "none":
+            x = x.to(ACT_DTYPE)
+            continue
         h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
         out, a = _ffn(lp, cfg, ffn, h2, aux=True)
         x = (x + out).to(ACT_DTYPE)
@@ -148,20 +176,19 @@ def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor):
 def forward_train(params, cfg: ArchConfig, batch: dict):
     """Training forward: ``batch`` {"tokens", "labels"} [B, S] → (loss,
     metrics).  No remat: the reference's ``jax.checkpoint`` saves memory
-    and changes no number."""
+    and changes no number.  Past the local window the local layers attend
+    to the last w keys, as the reference's decode does; the reference's
+    bulk band admits up to 2w - 1 (``ROADMAP.md`` queue 3, F8: decided
+    for the decode's band)."""
     check_family(cfg)
     if cfg.n_experts:
         raise NotImplementedError(
             "MoE training (the load-balance aux loss in the loss and the "
             "experts' backward) is not ported: ROADMAP.md queue 1, item 7")
-    S = batch["tokens"].shape[1]
-    if cfg.attn_pattern == "local_global" and S > cfg.local_window:
+    if cfg.block_type == "xlstm":
         raise NotImplementedError(
-            f"training at S = {S} past the local window "
-            f"{cfg.local_window}: the reference's bulk band admits up to "
-            "2w - 1 keys where its decode holds w, and the port's band "
-            "holds w, so the two trainings would differ (ROADMAP.md "
-            "queue 3, F8)")
+            "xLSTM training (the scans' backward) is not ported: the "
+            "family serves only; ROADMAP.md queue 1, item 7")
     x, aux = _run_layers(params, cfg, batch["tokens"])
     x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
     loss = C.cross_entropy(params["lm_head"](x), batch["labels"])
@@ -188,14 +215,22 @@ def forward_decode(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
     per-row [B] tensor (then with ``slot`` and ``kv_valid``, as in
     :func:`~repro_torch.models.common.decode_attention`; full attention
     only).  ``moe_drops``, when given, collects each MoE layer's count of
-    dropped (token, expert) pairs (device scalars).  Returns (logits
-    [B, 1, V] fp32, caches)."""
+    dropped (token, expert) pairs (device scalars).  An xLSTM layer's
+    state dict takes the step's new state (mLSTM's C in place, the rest
+    replaced); xLSTM needs no position.  Returns (logits [B, 1, V] fp32,
+    caches)."""
     check_family(cfg)
     dims = dims_of(cfg)
     x = C.embed(params["embed"], tokens)
     for lp, cache, (mixer, ffn) in zip(params["layers"], caches,
                                        cfg.layer_kinds()):
         h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
+        if mixer in ("mlstm", "slstm"):
+            block = X.mlstm_block if mixer == "mlstm" else X.slstm_block
+            out, new = block(lp[mixer], h, n_heads=cfg.n_heads, state=cache)
+            cache.update(new)
+            x = (x + out).to(ACT_DTYPE)
+            continue
         x = x + C.decode_attention(
             lp["attn"], h, dims, cache["k"], cache["v"], position=position,
             rope_theta=cfg.rope_theta, window=_window(cfg, mixer),

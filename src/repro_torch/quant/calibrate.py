@@ -14,12 +14,14 @@ and the stable argsort run in host numpy exactly as the reference's do
 (a row's absmax is exact on any device), so the maps are bit for bit the
 reference's.
 
-The reference scans stacked layers, so one weight name holds one map
-for every layer.  The port's layers are a Python list; each weight name
-still gets one map, shared by all layers and scored by the loudest
-layer per block, so quantizing the port's parameters gives the maps a
-JAX ``quantize_params`` gives the stacked ones.  A group of layers is
-passed as a list of :class:`KSplitWeight` (one per layer).
+The reference scans stacked layers, so a weight at one place of its
+segments (position q of segment s) holds one map for all the layers
+stacked there.  The port's layers are a Python list; the layers at one
+such place (``tree.segment_layers``) share one map per weight name,
+scored by the loudest layer per block, so quantizing the port's
+parameters gives the maps a JAX ``quantize_params`` gives the stacked
+ones.  A group of layers is passed as a list of :class:`KSplitWeight`
+(one per layer).
 
 NSplit weights and plain tensors pass through unchanged (NSplit maps are
 tied to column permutations folded into the next layer at init).
@@ -34,7 +36,7 @@ import torch
 from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet, format_set
 from repro_torch.core.layout import KSplitWeight
 from repro_torch.core.linear import MPLinear
-from repro_torch.tree import LayerList
+from repro_torch.tree import LayerList, segment_layers
 
 
 def _absmax(x, axis: int) -> np.ndarray:
@@ -125,14 +127,23 @@ def _rebuild(group: list, fn) -> list:
                 out[key] = node
         return outs
     if isinstance(first, list):
-        # a list's items are the layers: they share each weight's map
-        return [LayerList(_rebuild(g, fn), g.period)
-                if isinstance(g, LayerList) else _rebuild(g, fn)
-                for g in group]
+        return [_rebuild_layers(g, fn) if isinstance(g, LayerList)
+                else _rebuild(g, fn) for g in group]
     if isinstance(first, MPLinear) and isinstance(first.w, KSplitWeight):
         return [MPLinear(w, m.b)
                 for w, m in zip(fn([m.w for m in group]), group)]
     return group
+
+
+def _rebuild_layers(layers: LayerList, fn) -> LayerList:
+    """The layers at one place of the reference's segments (one stacked
+    leaf there: ``tree.segment_layers``) share each weight's map."""
+    out = list(layers)
+    for positions in segment_layers(len(layers), layers.period):
+        for idx in positions:
+            for i, node in zip(idx, _rebuild([layers[i] for i in idx], fn)):
+                out[i] = node
+    return LayerList(out, layers.period)
 
 
 def quantize_params(params, stats: ActStats | None = None, *,
@@ -142,7 +153,8 @@ def quantize_params(params, stats: ActStats | None = None, *,
 
     Every KSplit linear is rebuilt under ``fset`` (default: ``int8_pt``
     in the LOW role of the repo default set) with the calibrated map, one
-    map per weight name across the layers; NSplit linears and plain
+    map per weight name across the layers of one place of the
+    reference's segments (its stacked leaf); NSplit linears and plain
     tensors are the input's own objects.  The result serves through
     ``Engine(..., variants={tag: ...})``."""
     if fset is None:

@@ -5,20 +5,21 @@ modes of ``repro.serve.engine``.
 
 The mode follows the family, as in the reference: full-attention dense
 decoders serve in ``masked`` mode (below); sliding-window attention
-(gemma3's local layers) and MoE serve in ``equal`` mode, where a bucket
-holds requests of one exact length and every row shares a scalar
-position — prefill steps the decode function over positions ``0 .. S-1``,
-decode runs at ``S + t - 1``, filler rows repeat the last real request
-(after the real rows, so under MoE they never take a real row's expert
-capacity), and refill, the prefix cache and chunked prefill are off.
-Equal mode is exact for windowed attention.  Under MoE capacity routing
-it is not: a decode step routes the B rows' tokens together, and with
-the configured ``capacity_factor`` (1.25) a (token, expert) pair that
-two rows both pick can drop for the later row, which the same request
-served alone keeps.  The engine reproduces the reference's batched
-behaviour, drops included, and ``stats()["moe"]`` counts the dropped
-pairs per microbatch; batched equals unbatched where nothing drops
-(``capacity_factor`` with C ≥ B).
+(gemma3's local layers), MoE and the recurrent xLSTM cells (their fp32
+state carried per row in the caches) serve in ``equal`` mode, where a
+bucket holds requests of one exact length and every row shares a scalar
+position — prefill steps the decode function over positions
+``0 .. S-1``, decode runs at ``S + t - 1``, filler rows repeat the last real
+request (after the real rows, so under MoE they never take a real row's
+expert capacity), and refill, the prefix cache and chunked prefill are
+off. Equal mode is exact for windowed attention. Under MoE capacity
+routing it is not: a decode step routes the B rows' tokens together, and
+with the configured ``capacity_factor`` (1.25) a (token, expert) pair
+that two rows both pick can drop for the later row, which the same
+request served alone keeps. The engine reproduces the reference's
+batched behaviour, drops included, and ``stats()["moe"]`` counts the
+dropped pairs per microbatch; batched equals unbatched where nothing
+drops (``capacity_factor`` with C ≥ B).
 
 Requests are admitted into :class:`~repro_torch.serve.scheduler.
 ShapeBucketScheduler` and drained as fixed-shape microbatches (bucket
@@ -187,8 +188,14 @@ class Engine:
         self.max_batch, self.max_seq = config.max_batch, config.max_seq
         #: weights per format-set tag (a request's ``fset`` picks one)
         self.variants = {"default": params, **(variants or {})}
-        self.mode = ("masked" if cfg.attn_pattern == "full"
-                     and cfg.n_experts == 0 else "equal")
+        # the reference's rule: only full attention without experts,
+        # frontend or encoder-only layout can mask per-row progress
+        self.mode = ("masked" if (cfg.block_type == "attn"
+                                  and cfg.attn_pattern == "full"
+                                  and not cfg.encoder_only
+                                  and cfg.n_experts == 0
+                                  and cfg.frontend == "none")
+                     else "equal")
         # tune-once at setup: a plan for every mixed-precision layer of
         # every variant at the decode batch size
         dispatch.warm_registry()

@@ -34,6 +34,7 @@ import torch
 
 from repro.configs.base import DEFAULT_TP, load_all
 from repro.configs.base import reduced as jreduced
+from repro.models import common as JC
 from repro.models import transformer as JT
 from repro_torch import tree as TR
 from repro_torch.bridge import params_from_numpy
@@ -74,7 +75,8 @@ def test_registered_configs_match_reference():
     ref = load_all()
     ported = PB.load_all()
     assert set(ported) == {"internlm2-1.8b", "llama3-8b", "gemma3-4b",
-                           "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b"}
+                           "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
+                           "xlstm-1.3b"}
     assert PB.REFERENCE_TP == DEFAULT_TP
     for name, pcfg in ported.items():
         jcfg = ref[name]
@@ -222,20 +224,39 @@ def test_moe_training_not_ported():
         PT.forward_train(params, cfg, {"tokens": toks, "labels": toks})
 
 
-def test_windowed_training_refused_past_window():
-    """Past the window the port's band (w keys) is not the reference's
-    bulk band (up to 2w - 1; F8), so training there is refused; within
-    the window both are plain causal attention and training runs."""
-    cfg = reduced(get("gemma3-4b"))
-    params = PT.init_model(torch.Generator().manual_seed(0), cfg)
-    w = cfg.local_window
-    long = torch.zeros((1, 2 * w), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="F8"):
-        PT.forward_train(params, cfg, {"tokens": long, "labels": long})
-    short = torch.zeros((1, w), dtype=torch.long)
-    loss, _ = PT.forward_train(params, cfg, {"tokens": short,
-                                             "labels": short})
+def test_windowed_training_past_window_matches_reference_decode():
+    """F8, decided for the decode's band: past the window the port trains
+    on the w-key band the reference's own decode computes.  At S = 3w its
+    ``forward_train`` loss equals the cross-entropy (the reference's
+    ``cross_entropy``, z-loss included) of the reference's teacher-forced
+    decode logits on the same weights and labels, within the loss that a
+    logit drift of ``LOGIT_TOL_COMPILED`` can move (2·tol on lse − ll,
+    plus the z-loss's 2·z·|lse|·tol); and it lies nearer that than the
+    reference's own bulk training loss (its 2w − 1 band) does."""
+    jcfg, jp, pcfg, pp = _pair("gemma3-4b")
+    S = 3 * pcfg.local_window
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab, (2, S))
+    labels = np.random.default_rng(5).integers(0, jcfg.vocab, (2, S))
+    step = jax.jit(lambda p, t, c, s: JT.forward_decode(p, jcfg, t, c, s))
+    jc = JT.init_cache(jcfg, 2, S)
+    logits = []
+    for s in range(S):
+        lg, jc = step(jp, jnp.asarray(toks[:, s:s + 1], jnp.int32), jc,
+                      jnp.int32(s))
+        logits.append(lg)
+    logits = jnp.concatenate(logits, axis=1)
+    jlabels = jnp.asarray(labels, jnp.int32)
+    want = float(JC.cross_entropy(logits, jlabels))
+    lse = float(jnp.abs(jax.nn.logsumexp(logits.astype(jnp.float32),
+                                         -1)).max())
+    tol = 2 * LOGIT_TOL_COMPILED * (1 + 2 * 1e-4 * lse)
+    loss, _ = PT.forward_train(pp, pcfg, {"tokens": torch.from_numpy(toks),
+                                          "labels": torch.from_numpy(labels)})
     assert torch.isfinite(loss)
+    assert abs(float(loss) - want) <= tol
+    ref_bulk = float(jax.jit(lambda p, b: JT.forward_train(p, jcfg, b))(
+        jp, {"tokens": jnp.asarray(toks, jnp.int32), "labels": jlabels})[0])
+    assert abs(float(loss) - want) < abs(ref_bulk - want)
 
 
 def test_walk_takes_the_period_from_the_layer_list():

@@ -264,6 +264,32 @@ def test_quantize_params_matches_reference_on_model(names, ratio):
         assert set(rep["classes"]) <= set(names)
 
 
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "gemma3-4b"])
+def test_quantize_params_matches_reference_per_segment_position(arch):
+    """A model whose layers differ by place in the pattern (xLSTM's sLSTM
+    and mLSTM cells; gemma3's five local layers, its global one and a
+    tail) gets one map per place of the reference's segments, as the
+    reference's stacked leaves do: every leaf bit for bit."""
+    jcfg = jreduced(load_all()[arch], tp=2)
+    jp = JT.init_model(jax.random.PRNGKey(0), jcfg)
+    pp = params_from_numpy(numpy_tree(jp), reduced(get(arch)), "cpu")
+    acts = np.random.default_rng(5).standard_normal((6, 64)).astype(
+        np.float32)
+    acts[:, 8:16] *= 20.0
+    jq = JRQ.quantize_params(jp, JRQ.ActStats().observe(acts))
+    pq = quantize_params(pp, ActStats().observe(acts))
+    flat = jax.tree_util.tree_flatten_with_path(jq)[0]
+    leaves = TR.walk(pq)
+    assert [leaf.name for leaf in leaves] == [
+        "/".join(str(k) for k in p) for p, _ in flat]
+    for (_, a), leaf in zip(flat, leaves):
+        b = torch.stack(leaf.parts) if leaf.stacked else leaf.parts[0]
+        want = tensor_from_numpy(np.asarray(a), "cpu")
+        assert b.dtype == want.dtype and b.shape == want.shape, leaf.key
+        assert not b.numel() or torch.equal(b.contiguous().view(torch.uint8),
+                           want.view(torch.uint8)), leaf.key
+
+
 def test_quant_and_formats_facades_export_surface():
     assert RF.__all__ == JRF.__all__
     assert RQ.__all__ == JRQ.__all__
