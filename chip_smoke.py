@@ -13,9 +13,10 @@ Phases (each raises on failure, so a failing run never exits 0):
    the tile, grouped and split libraries (``cuobjdump -sass``): each must
    hold ``HGMMA`` (wgmma) instructions;
 2. hold each kernel to its plain PyTorch version on the card: the ksplit kernel
-   at the served InternLM2-1.8B, Qwen1.5-MoE-A2.7B, Gemma-3-4B and
-   xLSTM-1.3B shapes (m = 1 and 4, rows bitwise equal across m and across
-   two forced launch geometries) and at m = 4096, the tile kernel at M = N =
+   at the served InternLM2-1.8B, Qwen1.5-MoE-A2.7B, Gemma-3-4B,
+   xLSTM-1.3B and Jamba-v0.1 shapes (m = 1 and 4, rows bitwise equal
+   across m and across two forced launch geometries) and at m = 4096, the
+   tile kernel at M = N =
    K = 1024 and 4096 and the grouped kernel at 4096³, both at t = 64 and
    128, over four class mixes and one integer-class format set, and both on
    e4m3-overflow NaN, inf·0 and subnormal operands; the split kernel at
@@ -125,13 +126,15 @@ Phases (each raises on failure, so a failing run never exits 0):
    the 2x2 solve's broadcast share.
 
 9. (run after 4c) the MoE and local/global families through the engine's
-   equal mode. Qwen1.5-MoE-A2.7B at full width (24 layers, 60 experts
-   top-4, random weights from a seeded generator; its parameter bytes by
-   kind printed): eight requests (four 32-token, four 64-token prompts, 12
+   equal mode (phases 9 and 10 cut depth, not width, to keep the run
+   inside its time limit; no gate depends on depth). Qwen1.5-MoE-A2.7B at
+   full width, 8 of its 24 layers (60 experts top-4, random weights from
+   a seeded generator; its parameter bytes by kind printed): eight
+   requests (four 32-token, four 64-token prompts, 12
    new tokens, two sampled) at ``max_batch=4``. (a) At the published
    capacity factor 1.25 the same stream twice gives the same tokens; the
    dropped (token, expert) pairs per microbatch and the requests that
-   differ from their unbatched reference are printed, not gated (the
+   differ from the no-drop reference of (b) are printed, not gated (the
    reference's batched behaviour). (b) At capacity factor 16 nothing drops
    and batched tokens equal ``generate_reference``. (c) A 64-token row
    decoded through the cache with the kernels agrees with
@@ -148,17 +151,19 @@ Phases (each raises on failure, so a failing run never exits 0):
    beside its byte bound, the idle share of profiled steps, the expert
    products' and the ksplit kernel's device time, the bf16 upcast's time,
    the ksplit launches read per step and the peak memory. Gemma-3-4B at
-   full depth (5:1 local/global, window 1024): two 64-token and two
+   full width, 12 of its 34 layers (two periods of 5 local layers and 1
+   global, window 1024): two 64-token and two
    32-token requests equal to ``generate_reference``; then its first
    pattern period (6 layers) decoded through 2048 positions, past the
    window, against the bulk forward under rule (c).
 10. (run after 9) the xLSTM family through the engine's equal mode:
-   xLSTM-1.3B at full width (48 layers, 42 mLSTM and 6 sLSTM, d 2048,
-   4 heads, vocab 50304; random weights from a seeded generator; its
-   fp32 recurrent state per row printed), two 32-token and two 64-token
-   requests at ``max_batch=4``, 12 new tokens each: every request equal
-   to ``generate_reference``, 49 ksplit launches in every model step
-   (42 ``up_proj``, 6 ``ff_up``, the lm_head: counted per step), no
+   xLSTM-1.3B at full width, 16 of its 48 layers (14 mLSTM and 2 sLSTM,
+   d 2048, 4 heads, vocab 50304; random weights from a seeded generator;
+   its fp32 recurrent state per row printed), two 32-token and two
+   64-token requests at ``max_batch=4``, 12 new tokens each: every
+   request equal to ``generate_reference``, 17 ksplit launches in every
+   model step (14 ``up_proj``, 2 ``ff_up``, the lm_head: counted per
+   step), no
    fresh resolution, every KSplit linear on the kernel; then the first
    pattern period (1 sLSTM, 7 mLSTM layers) decoded through 128
    positions against the bulk forward under rule (c) (the gaps also
@@ -166,6 +171,24 @@ Phases (each raises on failure, so a failing run never exits 0):
    the decode step's median wall beside its byte bound (weights, state
    read and written), its idle share over profiled steps and the peak
    memory.
+11. (run after 10) the Mamba-hybrid family through the engine's equal
+   mode: Jamba-v0.1's first pattern period (8 of 32 layers at every
+   published width: d 4096, 32 heads / 8 kv, d_ff 14336, 16 experts
+   top-2, vocab 65536, Mamba d_state 16, expand 2; 7 Mamba mixers,
+   attention at layer 4 without RoPE, MoE on odd layers; the 32 layers'
+   51.6e9 parameters do not fit one card), two 32-token and two 64-token
+   requests at ``max_batch=4``, 12 new tokens each: (b) at capacity
+   factor 16 every request equal to ``generate_reference``, (a) at the
+   published 1.25 the same stream twice equal (drops printed); 19 ksplit
+   launches in every model step of both (7 ``in_proj``, 4 MLP up and
+   gate, wq/wk/wv, the lm_head: counted per step), all on the kernel, no
+   fresh resolution; then one row decoded through 256 positions (two of
+   the scan's 128-token chunks, so the bulk forward crosses a chunk)
+   against the bulk forward under rule (c) with the bulk's expert picks
+   replayed, and the decode step's median wall beside its byte bound
+   (weights, the attention layer's KV, the Mamba state read and
+   written), its idle share and expert-product span over profiled
+   steps, the Mamba state per row and the peak memory.
 
 The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
@@ -195,12 +218,15 @@ PEAK_FP32_FLOPS = 67e12
 #: served ksplit shapes (K, N) of InternLM2-1.8B on one card: wq, wk/wv,
 #: up/gate, lm_head; the large-M ksplit check; the tile-kernel checks
 SERVED_KN = ((2048, 2048), (2048, 1024), (2048, 8192), (2048, 92544))
-#: phases 9 and 10's further ksplit shapes (K, N): Qwen1.5-MoE-A2.7B's
+#: phases 9, 10 and 11's further ksplit shapes (K, N): Qwen1.5-MoE-A2.7B's
 #: shared expert up/gate and lm_head (its wq/wk/wv are 2048 x 2048),
 #: Gemma-3-4B's wq, wk/wv, up/gate and lm_head, xLSTM-1.3B's sLSTM ff_up
-#: and lm_head (its mLSTM up_proj is 2048 x 8192)
+#: and lm_head (its mLSTM up_proj is 2048 x 8192), Jamba-v0.1's Mamba
+#: in_proj, MLP up/gate, wq, wk/wv and lm_head
 FAMILY_KN = ((2048, 5632), (2048, 151936), (2560, 2560), (2560, 1280),
-             (2560, 10240), (2560, 262144), (2048, 2688), (2048, 50304))
+             (2560, 10240), (2560, 262144), (2048, 2688), (2048, 50304),
+             (4096, 16384), (4096, 14336), (4096, 4096), (4096, 1024),
+             (4096, 65536))
 KSPLIT_BIG = (4096, 2048, 8192)
 TILE_SIZES = (1024, 4096)
 TILE = 128
@@ -2385,6 +2411,13 @@ def host_clock_ms(fn, iters: int = 10) -> float:
 # phase 9: serving the MoE and local/global families
 # ---------------------------------------------------------------------------
 
+#: the depths phases 9 and 10 serve at (every width as published): the
+#: whole script must finish well inside its time limit on a slow host
+#: (at full depths it took 1161 s on one H100 machine), and no gate
+#: depends on depth. Qwen1.5-MoE-A2.7B: 8 of 24 layers; Gemma-3-4B: 12 of 34 (two
+#: periods of 5 local layers and 1 global); xLSTM-1.3B: 16 of 48 (two
+#: periods of 1 sLSTM and 7 mLSTM layers)
+MOE_LAYERS, GEMMA_LAYERS, XLSTM_LAYERS = 8, 12, 16
 #: phase 9's qwen2 stream: four 32-token and four 64-token prompts, 12 new
 #: tokens each, requests 1 and 5 sampled (temperature 0.8); the cache
 #: holds the 64-token bucket's 64 + 12 - 1 slots
@@ -2409,14 +2442,15 @@ WINDOW_POSITIONS = 2048
 
 def bytes_by_kind(params) -> dict:
     """Parameter bytes by kind (experts, shared expert, attention, the
-    recurrent xLSTM cells, embedding, lm_head; norms and routers as
-    other); a kind the model lacks is left out."""
+    recurrent mixers: xLSTM cells and Mamba; embedding, lm_head; dense
+    MLPs, norms and routers as other); a kind the model lacks is left
+    out."""
     from repro_torch import tree as TR
     out = dict.fromkeys(("experts", "shared", "attention", "recurrent",
                          "embedding", "lm_head", "other"), 0)
     for leaf in TR.walk(params):
         key = leaf.key
-        if "/mlstm/" in key or "/slstm/" in key:
+        if "/mlstm/" in key or "/slstm/" in key or "/mamba/" in key:
             kind = "recurrent"
         elif "/moe/shared/" in key:
             kind = "shared"
@@ -2434,21 +2468,29 @@ def bytes_by_kind(params) -> dict:
     return {k: v for k, v in out.items() if v or k == "other"}
 
 
-def decode_step_bytes(cfg, kinds: dict, batch: int, position: int) -> int:
-    """Bytes one decode step must move: every weight but the embedding
-    table read once (every expert runs, its capacity slots full or not),
-    the batch's embedding rows, each layer's visible KV read and one slot
-    written, and the fp32 logits written."""
+def decode_step_bytes(cfg, kinds: dict, batch: int, position: int) -> dict:
+    """Bytes one decode step must move, by part (every model's byte bound
+    is their sum, computed here): every weight but the embedding table
+    read once (every expert runs, its capacity slots full or not), the
+    batch's embedding rows, each attention layer's visible KV read and
+    one slot written, each recurrent layer's fp32 state (Mamba, mLSTM,
+    sLSTM) read and written once, and the fp32 logits written."""
     from repro_torch.models import transformer as T
     dims = T.dims_of(cfg)
-    kv = 0
-    for mixer, _ in cfg.layer_kinds():
-        seen = position + 1
-        if mixer == "attn_local":
-            seen = min(seen, cfg.local_window)
-        kv += batch * (seen + 1) * dims.n_kv * dims.head_dim * 2 * 2
-    weights = sum(v for k, v in kinds.items() if k != "embedding")
-    return weights + batch * cfg.d_model * 2 + kv + batch * cfg.vocab * 4
+    kv = state = 0
+    for (mixer, _), cache in zip(cfg.layer_kinds(),
+                                 T.init_cache(cfg, 1, 1, "meta")):
+        if mixer.startswith("attn"):
+            seen = position + 1
+            if mixer == "attn_local":
+                seen = min(seen, cfg.local_window)
+            kv += batch * (seen + 1) * dims.n_kv * dims.head_dim * 2 * 2
+        else:
+            state += 2 * batch * sum(t.numel() * t.element_size()
+                                     for t in cache.values())
+    return {"weights": sum(v for k, v in kinds.items() if k != "embedding"),
+            "embedding_rows": batch * cfg.d_model * 2, "kv": kv,
+            "state": state, "logits": batch * cfg.vocab * 4}
 
 
 def family_stream(vocab: int, lens, new: int, seed: int,
@@ -2629,7 +2671,7 @@ def decode_vs_bulk(cfg, params, n: int, seed: int, label: str) -> dict:
                         default=0.0)
         bound = max(2.0 * plain_max, 2.0 ** -8 * max_p)
         above = [g for g in flips["kernel_decode"] if g > bound]
-        decisions = n * cfg.n_layers
+        decisions = n * len(recorded)
         out["routing"] = {"decisions": decisions,
                           "flipped": {k: len(v) for k, v in flips.items()},
                           "flip_margin_max": {k: max(v, default=0.0)
@@ -2659,14 +2701,15 @@ def decode_vs_bulk(cfg, params, n: int, seed: int, label: str) -> dict:
     return out
 
 
-def moe_decode_profile(cfg, params, kinds: dict) -> dict:
+def moe_decode_profile(cfg, params, kinds: dict, label: str = "moe",
+                       step_launches: int | None = None) -> dict:
     """The decode step at batch 4 over zeroed caches (the timing needs no
     real history): median wall (host clock around synchronized steps),
-    ksplit launches read per step, then steps under
-    ``torch.profiler`` with the expert products in a named range (device
-    busy, idle share, ksplit kernel and expert-product device time), the
-    held-event time of upcasting one layer's bf16 expert segments, and
-    the byte bound."""
+    ksplit launches read per step (each must equal ``step_launches`` when
+    given), then steps under ``torch.profiler`` with the expert products
+    in a named range (device busy, idle share, ksplit kernel and
+    expert-product device time), the held-event time of upcasting one MoE
+    layer's bf16 expert segments, and the byte bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.kernels import ops
@@ -2688,7 +2731,7 @@ def moe_decode_profile(cfg, params, kinds: dict) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
         launches.append(ops.launch_counts()["ksplit_gemm"])
     wall_ms = float(np.median(walls))
-    range_name = "phase9.expert_product"
+    range_name = "expert_product"
     saved = {cls: cls.__call__ for cls in MOE.MOE_WEIGHTS}
 
     def named(orig):
@@ -2720,32 +2763,37 @@ def moe_decode_profile(cfg, params, kinds: dict) -> dict:
     rows = [r for r in rows if r[0] != range_name]
     busy_ms = sum(ms for _, ms in rows) or None
     ksplit_ms = sum(ms for name, ms in rows if "ksplit" in name)
-    moe0 = params["layers"][0]["moe"]
-    upcast_ms = sum(time_ms(lambda w=moe0[n].w_lo: w.float())
+    moe_layers = [lp["moe"] for lp in params["layers"] if "moe" in lp]
+    upcast_ms = sum(time_ms(lambda w=moe_layers[0][n].w_lo: w.float())
                     for n in ("gate", "up", "down"))
-    nbytes = decode_step_bytes(cfg, kinds, B, p0 + DECODE_STEPS)
+    n_moe = len(moe_layers)
+    parts = decode_step_bytes(cfg, kinds, B, p0 + DECODE_STEPS)
+    nbytes = sum(parts.values())
     bound_ms = nbytes / PEAK_BYTES_S * 1e3
     idle = (f"{1 - busy_ms / wall_ms:.1%}" if busy_ms
             else "not measured (the profiler saw no device time)")
-    print(f"moe decode step (batch {B}, position ~{p0 + DECODE_STEPS}): "
+    print(f"{label} decode step (batch {B}, position ~{p0 + DECODE_STEPS}): "
           f"median wall {wall_ms:.2f} ms over {DECODE_STEPS} steps "
           f"({[round(w, 2) for w in walls]}); byte bound {bound_ms:.2f} ms "
-          f"({nbytes / 1e9:.2f} GB at {PEAK_BYTES_S / 1e12:.2f} TB/s); "
-          f"ksplit launches per step {launches}")
-    print(f"moe decode profile ({PROFILE_DECODE_STEPS} steps): device busy "
-          f"{busy_ms or 0:.2f} ms/step, idle share {idle}; expert products' "
-          f"span {expert_ms:.2f} ms/step (of which the bf16 segments' fp32 "
-          f"upcast, timed apart: {upcast_ms:.3f} ms per layer x "
-          f"{cfg.n_layers} = {upcast_ms * cfg.n_layers:.2f} ms); ksplit "
-          f"kernel {ksplit_ms:.2f} ms/step")
+          f"({nbytes / 1e9:.2f} GB at {PEAK_BYTES_S / 1e12:.2f} TB/s: "
+          + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in parts.items())
+          + f"); ksplit launches per step {launches}")
+    print(f"{label} decode profile ({PROFILE_DECODE_STEPS} steps): device "
+          f"busy {busy_ms or 0:.2f} ms/step, idle share {idle}; expert "
+          f"products' span {expert_ms:.2f} ms/step (of which the bf16 "
+          f"segments' fp32 upcast, timed apart: {upcast_ms:.3f} ms per MoE "
+          f"layer x {n_moe} = {upcast_ms * n_moe:.2f} ms); ksplit kernel "
+          f"{ksplit_ms:.2f} ms/step")
     for name, ms in rows[:8]:
         print(f"profile   {ms:8.3f} ms/step  {name[:90]}")
-    if len(set(launches)) != 1 or launches[0] < 1:
-        fail(f"moe decode: ksplit launches per step {launches}")
+    if len(set(launches)) != 1 or launches[0] < 1 or (
+            step_launches is not None and launches[0] != step_launches):
+        fail(f"{label} decode: ksplit launches per step {launches}"
+             + ("" if step_launches is None else f", not {step_launches}"))
     return {"wall_ms": wall_ms, "bound_ms": bound_ms, "busy_ms": busy_ms,
             "expert_ms": expert_ms, "ksplit_ms": ksplit_ms,
-            "upcast_ms_per_step": upcast_ms * cfg.n_layers,
-            "launches_per_step": launches[0]}
+            "upcast_ms_per_step": upcast_ms * n_moe,
+            "launches_per_step": launches[0], "bound_parts": parts}
 
 
 def check_served(label, cfg, reqs, refs, st, launches) -> None:
@@ -2773,10 +2821,11 @@ def check_served(label, cfg, reqs, refs, st, launches) -> None:
 
 
 def serve_moe(cfg, seed: int = 0) -> dict:
-    """Qwen1.5-MoE-A2.7B at full width through the engine's equal mode:
-    gates (a) determinism at the published capacity, (b) batched ==
-    unbatched where nothing drops, (c) cached decode against the bulk
-    forward; then the decode step beside its byte bound."""
+    """Qwen1.5-MoE-A2.7B at full width (``MOE_LAYERS`` deep) through the
+    engine's equal mode: gates (a) determinism at the published
+    capacity, (b) batched == unbatched where nothing drops, (c) cached
+    decode against the bulk forward; then the decode step beside its
+    byte bound."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
@@ -2816,18 +2865,13 @@ def serve_moe(cfg, seed: int = 0) -> dict:
     run2 = eng.generate(stream())
     drops2 = eng.stats()["moe"]["dropped_per_microbatch"][len(drops):]
     gen_toks = st["tokens"]["generated"]
-    refs = eng.generate_reference(stream())
-    differ = [i for i, (r, f) in enumerate(zip(run1, refs))
-              if r.out_tokens != f.out_tokens]
     print(f"serve moe: {len(run1)} requests (prompts {list(FAMILY_LENS)}, "
           f"{FAMILY_NEW} new, sampled {list(FAMILY_SAMPLED)}), {gen_toks} "
           f"tokens in {wall_s:.3f} s = {gen_toks / wall_s:.2f} tokens/s; "
           f"microbatches {st['microbatches']['total']}, prefill steps "
           f"{st['prefill_steps']}, decode steps {st['decode_steps']}")
     print(f"serve moe (a) capacity {cfg.capacity_factor}: dropped (token, "
-          f"expert) pairs per microbatch {drops} (replay {drops2}); "
-          f"requests differing from their unbatched reference {differ} "
-          f"(not gated: the reference's batched behaviour)")
+          f"expert) pairs per microbatch {drops} (replay {drops2})")
     if [r.out_tokens for r in run1] != [r.out_tokens for r in run2]:
         fail("serve moe (a): the same stream twice gave different tokens")
     if drops != drops2:
@@ -2851,8 +2895,12 @@ def serve_moe(cfg, seed: int = 0) -> dict:
     launches16 = ops.launch_counts()
     st16 = eng16.stats()
     refs16 = eng16.generate_reference(stream())
+    differ = [i for i, (r, f) in enumerate(zip(run1, refs16))
+              if r.out_tokens != f.out_tokens]
     print(f"serve moe (b) capacity {NO_DROP_CF}: dropped pairs per "
-          f"microbatch {st16['moe']['dropped_per_microbatch']}")
+          f"microbatch {st16['moe']['dropped_per_microbatch']}; requests "
+          f"of (a) differing from this no-drop reference {differ} (not "
+          f"gated: the reference's batched behaviour)")
     check_served("serve moe (b)", cfg16, got, refs16, st16, launches16)
     if any(st16["moe"]["dropped_per_microbatch"]):
         fail("serve moe (b): a pair dropped at C >= B")
@@ -2882,9 +2930,10 @@ def free_card() -> None:
 
 
 def serve_windowed(cfg, seed: int = 0) -> dict:
-    """Gemma-3-4B through equal mode at full depth (tokens == reference),
-    then its first pattern period (5 local layers, 1 global) decoded
-    through WINDOW_POSITIONS positions against the bulk forward."""
+    """Gemma-3-4B through equal mode at ``GEMMA_LAYERS`` (tokens ==
+    reference), then its first pattern period (5 local layers, 1 global)
+    decoded through WINDOW_POSITIONS positions against the bulk
+    forward."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
@@ -2941,11 +2990,14 @@ def serve_windowed(cfg, seed: int = 0) -> dict:
 #: phase 10's stream: two 32-token and two 64-token prompts, 12 new tokens
 XLSTM_LENS = (32, 32, 64, 64)
 XLSTM_NEW = 12
-#: ksplit launches in every xLSTM-1.3B model step: 42 mLSTM up_proj, 6
-#: sLSTM ff_up and the lm_head
-XLSTM_STEP_LAUNCHES = 49
 #: positions of the first pattern period decoded against the bulk forward
 XLSTM_POSITIONS = 128
+
+
+def xlstm_step_launches(cfg) -> int:
+    """ksplit launches in every xLSTM model step: each mLSTM up_proj, each
+    sLSTM ff_up, the lm_head (49 at xLSTM-1.3B's 48 layers, 17 at 16)."""
+    return cfg.n_layers + 1
 
 
 def state_bytes(caches) -> int:
@@ -2971,12 +3023,12 @@ def count_step_launches(steps: list):
     return lambda: setattr(T, "forward_decode", orig)
 
 
-def xlstm_decode_profile(cfg, params, kinds: dict, row_state: int) -> dict:
+def xlstm_decode_profile(cfg, params, kinds: dict) -> dict:
     """The decode step at batch 4 over zeroed state (the timing needs no
     history): median wall (host clock around synchronized steps) beside
-    the byte bound (every weight but the embedding table read once, the
-    batch's embedding rows, each row's recurrent state read and written
-    once, the fp32 logits written), ksplit launches read per step, then
+    the byte bound (``decode_step_bytes``: here the weights, embedding
+    rows, each row's recurrent state read and written once and the
+    logits), ksplit launches read per step, then
     steps under ``torch.profiler`` (device busy, idle share, top
     kernels)."""
     import torch
@@ -3010,34 +3062,35 @@ def xlstm_decode_profile(cfg, params, kinds: dict, row_state: int) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms in rows) or None
     ksplit_ms = sum(ms for name, ms in rows if "ksplit" in name)
-    weights = sum(v for k, v in kinds.items() if k != "embedding")
-    nbytes = (weights + B * cfg.d_model * 2 + 2 * B * row_state
-              + B * cfg.vocab * 4)
+    parts = decode_step_bytes(cfg, kinds, B, 1 + DECODE_STEPS)
+    nbytes = sum(parts.values())
     bound_ms = nbytes / PEAK_BYTES_S * 1e3
     idle = (f"{1 - busy_ms / wall_ms:.1%}" if busy_ms
             else "not measured (the profiler saw no device time)")
     print(f"serve xlstm decode step (batch {B}): median wall {wall_ms:.2f} "
           f"ms over {DECODE_STEPS} steps ({[round(w, 2) for w in walls]}); "
           f"byte bound {bound_ms:.2f} ms ({nbytes / 1e9:.2f} GB at "
-          f"{PEAK_BYTES_S / 1e12:.2f} TB/s: weights {weights / 1e9:.3f} GB, "
-          f"state read and written {2 * B * row_state / 1e9:.3f} GB); ksplit "
-          f"launches per step {launches}")
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s: weights "
+          f"{parts['weights'] / 1e9:.3f} GB, state read and written "
+          f"{parts['state'] / 1e9:.3f} GB); ksplit launches per step "
+          f"{launches}")
     print(f"serve xlstm decode profile ({PROFILE_DECODE_STEPS} steps): device "
           f"busy {busy_ms or 0:.2f} ms/step, idle share {idle}; ksplit "
           f"kernel {ksplit_ms:.2f} ms/step")
     for name, ms in rows[:8]:
         print(f"profile   {ms:8.3f} ms/step  {name[:90]}")
-    if any(n != XLSTM_STEP_LAUNCHES for n in launches):
+    if any(n != xlstm_step_launches(cfg) for n in launches):
         fail(f"serve xlstm decode: ksplit launches per step {launches}, not "
-             f"{XLSTM_STEP_LAUNCHES}")
+             f"{xlstm_step_launches(cfg)}")
     return {"wall_ms": wall_ms, "bound_ms": bound_ms, "busy_ms": busy_ms,
             "ksplit_ms": ksplit_ms, "launches_per_step": launches[0]}
 
 
 def serve_xlstm(cfg, seed: int = 0) -> dict:
-    """xLSTM-1.3B at full width through the engine's equal mode: four
-    requests equal to their unbatched reference, 49 ksplit launches in
-    every model step, no fresh resolution, every KSplit linear on the
+    """xLSTM-1.3B at full width (``XLSTM_LAYERS`` deep) through the
+    engine's equal mode: four requests equal to their unbatched
+    reference, one ksplit launch per layer and the lm_head's in every
+    model step, no fresh resolution, every KSplit linear on the
     kernel; the first pattern period (1 sLSTM, 7 mLSTM layers) decoded
     through XLSTM_POSITIONS positions against the bulk forward; the decode
     step beside its byte bound."""
@@ -3096,10 +3149,10 @@ def serve_xlstm(cfg, seed: int = 0) -> dict:
           f"step: {len(steps)} steps, all {sorted(set(steps))}")
     check_served("serve xlstm", cfg, reqs, refs, st, launches)
     if (len(steps) != st["prefill_steps"] + st["decode_steps"]
-            or any(n != XLSTM_STEP_LAUNCHES for n in steps)
+            or any(n != xlstm_step_launches(cfg) for n in steps)
             or launches["ksplit_gemm"] != sum(steps)):
         fail(f"serve xlstm: ksplit launches per model step {steps}, not "
-             f"{XLSTM_STEP_LAUNCHES} in each of the "
+             f"{xlstm_step_launches(cfg)} in each of the "
              f"{st['prefill_steps'] + st['decode_steps']} steps")
     period = cfg.pattern_period()
     cfg1 = dataclasses.replace(cfg, n_layers=period)
@@ -3109,7 +3162,7 @@ def serve_xlstm(cfg, seed: int = 0) -> dict:
     order = decode_vs_bulk(cfg1, params1, XLSTM_POSITIONS, seed,
                            f"serve xlstm first period ({period} layers)")
     order_s = time.perf_counter() - t0
-    prof = xlstm_decode_profile(cfg, params, kinds, row_state)
+    prof = xlstm_decode_profile(cfg, params, kinds)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     phase_s = time.perf_counter() - t_phase
     rate = prof["bound_ms"] / prof["wall_ms"]
@@ -3125,6 +3178,159 @@ def serve_xlstm(cfg, seed: int = 0) -> dict:
             "row_state_mb": row_state / 1e6, "peak_gb": peak_gb,
             "weights_gb": sum(kinds.values()) / 1e9, "phase_s": phase_s,
             **prof}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serving the Mamba-hybrid family
+# ---------------------------------------------------------------------------
+
+#: phase 11's depth: Jamba-v0.1's first pattern period (7 Mamba mixers,
+#: attention at layer 4, MoE on odd layers), every published width; the
+#: 32 layers (51.6e9 parameters) do not fit one card
+JAMBA_LAYERS = 8
+#: phase 11's stream: two 32-token and two 64-token prompts, 12 new tokens
+JAMBA_LENS = (32, 32, 64, 64)
+JAMBA_NEW = 12
+#: ksplit launches in every model step of the period: 7 Mamba in_proj, 4
+#: MLP up and gate (8), the attention layer's wq, wk, wv (3), the lm_head
+JAMBA_STEP_LAUNCHES = 19
+#: positions decoded against the bulk forward: two of the scan's 128-token
+#: chunks, so the bulk crosses a chunk
+JAMBA_POSITIONS = 256
+
+
+def serve_jamba_period(cfg, seed: int = 0) -> dict:
+    """Jamba-v0.1's first pattern period at published widths through the
+    engine's equal mode: (b) at capacity factor 16 every request equals
+    its unbatched reference, (a) at the published 1.25 the same stream
+    twice gives the same tokens (drops printed), 19 ksplit launches in
+    every model step of both, no fresh resolution, every KSplit linear
+    on the kernel; then one row decoded through JAMBA_POSITIONS
+    positions against the bulk forward under rule (c), and the decode
+    step beside its byte bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    sync()
+    init_s = time.perf_counter() - t_phase
+    kinds = bytes_by_kind(params)
+    row_state = state_bytes([c for (m, _), c in zip(
+        cfg.layer_kinds(), T.init_cache(cfg, 1, 1, "meta")) if m == "mamba"])
+    mixers = [m for m, _ in cfg.layer_kinds()]
+    print(f"serve jamba period {cfg.name}: {cfg.n_layers} layers "
+          f"({mixers.count('mamba')} Mamba, {mixers.count('attn_full')} "
+          f"attention; MoE on {sum(f == 'moe' for _, f in cfg.layer_kinds())}"
+          f") d={cfg.d_model} d_ff={cfg.d_ff} E={cfg.n_experts} "
+          f"top-{cfg.top_k} d_state={cfg.mamba_d_state} vocab={cfg.vocab}; "
+          f"weights {sum(kinds.values()) / 1e9:.3f} GB (" + ", ".join(
+              f"{k} {v / 1e9:.3f}" for k, v in kinds.items())
+          + f" GB), init {init_s:.1f} s; Mamba state {row_state / 1e6:.2f} "
+          f"MB per row (fp32)")
+    sc = ServeConfig(max_batch=4, max_seq=max(JAMBA_LENS) + JAMBA_NEW)
+
+    def stream():
+        return family_stream(cfg.vocab, JAMBA_LENS, JAMBA_NEW, seed)
+
+    def counted(eng):
+        steps: list = []
+        restore = count_step_launches(steps)
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = eng.generate(stream())
+            sync()
+            wall_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        finally:
+            restore()
+        st = eng.stats()
+        if (len(steps) != st["prefill_steps"] + st["decode_steps"]
+                or any(n != JAMBA_STEP_LAUNCHES for n in steps)
+                or launches["ksplit_gemm"] != sum(steps)
+                or st["linear_dispatch_since_warmup"].get("ksplit_cuda", 0)
+                != sum(steps)):
+            fail(f"serve jamba: ksplit launches per model step {steps}, not "
+                 f"{JAMBA_STEP_LAUNCHES} in each of the "
+                 f"{st['prefill_steps'] + st['decode_steps']} steps on the "
+                 f"kernel ({st['linear_dispatch_since_warmup']})")
+        return reqs, wall_s, launches, st, steps
+
+    cfg16 = dataclasses.replace(cfg, capacity_factor=NO_DROP_CF)
+    eng16 = Engine(cfg16, params, sc)
+    if eng16.mode != "equal":
+        fail(f"serve jamba: engine mode {eng16.mode!r}, not equal")
+    eng16.warmup()
+    got, wall_s, launches16, st16, steps16 = counted(eng16)
+    t0 = time.perf_counter()
+    refs16 = eng16.generate_reference(stream())
+    ref_s = time.perf_counter() - t0
+    gen_toks = st16["tokens"]["generated"]
+    print(f"serve jamba (b) capacity {NO_DROP_CF}: {len(got)} requests "
+          f"(prompts {list(JAMBA_LENS)}, {JAMBA_NEW} new), {gen_toks} tokens "
+          f"in {wall_s:.3f} s = {gen_toks / wall_s:.2f} tokens/s; "
+          f"microbatches {st16['microbatches']['total']}, prefill steps "
+          f"{st16['prefill_steps']}, decode steps {st16['decode_steps']}; "
+          f"unbatched reference {ref_s:.1f} s; dropped pairs per microbatch "
+          f"{st16['moe']['dropped_per_microbatch']}; ksplit launches per "
+          f"model step: {len(steps16)} steps, all {sorted(set(steps16))}")
+    check_served("serve jamba (b)", cfg16, got, refs16, st16, launches16)
+    if any(st16["moe"]["dropped_per_microbatch"]):
+        fail("serve jamba (b): a pair dropped at C >= B")
+    del eng16
+    eng = Engine(cfg, params, sc)
+    eng.warmup()
+    run1, _, launches, st, steps = counted(eng)
+    drops = list(st["moe"]["dropped_per_microbatch"])
+    run2 = eng.generate(stream())
+    drops2 = eng.stats()["moe"]["dropped_per_microbatch"][len(drops):]
+    differ = [i for i, (r, f) in enumerate(zip(run1, refs16))
+              if r.out_tokens != f.out_tokens]
+    print(f"serve jamba (a) capacity {cfg.capacity_factor}: dropped (token, "
+          f"expert) pairs per microbatch {drops} (replay {drops2}); requests "
+          f"differing from the no-drop reference {differ} (not gated: the "
+          f"reference's batched behaviour); ksplit launches per model step: "
+          f"{len(steps)} steps, all {sorted(set(steps))}; post-warmup fresh "
+          f"resolutions {st['plans']['post_warmup_fresh_resolutions']}")
+    if [r.out_tokens for r in run1] != [r.out_tokens for r in run2]:
+        fail("serve jamba (a): the same stream twice gave different tokens")
+    if drops != drops2:
+        fail(f"serve jamba (a): drops {drops} then {drops2}")
+    if st["plans"]["post_warmup_fresh_resolutions"] != 0:
+        fail(f"serve jamba (a): fresh resolutions ({st['plans']})")
+    for r in run1:
+        if len(r.out_tokens) != JAMBA_NEW or not all(
+                0 <= t < cfg.vocab for t in r.out_tokens):
+            fail("serve jamba (a): malformed output tokens")
+    del eng
+    free_card()
+    t0 = time.perf_counter()
+    order = decode_vs_bulk(cfg16, params, JAMBA_POSITIONS, seed,
+                           f"serve jamba period ({cfg.n_layers} layers)")
+    order_s = time.perf_counter() - t0
+    prof = moe_decode_profile(cfg, params, kinds, "serve jamba",
+                              JAMBA_STEP_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phase_s = time.perf_counter() - t_phase
+    rate = prof["bound_ms"] / prof["wall_ms"]
+    idle = (f"{1 - prof['busy_ms'] / prof['wall_ms']:.1%}"
+            if prof["busy_ms"] else "not measured")
+    print(f"serve jamba ({smi_line()}): decode step {prof['wall_ms']:.2f} "
+          f"ms vs byte bound {prof['bound_ms']:.2f} ms ({rate:.1%} of the "
+          f"bound's rate), idle share {idle}; Mamba state "
+          f"{row_state / 1e6:.2f} MB per row; peak memory {peak_gb:.2f} GB; "
+          f"decode vs bulk {order_s:.1f} s; phase {phase_s:.1f} s")
+    del params
+    free_card()
+    return {"launches": launches16["ksplit_gemm"] + launches["ksplit_gemm"],
+            "tokens_per_s": gen_toks / wall_s, "order": order,
+            "drops": drops, "row_state_mb": row_state / 1e6,
+            "peak_gb": peak_gb, "weights_gb": sum(kinds.values()) / 1e9,
+            "phase_s": phase_s, **prof}
 
 
 # ---------------------------------------------------------------------------
@@ -3568,9 +3774,14 @@ def main() -> None:
     sv = serve(cfg)
     ss = serve_state(dataclasses.replace(cfg, n_layers=STATE_LAYERS))
     sq = serve_quant(cfg)
-    sm9 = serve_moe(get("qwen2-moe-a2.7b"))
-    sw9 = serve_windowed(get("gemma3-4b"))
-    sx10 = serve_xlstm(get("xlstm-1.3b"))
+    sm9 = serve_moe(dataclasses.replace(get("qwen2-moe-a2.7b"),
+                                        n_layers=MOE_LAYERS))
+    sw9 = serve_windowed(dataclasses.replace(get("gemma3-4b"),
+                                             n_layers=GEMMA_LAYERS))
+    sx10 = serve_xlstm(dataclasses.replace(get("xlstm-1.3b"),
+                                           n_layers=XLSTM_LAYERS))
+    sj11 = serve_jamba_period(dataclasses.replace(get("jamba-v0.1-52b"),
+                                                  n_layers=JAMBA_LAYERS))
     sol = solve_phase()
     parity_phase()
     tr = train_phase(cfg)
@@ -3588,7 +3799,7 @@ def main() -> None:
          "launches": (sv["launches"] + ss["launches"] + sq["launches"]
                       + tr["launches"] + sm9["launches"]
                       + sm9["launches16"] + sw9["launches"]
-                      + sx10["launches"]),
+                      + sx10["launches"] + sj11["launches"]),
          "launches_by_phase": {"serve": sv["launches"],
                                "serve_state": ss["launches"],
                                "serve_quant": sq["launches"],
@@ -3596,7 +3807,8 @@ def main() -> None:
                                "serve_moe": sm9["launches"],
                                "serve_moe_cf16": sm9["launches16"],
                                "serve_gemma3": sw9["launches"],
-                               "serve_xlstm": sx10["launches"]},
+                               "serve_xlstm": sx10["launches"],
+                               "serve_jamba_period": sj11["launches"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}},
@@ -3679,7 +3891,10 @@ def main() -> None:
           f"{sx10['tokens_per_s']:.2f} tokens/s, decode step "
           f"{sx10['wall_ms']:.2f} ms (byte bound {sx10['bound_ms']:.2f} ms), "
           f"peak {sx10['peak_gb']:.2f} GB (phase {sx10['phase_s']:.1f} s); "
-          f"total "
+          f"serve jamba period {sj11['tokens_per_s']:.2f} tokens/s, decode "
+          f"step {sj11['wall_ms']:.2f} ms (byte bound {sj11['bound_ms']:.2f} "
+          f"ms), peak {sj11['peak_gb']:.2f} GB (phase {sj11['phase_s']:.1f} "
+          f"s); total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 """Parameter bridge: the JAX package's decoder parameters (dense and MoE,
-full or local/global attention, xLSTM) and AdamW state, handed over as
-numpy arrays plus class maps, into the port's — so both packages compute
-from the same state in the parity tests. (Checkpoints need no bridge:
+full or local/global attention, xLSTM, the Mamba hybrid) and AdamW
+state, handed over as numpy arrays plus class maps, into the port's —
+so both packages compute from the same state in the parity tests.
+(Checkpoints need no bridge:
 ``repro_torch.checkpoint`` reads and writes the reference's format.)
 
 It imports no JAX.  The numpy tree follows the reference's layout::
@@ -21,7 +22,10 @@ where segment s holds positions ``pos0 .. pos{p-1}`` of the pattern
 xLSTM layer holds only ``"norm1"`` and ``"mlstm": {"up_proj": LIN,
 "conv_w", "conv_b", "wq", "wk", "wv", "w_if", "b_if", "skip",
 "down_proj": LIN}`` or ``"slstm": {"w_in", "b_in", "r", "ff_up": LIN,
-"ff_down": LIN}`` (every other leaf an array with the repeat dim); each
+"ff_down": LIN}``; a Mamba layer holds ``"mamba": {"in_proj": LIN,
+"conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D",
+"out_proj": LIN}`` in place of ``"attn"`` (every other leaf an array
+with the repeat dim); each
 ``MOE`` a dict ``{"kind": "moe_ksplit" | "moe_nsplit", "w_hi": array,
 "w_lo": array, "cls": k_cls / n_cls, "tile": int, "shape": (E, K, N)}``;
 and each ``LIN`` is a dict
@@ -93,7 +97,8 @@ def _moe_weight(lin: dict, r: int, device):
 
 
 def _cell(p: dict, r: int, device) -> dict:
-    """An xLSTM cell's dict: linears as MPLinear, arrays as tensors."""
+    """A recurrent mixer's dict (an xLSTM cell, a Mamba mixer): linears as
+    MPLinear, arrays as tensors."""
     return {k: (_linear(v, r, device) if isinstance(v, dict)
                 else tensor_from_numpy(v[r], device))
             for k, v in p.items()}
@@ -102,7 +107,7 @@ def _cell(p: dict, r: int, device) -> dict:
 def _layer(p: dict, r: int, device) -> dict:
     vec = lambda a: tensor_from_numpy(a[r], device)   # noqa: E731
     out = {"norm1": vec(p["norm1"])}
-    for cell in ("mlstm", "slstm"):
+    for cell in ("mlstm", "slstm", "mamba"):
         if cell in p:
             out[cell] = _cell(p[cell], r, device)
     if "attn" in p:

@@ -1,7 +1,7 @@
 """Architecture configuration schema + registry (twin of
 ``repro.configs.base`` for the families the port serves: dense and MoE
-decoders with full or local/global attention, and the xLSTM recurrent
-stack; the Mamba-hybrid fields are here for the next slice).
+decoders with full or local/global attention, the xLSTM recurrent stack
+and the Mamba-attention hybrid).
 
 The port runs on one card, so there is no tensor parallelism: ``tp`` is
 1 by default and attention keeps the published kv-head count (the JAX
@@ -31,7 +31,7 @@ REFERENCE_TP = 16
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe | ssm (hybrid: not yet)
+    family: str                  # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -173,7 +173,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 _ARCH_MODULES = ["llama3_8b", "internlm2_1_8b", "gemma3_4b",
-                 "qwen2_moe_a2_7b", "phi35_moe", "xlstm_1_3b"]
+                 "qwen2_moe_a2_7b", "phi35_moe", "xlstm_1_3b",
+                 "jamba_v01_52b"]
 
 
 def load_all() -> dict[str, ArchConfig]:

@@ -8,10 +8,15 @@ through the shape-bucketed engine.
 The first serves InternLM2-1.8B at full width on the card (``--device
 cuda``, the default); the second its reduced twin with the kernels'
 plain versions on the CPU. ``--arch`` takes every registered config:
-``qwen2-moe-a2.7b`` (MoE), ``gemma3-4b`` (local/global attention) and
-``xlstm-1.3b`` (recurrent cells) serve in the engine's equal mode, where
-refill, the prefix cache and chunked prefill are off;
-``phi3.5-moe-42b-a6.6b`` fits one card only reduced (``--smoke``). Every
+``qwen2-moe-a2.7b`` (MoE), ``gemma3-4b`` (local/global attention),
+``xlstm-1.3b`` (recurrent cells) and ``jamba-v0.1-52b`` (Mamba mixers,
+one attention layer in eight, MoE on odd layers) serve in the engine's
+equal mode, where refill, the prefix cache and chunked prefill are off;
+``phi3.5-moe-42b-a6.6b`` and ``jamba-v0.1-52b`` fit one card only
+reduced (``--smoke``): Jamba's 32 layers hold 51.6e9 parameters, and
+the launcher has no depth option, as the reference's has none.
+``chip_smoke.py`` phase 11 serves Jamba's first pattern period (8
+layers at every published width) on the card. Every
 knob maps onto :class:`repro_torch.serve.ServeConfig`; refill, the paged
 prefix cache and chunked prefill are on unless switched off. The engine
 resolves every plan and builds the kernels before serving unless

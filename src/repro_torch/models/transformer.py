@@ -1,12 +1,13 @@
 """Decoder model: init, caches, the training forward, prefill and
 one-token decode for the dense and MoE families, with full or
-local/global attention, and the xLSTM stack (twin of
-``repro.models.transformer`` for those families).
+local/global attention, the xLSTM stack and the Mamba-attention hybrid
+(twin of ``repro.models.transformer`` for those families).
 
 Parameters are a plain dict::
 
     {"embed": bf16[V, d], "final_norm": f32[d], "lm_head": MPLinear,
-     "layers": LayerList([{"norm1", "attn": {wq, wk, wv, wo}, "norm2",
+     "layers": LayerList([{"norm1", "attn": {wq, wk, wv, wo}
+                                    | "mamba": {...}, "norm2",
                            "mlp": {up, gate, down}
                            | "moe": {router, gate, up, down, [shared]}}
                           | {"norm1", "mlstm" | "slstm": {...}},
@@ -14,13 +15,14 @@ Parameters are a plain dict::
 
 Layer i's kinds are ``cfg.layer_kinds()[i]``: mixer ``attn_full`` or
 ``attn_local`` (a sliding window of ``cfg.local_window``; its cache is a
-ring buffer of ``min(seq_len, local_window)`` slots), or ``mlstm`` /
-``slstm`` (``models.xlstm``; the cache is the cell's fp32 recurrent
-state, replaced or updated in place each step); ffn ``mlp``, ``moe`` or
-``none`` (the xLSTM cells carry their own).  Layers run in a Python
-loop; the reference scans them in segments of whole pattern periods,
-and :class:`~repro_torch.tree.LayerList` carries the period so the
-port's trees walk as the reference's (``repro_torch.tree``).
+ring buffer of ``min(seq_len, local_window)`` slots), ``mamba``
+(``models.mamba``) or ``mlstm`` / ``slstm`` (``models.xlstm``); a
+recurrent mixer's cache is its fp32 state, replaced or updated in place
+each step.  The ffn is ``mlp``, ``moe`` or ``none`` (the xLSTM cells
+carry their own).  Layers run in a Python loop; the reference scans them
+in segments of whole pattern periods, and
+:class:`~repro_torch.tree.LayerList` carries the period so the port's
+trees walk as the reference's (``repro_torch.tree``).
 """
 from __future__ import annotations
 
@@ -32,13 +34,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.formats import FormatSet
 from repro_torch.core.linear import init_mp_linear
 from repro_torch.models import common as C
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
 from repro_torch.models.common import ACT_DTYPE
 from repro_torch.tree import LayerList
 
 #: families the port serves; the rest wait in ROADMAP.md queue 1, item 7
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def dims_of(cfg: ArchConfig) -> C.AttnDims:
@@ -49,8 +52,8 @@ def dims_of(cfg: ArchConfig) -> C.AttnDims:
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported: the hybrid (Mamba), "
-            "audio and vision families wait in ROADMAP.md queue 1, item 7")
+            f"family {cfg.family!r} is not ported: the audio and vision "
+            "families wait in ROADMAP.md queue 1, item 7")
 
 
 def _window(cfg: ArchConfig, mixer: str):
@@ -67,6 +70,11 @@ def _init_layer(gen, cfg: ArchConfig, mixer: str, ffn: str) -> dict:
     elif mixer == "slstm":
         p["slstm"] = X.init_slstm(gen, cfg.d_model, cfg.n_heads,
                                   cfg.mp_policy, tile=cfg.mp_tile)
+    elif mixer == "mamba":
+        p["mamba"] = M.init_mamba(gen, cfg.d_model, cfg.mp_policy,
+                                  expand=cfg.mamba_expand,
+                                  d_state=cfg.mamba_d_state,
+                                  tile=cfg.mp_tile)
     else:
         p["attn"] = C.init_attention(gen, cfg.d_model, dims_of(cfg),
                                      cfg.mp_policy, cfg.mp_tile, fset=fs,
@@ -110,7 +118,8 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                device="cuda") -> list[dict]:
     """One zeroed cache per layer: a ``{"k", "v"}`` pair of [B, S, n_kv,
     dh] bf16 for attention (a local layer's S is ``min(seq_len,
-    local_window)``), the fp32 recurrent state for an xLSTM cell."""
+    local_window)``), the fp32 recurrent state for a Mamba mixer or an
+    xLSTM cell."""
     dims = dims_of(cfg)
     out = []
     for mixer, _ in cfg.layer_kinds():
@@ -120,6 +129,12 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
             continue
         if mixer == "slstm":
             out.append(X.init_slstm_state(batch, cfg.d_model, cfg.n_heads,
+                                          device=device))
+            continue
+        if mixer == "mamba":
+            out.append(M.init_mamba_state(batch, cfg.d_model,
+                                          expand=cfg.mamba_expand,
+                                          d_state=cfg.mamba_d_state,
                                           device=device))
             continue
         s = min(seq_len, cfg.local_window) if mixer == "attn_local" \
@@ -156,6 +171,8 @@ def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor):
             x = x + X.mlstm_block(lp["mlstm"], h, n_heads=cfg.n_heads)
         elif mixer == "slstm":
             x = x + X.slstm_block(lp["slstm"], h, n_heads=cfg.n_heads)
+        elif mixer == "mamba":
+            x = x + M.mamba_block(lp["mamba"], h)
         else:
             x = x + C.attention_block(lp["attn"], h, dims,
                                       positions=positions,
@@ -181,6 +198,11 @@ def forward_train(params, cfg: ArchConfig, batch: dict):
     bulk band admits up to 2w - 1 (``ROADMAP.md`` queue 3, F8: decided
     for the decode's band)."""
     check_family(cfg)
+    if cfg.block_type == "mamba_hybrid":
+        raise NotImplementedError(
+            "Mamba-hybrid training (the selective scan's backward, and the "
+            "MoE layers' training) is not ported: the family serves only; "
+            "ROADMAP.md queue 1, item 7")
     if cfg.n_experts:
         raise NotImplementedError(
             "MoE training (the load-balance aux loss in the loss and the "
@@ -215,10 +237,10 @@ def forward_decode(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
     per-row [B] tensor (then with ``slot`` and ``kv_valid``, as in
     :func:`~repro_torch.models.common.decode_attention`; full attention
     only).  ``moe_drops``, when given, collects each MoE layer's count of
-    dropped (token, expert) pairs (device scalars).  An xLSTM layer's
-    state dict takes the step's new state (mLSTM's C in place, the rest
-    replaced); xLSTM needs no position.  Returns (logits [B, 1, V] fp32,
-    caches)."""
+    dropped (token, expert) pairs (device scalars).  A recurrent layer's
+    state dict takes the step's new state (mLSTM's C and Mamba's h in
+    place, the rest replaced); it needs no position.  Returns (logits
+    [B, 1, V] fp32, caches)."""
     check_family(cfg)
     dims = dims_of(cfg)
     x = C.embed(params["embed"], tokens)
@@ -231,10 +253,16 @@ def forward_decode(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
             cache.update(new)
             x = (x + out).to(ACT_DTYPE)
             continue
-        x = x + C.decode_attention(
-            lp["attn"], h, dims, cache["k"], cache["v"], position=position,
-            rope_theta=cfg.rope_theta, window=_window(cfg, mixer),
-            use_rope=cfg.use_rope, slot=slot, kv_valid=kv_valid)
+        if mixer == "mamba":
+            out, new = M.mamba_block(lp["mamba"], h, state=cache)
+            cache.update(new)
+            x = x + out
+        else:
+            x = x + C.decode_attention(
+                lp["attn"], h, dims, cache["k"], cache["v"],
+                position=position, rope_theta=cfg.rope_theta,
+                window=_window(cfg, mixer), use_rope=cfg.use_rope,
+                slot=slot, kv_valid=kv_valid)
         h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
         out, _ = _ffn(lp, cfg, ffn, h2, drops=moe_drops)
         x = (x + out).to(ACT_DTYPE)

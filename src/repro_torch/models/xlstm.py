@@ -29,12 +29,7 @@ from repro_torch.core.layout import fp32_matmul
 from repro_torch.core.linear import init_mp_linear
 from repro_torch.core.precision import Policy
 from repro_torch.models.common import ACT_DTYPE
-from repro_torch.models.mamba import _conv1d_causal
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: x · sigmoid(x)."""
-    return x * torch.sigmoid(x)
+from repro_torch.models.mamba import _conv1d_causal, _silu
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -15,10 +15,22 @@ the run in which the ksplit function is the original one.
   on own picks that differ at ordinary router margins.
 * xLSTM (reduced, one pattern period, 64 positions): the kernel decode
   drops the mLSTM conv state every step; the kernel-decode gate fails.
+* Jamba (reduced, 64 positions): the kernel decode drops the Mamba
+  state every step; the run fails before the plain-decode gate.
+
+``decode_step_bytes`` (by part; the bound is their sum) counts by
+mixer: attention layers read their visible KV and write one slot,
+recurrent layers (Mamba, mLSTM, sLSTM) read and write their fp32 state.
+At full width (caches on the meta device, no memory) it keeps qwen2's
+bound as it was, gives xLSTM-1.3B the 10.71 GB at batch 4 that phase 10
+printed, and counts the Jamba period's one KV cache and seven Mamba
+states.
 """
 import dataclasses
 import os
 import sys
+
+import numpy as np
 
 import pytest
 import torch
@@ -111,3 +123,82 @@ def test_xlstm_decode_gate_fails_dropped_conv_state(monkeypatch):
     _fault_in_kernel_decode(monkeypatch, drop_conv)
     with pytest.raises(SystemExit, match="kernel decode and bulk logits"):
         CS.decode_vs_bulk(cfg, params, 64, 0, "rehearsal")
+
+
+def test_jamba_decode_gate_fails_dropped_mamba_state(monkeypatch):
+    """Reduced Jamba (capacity 16): the kernel decode zeroes every Mamba
+    layer's state h before each step; a gate checked before the
+    plain-decode one fails (the MoE layers' inputs move, so the own-pick
+    gate sees it first; the kernel-decode gate would next).  (At reduced
+    width the second bulk order adds as the plain one does, so the
+    plain-decode gate has only its 2^-8 floor here; on the card its
+    allowance is the orders' gap.)"""
+    cfg = dataclasses.replace(reduced(get("jamba-v0.1-52b")),
+                              capacity_factor=16.0)
+    params = PT.init_model(torch.Generator().manual_seed(0), cfg)
+
+    def drop_state(p, caches):
+        for c in caches:
+            if "h" in c:
+                c["h"].zero_()
+        return p
+
+    _fault_in_kernel_decode(monkeypatch, drop_state)
+    with pytest.raises(SystemExit, match="own expert picks differ|kernel "
+                       "decode and bulk logits"):
+        CS.decode_vs_bulk(cfg, params, 64, 0, "rehearsal")
+
+
+def _old_decode_step_bytes(cfg, kinds, batch, position):
+    """The bound as phases 9 and 10 computed it before it counted by
+    mixer: a KV read for every layer."""
+    dims = PT.dims_of(cfg)
+    kv = 0
+    for mixer, _ in cfg.layer_kinds():
+        seen = position + 1
+        if mixer == "attn_local":
+            seen = min(seen, cfg.local_window)
+        kv += batch * (seen + 1) * dims.n_kv * dims.head_dim * 2 * 2
+    weights = sum(v for k, v in kinds.items() if k != "embedding")
+    return weights + batch * cfg.d_model * 2 + kv + batch * cfg.vocab * 4
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "gemma3-4b"])
+def test_decode_bytes_unchanged_for_attention_models(name):
+    kinds = {"experts": 12_345_678_901, "attention": 98_765_432,
+             "embedding": 1_000_000_000, "other": 7}
+    for position in (0, 74, 2047):
+        assert sum(CS.decode_step_bytes(get(name), kinds, 4,
+                                        position).values()) == \
+            _old_decode_step_bytes(get(name), kinds, 4, position)
+
+
+def test_decode_bytes_xlstm_matches_phase_10():
+    """42 mLSTM cells (C, n, m, conv) and 6 sLSTM cells (c, n, m, h) of
+    fp32 state per row, read and written at batch 4, no KV; with the
+    5.047 GB of non-embedding weights phase 10 printed, 10.71 GB."""
+    cfg = get("xlstm-1.3b")
+    d_in, nh = 2 * cfg.d_model, cfg.n_heads
+    dh = d_in // nh
+    mlstm = 4 * (nh * dh * dh + nh * dh + nh + 3 * d_in)
+    slstm = 4 * 4 * nh * (cfg.d_model // nh)
+    parts = CS.decode_step_bytes(cfg, {"recurrent": 5.047e9,
+                                       "embedding": 2e8}, 4, 11)
+    assert parts["kv"] == 0
+    assert parts["state"] == 2 * 4 * (42 * mlstm + 6 * slstm)
+    assert round(parts["state"] / 8 / 1e6, 2) == 707.59
+    assert round(sum(parts.values()) / 1e9, 2) == 10.71
+
+
+def test_decode_bytes_jamba_period():
+    """One attention layer's KV (8 kv heads of 128) and seven Mamba states
+    (h [8192, 16] and conv [3, 8192], fp32) at batch 4."""
+    cfg = dataclasses.replace(get("jamba-v0.1-52b"), n_layers=8)
+    parts = CS.decode_step_bytes(cfg, {"experts": 10, "embedding": 3}, 4,
+                                 74)
+    assert parts["kv"] == 4 * 76 * 8 * 128 * 2 * 2
+    assert parts["state"] == 2 * 4 * 7 * 4 * (8192 * 16 + 3 * 8192)
+    assert parts["weights"] == 10
+    assert parts["logits"] == 4 * 65536 * 4
+    assert parts["embedding_rows"] == 4 * 4096 * 2
+    assert np.isclose(parts["state"] / 4 / 2 / 7, 622592)
