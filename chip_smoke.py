@@ -14,8 +14,10 @@ Phases (each raises on failure, so a failing run never exits 0):
    hold ``HGMMA`` (wgmma) instructions;
 2. hold each kernel to its plain PyTorch version on the card: the ksplit kernel
    at the served InternLM2-1.8B, Qwen1.5-MoE-A2.7B, Gemma-3-4B,
-   xLSTM-1.3B and Jamba-v0.1 shapes (m = 1 and 4, rows bitwise equal
-   across m and across two forced launch geometries) and at m = 4096, the
+   xLSTM-1.3B, Jamba-v0.1, HuBERT-XLarge, LLaVA-NeXT-34B and Llama-3-405B
+   shapes (m = 1 and 4, rows bitwise equal across m and across two
+   forced launch geometries), at m = 4096, and at phase 12's bulk shapes
+   (M = 2048 at K = 1280, N = 5120; M = 3072 at K = 7168, N = 20480), the
    tile kernel at M = N =
    K = 1024 and 4096 and the grouped kernel at 4096³, both at t = 64 and
    128, over four class mixes and one integer-class format set, and both on
@@ -93,7 +95,8 @@ Phases (each raises on failure, so a failing run never exits 0):
    shapes and maps; the split kernel at 4096³ under split2 and split3
    50D50S and at the solve's two shapes with uniform split2 C; the ksplit
    kernel at every served shape and at the training phase's M = 512,
-   also at one block per column strip; the
+   also at one block per column strip, and at Llama-3-405B's up/gate at
+   m = 4 and phase 12's two bulk shapes; the
    convert kernel into every output dtype beside ``x.to``, and its
    class-map form at the solve's 8064² C and an 8192² 5D95S operand
    beside its bound and the per-class path (integer sets' path);
@@ -189,8 +192,33 @@ Phases (each raises on failure, so a failing run never exits 0):
    (weights, the attention layer's KV, the Mamba state read and
    written), its idle share and expert-product span over profiled
    steps, the Mamba state per row and the peak memory.
+12. (run after 11) the frontends and the large configs, the card emptied
+   between the three: (a) HuBERT-XLarge at full width, all 48 layers (d
+   1280, 16 heads, GELU d_ff 5120, vocab 504, the learned position
+   table): the encoder pass over 4 x 512 frames (10.24 s of audio at 50
+   Hz each) through the ksplit kernel, 194 launches (wq, wk, wv, up per
+   layer, frontend_proj, lm_head), its logits within twice the gap of two
+   plain summation orders of the plain run (floored at one bf16 rounding
+   of the largest logit); negating the last frame moves position 0's
+   loss in a run that repeats bit for bit (the encoder attends both
+   ways); step 0's per-token losses and gradients within twice the plain
+   orders' gaps; HUBERT_STEPS AdamW steps on the repeated batch, a
+   falling loss and 194 launches read in each (convert launches, step
+   wall, idle share and peak memory printed). (b) LLaVA-NeXT-34B's first
+   LLAVA_LAYERS layers at every published width (64 q heads, 16 kv, the
+   reference's padding): one prefill of 2880 patch embeddings and 192
+   tokens, 42 launches, last-position logits under the same rule;
+   negated patches move them by more than that allowance; a changed last
+   token leaves every earlier position's hidden state bit for bit (the
+   text comes last); then four text requests through the engine's equal
+   mode, equal to ``generate_reference``, 41 launches in every model
+   step. (c) Llama-3-405B's first LLAMA405_LAYERS layers at published
+   widths (128 q heads, 16 kv) in masked mode, as phase 4: the same four
+   requests equal to their reference, 11 launches in every model step,
+   the batch-4 decode step beside its byte bound and the peak memory.
 
-The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
+Every phase's seconds are printed (``phase ...: s``) and summed up in
+the ``phase seconds`` line.  The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
 card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 there is no CUDA device or the package is not next to this script.
@@ -226,7 +254,22 @@ SERVED_KN = ((2048, 2048), (2048, 1024), (2048, 8192), (2048, 92544))
 FAMILY_KN = ((2048, 5632), (2048, 151936), (2560, 2560), (2560, 1280),
              (2560, 10240), (2560, 262144), (2048, 2688), (2048, 50304),
              (4096, 16384), (4096, 14336), (4096, 4096), (4096, 1024),
-             (4096, 65536))
+             (4096, 65536),
+             # phase 12: HuBERT-XLarge's wq/wk/wv, up, lm_head and
+             # frontend_proj; LLaVA-NeXT-34B's wq (64 heads), wk/wv (16),
+             # up/gate, lm_head and frontend_proj; Llama-3-405B's wq,
+             # wk/wv (16 heads), up/gate and lm_head (2.10e9 elements)
+             (1280, 1280), (1280, 5120), (1280, 504), (512, 1280),
+             (7168, 8192), (7168, 2048), (7168, 20480), (7168, 64000),
+             (1024, 7168), (16384, 16384), (16384, 2048), (16384, 53248),
+             (16384, 128256))
+#: phase 12's bulk shapes (M, K, N), held to the order bound in phase 2:
+#: HuBERT's up at its 4 x 512 frames, LLaVA's up/gate at its 3072-token
+#: prompt
+LARGE_M_KN = ((2048, 1280, 5120), (3072, 7168, 20480))
+#: phase 6's further ksplit timings (M, K, N): Llama-3-405B's up/gate at
+#: decode, then the two bulk shapes above
+KSPLIT_TIMED = ((4, 16384, 53248), (3072, 7168, 20480), (2048, 1280, 5120))
 KSPLIT_BIG = (4096, 2048, 8192)
 TILE_SIZES = (1024, 4096)
 TILE = 128
@@ -448,11 +491,13 @@ def check_ksplit(gen, policy) -> dict:
     if not ratio <= 1.0:
         fail(f"ksplit m={mb} outside tolerance")
     out[KSPLIT_BIG] = err
-    # the served shapes at training's M (batch x sequence rows), from a
-    # generator of their own so the draws above stay as they were
-    mt = TRAIN_SEQ * TRAIN_BATCH
-    gen_t = torch.Generator(device=DEVICE).manual_seed(mt)
-    for k, n in SERVED_KN:
+    # the served shapes at training's M (batch x sequence rows), and
+    # phase 12's bulk shapes, from a generator of their own so the draws
+    # above stay as they were
+    m_train = TRAIN_SEQ * TRAIN_BATCH
+    gen_t = torch.Generator(device=DEVICE).manual_seed(m_train)
+    for mt, k, n in ([(m_train, k, n) for k, n in SERVED_KN]
+                     + list(LARGE_M_KN)):
         x, ws = ksplit_case(mt, k, n, gen_t, policy)
         y = ops.ksplit_matmul_kernel(x, ws)
         yp = K.ksplit_gemm_plain(x, *ksplit_args(ws))
@@ -1536,19 +1581,35 @@ def ksplit_one_matmul(x, bufs, fmts):
     return fp32_matmul(torch.cat(xs, 1), torch.cat(ws, 0))
 
 
-def token_losses(params, cfg, batch):
-    """Per-token loss [B*S] of ``forward_train``'s cross entropy (its
-    z-loss term included; the mean is the step's loss), without grad."""
+def all_logits(params, cfg, batch):
+    """Every position's logits [B, S, V] fp32 of the bulk forward over
+    ``batch`` (the pipeline's dict; ``forward_prefill`` keeps only the
+    last position), without grad."""
     import torch
     from repro_torch.models import common as C
     from repro_torch.models import transformer as T
     with torch.no_grad():
-        x, _ = T._run_layers(params, cfg, batch["tokens"])
+        x, _ = T._run_layers(params, cfg, batch)
         x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = params["lm_head"](x).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, batch["labels"].long()[..., None])
-        return (lse - ll[..., 0] + 1e-4 * lse ** 2).flatten()
+        return params["lm_head"](x).float()
+
+
+def losses_of(logits, labels):
+    """Per-token loss of ``forward_train``'s cross entropy (its z-loss
+    term included; the mean is the step's loss) over the last
+    ``labels.shape[1]`` positions (a vision config's text)."""
+    import torch
+    logits = logits[:, -labels.shape[1]:]
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - ll + 1e-4 * lse ** 2
+
+
+def token_losses(params, cfg, batch):
+    """Per-token loss [B*S] of ``forward_train``'s cross entropy, without
+    grad."""
+    return losses_of(all_logits(params, cfg, batch),
+                     batch["labels"]).flatten()
 
 
 def rel_gap(a, b) -> float:
@@ -2083,7 +2144,8 @@ def time_ksplit(gen, policy) -> list[dict]:
     flush = lambda: flush_buf.zero_()   # noqa: E731  (evict the 50 MB L2)
     rows = []
     shapes = ([(4, k, n) for k, n in SERVED_KN] + [(1, 2048, 8192)]
-              + [(TRAIN_SEQ * TRAIN_BATCH, k, n) for k, n in SERVED_KN])
+              + [(TRAIN_SEQ * TRAIN_BATCH, k, n) for k, n in SERVED_KN]
+              + list(KSPLIT_TIMED))
     for m, k, n in shapes:
         x, ws = ksplit_case(m, k, n, gen, policy)
         fs = ws.fset
@@ -2442,12 +2504,12 @@ WINDOW_POSITIONS = 2048
 
 def bytes_by_kind(params) -> dict:
     """Parameter bytes by kind (experts, shared expert, attention, the
-    recurrent mixers: xLSTM cells and Mamba; embedding, lm_head; dense
-    MLPs, norms and routers as other); a kind the model lacks is left
-    out."""
+    recurrent mixers: xLSTM cells and Mamba; embedding, the frontend's
+    projection and position table, lm_head; dense MLPs, norms and routers
+    as other); a kind the model lacks is left out."""
     from repro_torch import tree as TR
     out = dict.fromkeys(("experts", "shared", "attention", "recurrent",
-                         "embedding", "lm_head", "other"), 0)
+                         "embedding", "frontend", "lm_head", "other"), 0)
     for leaf in TR.walk(params):
         key = leaf.key
         if "/mlstm/" in key or "/slstm/" in key or "/mamba/" in key:
@@ -2460,6 +2522,8 @@ def bytes_by_kind(params) -> dict:
             kind = "attention"
         elif key == "embed":
             kind = "embedding"
+        elif key.startswith("frontend_proj") or key == "pos_embed":
+            kind = "frontend"
         elif key.startswith("lm_head"):
             kind = "lm_head"
         else:
@@ -3023,20 +3087,22 @@ def count_step_launches(steps: list):
     return lambda: setattr(T, "forward_decode", orig)
 
 
-def xlstm_decode_profile(cfg, params, kinds: dict) -> dict:
-    """The decode step at batch 4 over zeroed state (the timing needs no
-    history): median wall (host clock around synchronized steps) beside
-    the byte bound (``decode_step_bytes``: here the weights, embedding
-    rows, each row's recurrent state read and written once and the
-    logits), ksplit launches read per step, then
-    steps under ``torch.profiler`` (device busy, idle share, top
-    kernels)."""
+def decode_profile(cfg, params, kinds: dict, label: str,
+                   step_launches: int) -> dict:
+    """The decode step at batch 4 over a zeroed cache (the timing needs
+    no history): median wall (host clock around synchronized steps)
+    beside the byte bound (``decode_step_bytes``: the weights, embedding
+    rows, each attention layer's visible KV, each row's recurrent state
+    read and written once and the logits), ksplit launches read per step
+    (each must be ``step_launches``), then steps under ``torch.profiler``
+    (device busy, idle share, top kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     B = 4
-    caches = T.init_cache(cfg, B, 1, DEVICE)
+    caches = T.init_cache(cfg, B, 2 + DECODE_STEPS + PROFILE_DECODE_STEPS,
+                          DEVICE)
     tok = torch.from_numpy(np.random.default_rng(10).integers(
         0, cfg.vocab, (B, 1))).to(DEVICE)
     T.forward_decode(params, cfg, tok, caches, 0)
@@ -3067,21 +3133,19 @@ def xlstm_decode_profile(cfg, params, kinds: dict) -> dict:
     bound_ms = nbytes / PEAK_BYTES_S * 1e3
     idle = (f"{1 - busy_ms / wall_ms:.1%}" if busy_ms
             else "not measured (the profiler saw no device time)")
-    print(f"serve xlstm decode step (batch {B}): median wall {wall_ms:.2f} "
+    print(f"{label} decode step (batch {B}): median wall {wall_ms:.2f} "
           f"ms over {DECODE_STEPS} steps ({[round(w, 2) for w in walls]}); "
           f"byte bound {bound_ms:.2f} ms ({nbytes / 1e9:.2f} GB at "
           f"{PEAK_BYTES_S / 1e12:.2f} TB/s: weights "
-          f"{parts['weights'] / 1e9:.3f} GB, state read and written "
-          f"{parts['state'] / 1e9:.3f} GB); ksplit launches per step "
-          f"{launches}")
-    print(f"serve xlstm decode profile ({PROFILE_DECODE_STEPS} steps): device "
+          f"{parts['weights'] / 1e9:.3f} GB, KV {parts['kv'] / 1e9:.4f} "
+          f"GB, state read and written {parts['state'] / 1e9:.3f} GB); "
+          f"ksplit launches per step {launches}")
+    print(f"{label} decode profile ({PROFILE_DECODE_STEPS} steps): device "
           f"busy {busy_ms or 0:.2f} ms/step, idle share {idle}; ksplit "
           f"kernel {ksplit_ms:.2f} ms/step")
     for name, ms in rows[:8]:
         print(f"profile   {ms:8.3f} ms/step  {name[:90]}")
-    if any(n != xlstm_step_launches(cfg) for n in launches):
-        fail(f"serve xlstm decode: ksplit launches per step {launches}, not "
-             f"{xlstm_step_launches(cfg)}")
+    check_counts(f"{label} decode", launches, step_launches)
     return {"wall_ms": wall_ms, "bound_ms": bound_ms, "busy_ms": busy_ms,
             "ksplit_ms": ksplit_ms, "launches_per_step": launches[0]}
 
@@ -3095,7 +3159,6 @@ def serve_xlstm(cfg, seed: int = 0) -> dict:
     through XLSTM_POSITIONS positions against the bulk forward; the decode
     step beside its byte bound."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.tree import LayerList
@@ -3124,18 +3187,8 @@ def serve_xlstm(cfg, seed: int = 0) -> dict:
     def stream():
         return family_stream(cfg.vocab, XLSTM_LENS, XLSTM_NEW, seed)
 
-    steps: list = []
-    restore = count_step_launches(steps)
-    try:
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        reqs = eng.generate(stream())
-        sync()
-        wall_s = time.perf_counter() - t0
-        launches = ops.launch_counts()
-    finally:
-        restore()
-    st = eng.stats()
+    reqs, wall_s, launches, st, steps = served_counted(
+        eng, stream, xlstm_step_launches(cfg), "serve xlstm")
     t0 = time.perf_counter()
     refs = eng.generate_reference(stream())
     ref_s = time.perf_counter() - t0
@@ -3148,12 +3201,6 @@ def serve_xlstm(cfg, seed: int = 0) -> dict:
           f"unbatched reference {ref_s:.1f} s; ksplit launches per model "
           f"step: {len(steps)} steps, all {sorted(set(steps))}")
     check_served("serve xlstm", cfg, reqs, refs, st, launches)
-    if (len(steps) != st["prefill_steps"] + st["decode_steps"]
-            or any(n != xlstm_step_launches(cfg) for n in steps)
-            or launches["ksplit_gemm"] != sum(steps)):
-        fail(f"serve xlstm: ksplit launches per model step {steps}, not "
-             f"{xlstm_step_launches(cfg)} in each of the "
-             f"{st['prefill_steps'] + st['decode_steps']} steps")
     period = cfg.pattern_period()
     cfg1 = dataclasses.replace(cfg, n_layers=period)
     params1 = dict(params, layers=LayerList(params["layers"][:period],
@@ -3162,7 +3209,8 @@ def serve_xlstm(cfg, seed: int = 0) -> dict:
     order = decode_vs_bulk(cfg1, params1, XLSTM_POSITIONS, seed,
                            f"serve xlstm first period ({period} layers)")
     order_s = time.perf_counter() - t0
-    prof = xlstm_decode_profile(cfg, params, kinds)
+    prof = decode_profile(cfg, params, kinds, "serve xlstm",
+                          xlstm_step_launches(cfg))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     phase_s = time.perf_counter() - t_phase
     rate = prof["bound_ms"] / prof["wall_ms"]
@@ -3209,7 +3257,6 @@ def serve_jamba_period(cfg, seed: int = 0) -> dict:
     positions against the bulk forward under rule (c), and the decode
     step beside its byte bound."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve import Engine, ServeConfig
     t_phase = time.perf_counter()
@@ -3237,28 +3284,8 @@ def serve_jamba_period(cfg, seed: int = 0) -> dict:
         return family_stream(cfg.vocab, JAMBA_LENS, JAMBA_NEW, seed)
 
     def counted(eng):
-        steps: list = []
-        restore = count_step_launches(steps)
-        try:
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            reqs = eng.generate(stream())
-            sync()
-            wall_s = time.perf_counter() - t0
-            launches = ops.launch_counts()
-        finally:
-            restore()
-        st = eng.stats()
-        if (len(steps) != st["prefill_steps"] + st["decode_steps"]
-                or any(n != JAMBA_STEP_LAUNCHES for n in steps)
-                or launches["ksplit_gemm"] != sum(steps)
-                or st["linear_dispatch_since_warmup"].get("ksplit_cuda", 0)
-                != sum(steps)):
-            fail(f"serve jamba: ksplit launches per model step {steps}, not "
-                 f"{JAMBA_STEP_LAUNCHES} in each of the "
-                 f"{st['prefill_steps'] + st['decode_steps']} steps on the "
-                 f"kernel ({st['linear_dispatch_since_warmup']})")
-        return reqs, wall_s, launches, st, steps
+        return served_counted(eng, stream, JAMBA_STEP_LAUNCHES,
+                              "serve jamba")
 
     cfg16 = dataclasses.replace(cfg, capacity_factor=NO_DROP_CF)
     eng16 = Engine(cfg16, params, sc)
@@ -3331,6 +3358,492 @@ def serve_jamba_period(cfg, seed: int = 0) -> dict:
             "drops": drops, "row_state_mb": row_state / 1e6,
             "peak_gb": peak_gb, "weights_gb": sum(kinds.values()) / 1e9,
             "phase_s": phase_s, **prof}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the frontends and the large configs
+# ---------------------------------------------------------------------------
+
+#: phase 12a: HuBERT-XLarge's batch (4 clips of 512 frames at 50 Hz,
+#: 10.24 s of audio each) and its AdamW steps on that batch, repeated
+HUBERT_SEQ, HUBERT_BATCH = 512, 4
+HUBERT_STEPS = 4
+#: its peak learning rate: at 1e-3 (phase 7's) the 48 random-init
+#: layers overshoot at the third step (losses 6.727, 6.689, 8.777, 6.586
+#: on one H100)
+HUBERT_LR = 3e-4
+#: phase 12b: LLaVA-NeXT-34B's depth on the card (its 60 layers take ~108
+#: GB at ratio_high 0.5; every width as published) and the text after its
+#: 2880 patch embeddings: S = 3072 (the reference's flash attention
+#: needs S <= 1024 or S % 1024 == 0)
+LLAVA_LAYERS = 8
+LLAVA_TEXT = 192
+#: phase 12c: Llama-3-405B's depth on the card (9.66 GB a layer)
+LLAMA405_LAYERS = 2
+#: phases 12b and 12c's stream: two 32-token and two 64-token text
+#: prompts, 8 new tokens each, at max_batch 4
+LARGE_LENS = (32, 32, 64, 64)
+LARGE_NEW = 8
+#: the floor of the kernel-against-plain allowance on logits: one bf16
+#: rounding of the largest plain logit
+BF16_ROUNDING = 2.0 ** -8
+
+
+def ksplit_linears(cfg, frontend: bool) -> int:
+    """The ksplit launches of one forward of an attention/MLP stack: wq,
+    wk and wv of every layer, up (and gate where the MLP is gated), the
+    lm_head, and with ``frontend`` the frontend's projection (a bulk
+    forward embeds through it, a decode step embeds tokens only).  wo and
+    down are NSplit."""
+    n = 1 + (1 if frontend and cfg.frontend != "none" else 0)
+    for mixer, ffn in cfg.layer_kinds():
+        n += 3 if mixer.startswith("attn") else 0
+        n += (2 if cfg.gated_mlp else 1) if ffn == "mlp" else 0
+    return n
+
+
+def check_counts(label: str, counts: list, want: int) -> None:
+    """Every forward or model step of a run launched the ksplit kernel
+    ``want`` times: ``counts`` are read per step, never multiplied out."""
+    if not counts or any(n != want for n in counts):
+        fail(f"{label}: ksplit launches per step {counts}, not {want} in "
+             "each")
+
+
+def three_orders(fn) -> list:
+    """``fn()`` through the ksplit kernel, then with its plain version
+    swapped in, then with the segments summed as one matmul (a second
+    plain order); the swapped runs launch nothing."""
+    from repro_torch.kernels import ksplit_gemm as K
+    kernel_fn = K.ksplit_gemm_multi
+    out = [fn()]
+    try:
+        for plain in (K.ksplit_gemm_plain, ksplit_one_matmul):
+            K.ksplit_gemm_multi = plain
+            out.append(fn())
+    finally:
+        K.ksplit_gemm_multi = kernel_fn
+    sync()
+    return out
+
+
+def order_gate(label: str, kernel, plain, plain2) -> dict:
+    """``kernel`` within twice the gap between the two plain orders of
+    ``plain``, floored at one bf16 rounding of the largest plain value."""
+    gap = float((kernel - plain).abs().max())
+    orders = float((plain2 - plain).abs().max())
+    floor = BF16_ROUNDING * float(plain.abs().max())
+    allow = max(2.0 * orders, floor)
+    print(f"{label}: max|kernel - plain| {gap:.4e}, two plain orders "
+          f"{orders:.4e}; allowance {allow:.4e} (2x the orders' gap, floor "
+          f"{floor:.4e}: one bf16 rounding of the largest)")
+    if not (bool(kernel.isfinite().all()) and gap <= allow):
+        fail(f"{label}: the kernel is off its plain version")
+    return {"gap": gap, "orders": orders, "allowance": allow}
+
+
+def encoder_attends_both_ways(params, cfg, batch, label: str) -> float:
+    """Changing only the last frame must move position 0's per-token
+    loss, in a run that is otherwise bit for bit repeatable; returns the
+    move."""
+    import torch
+    moved = dict(batch, frames=batch["frames"].clone())
+    moved["frames"][:, -1] = -moved["frames"][:, -1]
+    first, again = (losses_of(all_logits(params, cfg, batch),
+                              batch["labels"]) for _ in range(2))
+    other = losses_of(all_logits(params, cfg, moved), batch["labels"])
+    d0 = float((other[:, 0] - first[:, 0]).abs().max())
+    print(f"{label}: the last frame negated moves position 0's loss by "
+          f"{d0:.4e} (repeat bit for bit: "
+          f"{bool(torch.equal(first, again))})")
+    if not torch.equal(first, again):
+        fail(f"{label}: the encoder pass does not repeat bit for bit")
+    if not d0 > 0:
+        fail(f"{label}: position 0 does not see the last frame: the "
+             "encoder attends causally")
+    return d0
+
+
+def image_and_text_order(params, cfg, batch, logits, allowance: float,
+                         label: str) -> float:
+    """The prompt is [patches, text]: changing only the patch embeddings
+    moves the last text position's logits by more than the kernel's
+    allowance, and changing only the last text token leaves every
+    earlier position's hidden state bit for bit as it was."""
+    import torch
+    from repro_torch.models import transformer as T
+    moved = dict(batch, patch_embeds=-batch["patch_embeds"])
+    with torch.no_grad():
+        d = float((T.forward_prefill(params, cfg, moved)
+                   - logits).abs().max())
+        toks = batch["tokens"].clone()
+        toks[:, -1] = (toks[:, -1] + 1) % cfg.vocab
+        a = T._run_layers(params, cfg, batch)[0]
+        b = T._run_layers(params, cfg, dict(batch, tokens=toks))[0]
+    earlier = bool(torch.equal(a[:, :-1], b[:, :-1]))
+    last = not torch.equal(a[:, -1], b[:, -1])
+    print(f"{label}: patches negated move the last text position's logits "
+          f"by {d:.4e} (allowance {allowance:.4e}); the last token changed "
+          f"leaves positions < S-1 bit for bit: {earlier}, moves S-1: {last}")
+    if not d > allowance:
+        fail(f"{label}: the last text position does not see the image")
+    if not (earlier and last):
+        fail(f"{label}: the text is not the prompt's last part")
+    return d
+
+
+def served_counted(eng, reqs_fn, want: int, label: str):
+    """``eng.generate`` over ``reqs_fn()`` with the ksplit launches of
+    every model step read apart; each must be ``want``.  Returns (served
+    requests, wall s, launches, stats, per-step launches)."""
+    from repro_torch.kernels import ops
+    steps: list = []
+    restore = count_step_launches(steps)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = eng.generate(reqs_fn())
+        sync()
+        wall_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        restore()
+    st = eng.stats()
+    check_counts(label, steps, want)
+    if (len(steps) != st["prefill_steps"] + st["decode_steps"]
+            or launches["ksplit_gemm"] != sum(steps)
+            or st["linear_dispatch_since_warmup"].get("ksplit_cuda", 0)
+            != sum(steps)):
+        fail(f"{label}: {len(steps)} model steps counted, "
+             f"{launches['ksplit_gemm']} launches "
+             f"({st['linear_dispatch_since_warmup']})")
+    return reqs, wall_s, launches, st, steps
+
+
+def hubert_phase(cfg, seed: int = 0) -> dict:
+    """HuBERT-XLarge at full width, all 48 layers: the encoder pass over
+    4 x 512 frames through the ksplit kernel (194 launches) against its
+    plain version; position 0 sees the last frame; then the step-0
+    gradients against the plain version's, and HUBERT_STEPS AdamW steps
+    with a falling loss and 194 launches in each."""
+    import torch
+    from repro_torch.data import pipeline as DP
+    from repro_torch.kernels import ksplit_gemm as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.tune import dispatch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    sync()
+    init_s = time.perf_counter() - t_phase
+    kinds = bytes_by_kind(params)
+    tokens = HUBERT_SEQ * HUBERT_BATCH
+    batch = DP.make_batch(cfg, HUBERT_SEQ, HUBERT_BATCH, kind="train",
+                          seed=seed, device=DEVICE)
+    pre = DP.make_batch(cfg, HUBERT_SEQ, HUBERT_BATCH, kind="prefill",
+                        seed=seed, device=DEVICE)
+    if not torch.equal(pre["frames"], batch["frames"]):
+        fail("hubert: the train batch's frames are not the prefill batch's")
+    want = ksplit_linears(cfg, frontend=True)
+    print(f"hubert {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+          f"heads={cfg.n_heads} d_ff={cfg.d_ff} (GELU) vocab={cfg.vocab}, "
+          f"frames {tuple(pre['frames'].shape)} fp32 "
+          f"({HUBERT_SEQ / 50:.2f} s of audio at 50 Hz each); weights "
+          f"{sum(kinds.values()) / 1e9:.3f} GB (" + ", ".join(
+              f"{k} {v / 1e9:.3f}" for k, v in kinds.items())
+          + f" GB), init {init_s:.1f} s")
+    dispatch.warm_registry()
+    dispatch.tune_linear_params(params, m_hint=tokens)
+
+    # the encoder pass: kernel (counted), plain, a second plain order
+    lin0 = dispatch.dispatch_counts("linear")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = all_logits(params, cfg, pre)
+    sync()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    n_enc = ops.launch_counts()["ksplit_gemm"]
+    lin = {p: v - lin0.get(p, 0)
+           for p, v in dispatch.dispatch_counts("linear").items()}
+    print(f"hubert encoder pass: {enc_ms:.1f} ms (first call), ksplit "
+          f"launches {n_enc} (want {want}: 4 per layer, frontend_proj, "
+          f"lm_head), linear dispatch {lin}")
+    check_counts("hubert encoder pass", [n_enc], want)
+    if lin.get("ksplit_torch", 0):
+        fail("hubert: a KSplit linear ran off the kernel")
+    if tuple(logits.shape) != (HUBERT_BATCH, HUBERT_SEQ, cfg.vocab):
+        fail(f"hubert: logits of shape {tuple(logits.shape)}")
+    _, plain, plain2 = three_orders(lambda: all_logits(params, cfg, pre))
+    enc = order_gate("hubert encoder logits", logits, plain, plain2)
+    d0 = encoder_attends_both_ways(params, cfg, batch, "hubert encoder")
+    tok = [losses_of(x, batch["labels"]) for x in (logits, plain, plain2)]
+    tok_gap, tok_gap_a = rel_gap(tok[0], tok[1]), rel_gap(tok[2], tok[1])
+    del logits, plain, plain2, tok
+    t0 = time.perf_counter()
+    all_logits(params, cfg, pre)
+    sync()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"hubert encoder pass warm: {warm_ms:.1f} ms; gates done at "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # step 0: gradients through the kernel against the plain version's
+    ops.reset_launch_counts()
+    loss_k, _, g_k = loss_and_grads(params, cfg, batch)
+    sync()
+    n_step0 = ops.launch_counts()["ksplit_gemm"]
+    check_counts("hubert step 0", [n_step0], want)
+    kernel_fn = K.ksplit_gemm_multi
+    try:
+        K.ksplit_gemm_multi = K.ksplit_gemm_plain
+        loss_p, _, g_p = loss_and_grads(params, cfg, batch)
+        K.ksplit_gemm_multi = ksplit_one_matmul
+        _, _, g_a = loss_and_grads(params, cfg, batch)
+        sync()
+    finally:
+        K.ksplit_gemm_multi = kernel_fn
+    frob, worst, where = leaf_gaps(g_k, g_p)
+    frob_a, worst_a, _ = leaf_gaps(g_a, g_p)
+    del g_k, g_p, g_a
+    print(f"hubert step 0: loss kernel {float(loss_k):.6f} plain "
+          f"{float(loss_p):.6f}; per-token losses ||d||/||l|| kernel vs "
+          f"plain {tok_gap:.2e}, two plain orders {tok_gap_a:.2e}; "
+          f"gradients worst ||d||/||g|| {frob:.2e} (orders {frob_a:.2e}), "
+          f"worst max|d|/max|g| {worst:.2e} at {where} (orders "
+          f"{worst_a:.2e}); allowance {TRAIN_ORDER_RATIO:g}x the orders")
+    if not (np.isfinite(float(loss_k))
+            and tok_gap <= TRAIN_ORDER_RATIO * tok_gap_a
+            and frob <= TRAIN_ORDER_RATIO * frob_a):
+        fail("hubert step 0: the kernel's loss or gradients are off the "
+             "plain version's")
+    print(f"hubert step 0 done at {time.perf_counter() - t_phase:.1f} s")
+
+    # AdamW steps on the repeated batch, launches read per step
+    ocfg = adamw.AdamWConfig(lr_peak=HUBERT_LR, warmup_steps=1,
+                             total_steps=HUBERT_STEPS)
+    opt = adamw.init(params, ocfg)
+    step_fn = make_train_step(cfg, ocfg, 1, tune_params=params,
+                              tune_tokens=tokens)
+    losses, step_ms, per_step = [], [], []
+    ops.reset_launch_counts()
+    seen = ops.launch_counts()
+    for _ in range(HUBERT_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))        # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        now = ops.launch_counts()
+        per_step.append({k: now[k] - seen[k] for k in now})
+        seen = now
+    steady = float(np.median(step_ms[1:]))
+    prof = profile_step(step_fn, params, opt, batch, steady)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    idle = (f"{1 - prof['busy_ms'] / steady:.1%}" if prof["busy_ms"]
+            else "not measured")
+    print(f"hubert train ({smi_line()}): losses "
+          f"{[round(v, 4) for v in losses]}; step wall ms "
+          f"{[round(v, 1) for v in step_ms]}, median of steps 1-"
+          f"{HUBERT_STEPS - 1} {steady:.1f} ms = {tokens / steady * 1e3:.1f} "
+          f"frames/s, idle share {idle}; ksplit launches per step "
+          f"{[c['ksplit_gemm'] for c in per_step]}, convert "
+          f"{[c['convert'] for c in per_step]}; peak memory {peak_gb:.2f} GB")
+    check_counts("hubert train", [c["ksplit_gemm"] for c in per_step], want)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"hubert train: losses {losses} are not finite and falling")
+    del params, opt, step_fn
+    phase_s = time.perf_counter() - t_phase
+    print(f"hubert: phase {phase_s:.1f} s")
+    return {"launches": n_enc + n_step0 + sum(c["ksplit_gemm"]
+                                              for c in per_step),
+            "convert_launches": sum(c["convert"] for c in per_step),
+            "encoder": enc, "position0_move": d0, "encoder_ms": warm_ms,
+            "encoder_first_ms": enc_ms,
+            "step_ms": steady, "losses": losses, "peak_gb": peak_gb,
+            "weights_gb": sum(kinds.values()) / 1e9, "phase_s": phase_s,
+            **prof}
+
+
+def llava_phase(cfg, seed: int = 0) -> dict:
+    """LLaVA-NeXT-34B's first LLAVA_LAYERS layers at every published
+    width: one multimodal prefill (2880 patch embeddings, then
+    LLAVA_TEXT tokens) through the ksplit kernel (42 launches) against
+    its plain version, the image and text-order gates; then four text
+    requests through the engine's equal mode, equal to their unbatched
+    reference, 41 launches in every model step."""
+    import torch
+    from repro_torch.data import pipeline as DP
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tune import dispatch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    sync()
+    init_s = time.perf_counter() - t_phase
+    kinds = bytes_by_kind(params)
+    dims = T.dims_of(cfg)
+    S = cfg.n_patches + LLAVA_TEXT
+    batch = DP.make_batch(cfg, S, 1, kind="prefill", seed=seed,
+                          device=DEVICE)
+    print(f"llava {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+          f"heads {dims.n_q} q ({dims.n_q_orig} published) / {dims.n_kv} kv "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab}; weights "
+          f"{sum(kinds.values()) / 1e9:.3f} GB (" + ", ".join(
+              f"{k} {v / 1e9:.3f}" for k, v in kinds.items())
+          + f" GB), init {init_s:.1f} s; prompt {cfg.n_patches} patch "
+          f"embeddings {tuple(batch['patch_embeds'].shape)} + "
+          f"{LLAVA_TEXT} tokens = {S}")
+    dispatch.warm_registry()
+    dispatch.tune_linear_params(params, m_hint=S)
+    want = ksplit_linears(cfg, frontend=True)
+
+    def prefill():
+        with torch.no_grad():
+            return T.forward_prefill(params, cfg, batch)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill()
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    n_pre = ops.launch_counts()["ksplit_gemm"]
+    print(f"llava prefill: {prefill_ms:.1f} ms (first call), ksplit "
+          f"launches {n_pre} (want {want}: 5 per layer, frontend_proj, "
+          "lm_head)")
+    check_counts("llava prefill", [n_pre], want)
+    _, plain, plain2 = three_orders(prefill)
+    pre = order_gate("llava prefill last-position logits", logits, plain,
+                     plain2)
+    img = image_and_text_order(params, cfg, batch, logits,
+                               pre["allowance"], "llava prefill")
+    del logits, plain, plain2
+    t0 = time.perf_counter()
+    prefill()
+    sync()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"llava prefill warm: {warm_ms:.1f} ms")
+
+    eng = Engine(cfg, params, ServeConfig(
+        max_batch=4, max_seq=max(LARGE_LENS) + LARGE_NEW))
+    if eng.mode != "equal":
+        fail(f"llava: engine mode {eng.mode!r}, not equal")
+    eng.warmup()
+
+    def stream():
+        return family_stream(cfg.vocab, LARGE_LENS, LARGE_NEW, seed)
+
+    step_want = ksplit_linears(cfg, frontend=False)
+    reqs, wall_s, launches, st, steps = served_counted(
+        eng, stream, step_want, "llava serve")
+    refs = eng.generate_reference(stream())
+    gen_toks = st["tokens"]["generated"]
+    print(f"llava serve (equal mode, text tokens only): {len(reqs)} "
+          f"requests (prompts {list(LARGE_LENS)}, {LARGE_NEW} new), "
+          f"{gen_toks} tokens in {wall_s:.3f} s = {gen_toks / wall_s:.2f} "
+          f"tokens/s; ksplit launches per model step: {len(steps)} steps, "
+          f"all {sorted(set(steps))} (want {step_want})")
+    check_served("llava serve", cfg, reqs, refs, st, launches)
+    del eng
+    prof = decode_profile(cfg, params, kinds, "llava", step_want)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    phase_s = time.perf_counter() - t_phase
+    print(f"llava ({smi_line()}): prefill {warm_ms:.1f} ms warm "
+          f"({prefill_ms:.1f} first) at S={S}; decode step "
+          f"{prof['wall_ms']:.2f} ms vs byte bound {prof['bound_ms']:.2f} "
+          f"ms; peak memory {peak_gb:.2f} GB; phase {phase_s:.1f} s")
+    return {"launches": n_pre + launches["ksplit_gemm"], "prefill": pre,
+            "image_move": img, "prefill_ms": warm_ms,
+            "prefill_first_ms": prefill_ms,
+            "tokens_per_s": gen_toks / wall_s, "peak_gb": peak_gb,
+            "weights_gb": sum(kinds.values()) / 1e9, "phase_s": phase_s,
+            **prof}
+
+
+def llama405_phase(cfg, seed: int = 0) -> dict:
+    """Llama-3-405B's first LLAMA405_LAYERS layers at published widths in
+    masked mode (refill, prefix cache and chunking off, as phase 4):
+    four requests equal to their unbatched reference, 11 launches in
+    every model step; the batch-4 decode step beside its byte bound."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    sync()
+    init_s = time.perf_counter() - t_phase
+    kinds = bytes_by_kind(params)
+    dims = T.dims_of(cfg)
+    print(f"llama405 {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+          f"heads {dims.n_q} q / {dims.n_kv} kv ({dims.n_kv_orig} published) "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab}; weights "
+          f"{sum(kinds.values()) / 1e9:.3f} GB (" + ", ".join(
+              f"{k} {v / 1e9:.3f}" for k, v in kinds.items())
+          + f" GB), init {init_s:.1f} s; peak at init "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    eng = Engine(cfg, params, ServeConfig(
+        max_batch=4, max_seq=128, refill=False, prefix_cache=False,
+        chunked_prefill=False))
+    if eng.mode != "masked":
+        fail(f"llama405: engine mode {eng.mode!r}, not masked")
+    eng.warmup()
+
+    def stream():
+        return family_stream(cfg.vocab, LARGE_LENS, LARGE_NEW, seed)
+
+    want = ksplit_linears(cfg, frontend=False)
+    reqs, wall_s, launches, st, steps = served_counted(
+        eng, stream, want, "llama405 serve")
+    refs = eng.generate_reference(stream())
+    gen_toks = st["tokens"]["generated"]
+    print(f"llama405 serve (masked mode): {len(reqs)} requests (prompts "
+          f"{list(LARGE_LENS)}, {LARGE_NEW} new), {gen_toks} tokens in "
+          f"{wall_s:.3f} s = {gen_toks / wall_s:.2f} tokens/s; microbatches "
+          f"{st['microbatches']['total']}; ksplit launches per model step: "
+          f"{len(steps)} steps, all {sorted(set(steps))} (want {want})")
+    check_served("llama405 serve", cfg, reqs, refs, st, launches)
+    del eng
+    prof = decode_profile(cfg, params, kinds, "llama405", want)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    phase_s = time.perf_counter() - t_phase
+    print(f"llama405 ({smi_line()}): decode step {prof['wall_ms']:.2f} ms "
+          f"vs byte bound {prof['bound_ms']:.2f} ms "
+          f"({prof['bound_ms'] / prof['wall_ms']:.1%} of the bound's rate); "
+          f"peak memory {peak_gb:.2f} GB (from_dense's fp32 temporaries "
+          f"included); phase {phase_s:.1f} s")
+    return {"launches": launches["ksplit_gemm"],
+            "tokens_per_s": gen_toks / wall_s, "peak_gb": peak_gb,
+            "weights_gb": sum(kinds.values()) / 1e9, "phase_s": phase_s,
+            **prof}
+
+
+def frontends_phase(seed: int = 0) -> dict:
+    """Phase 12: (a) HuBERT-XLarge encoded and trained at full width,
+    (b) LLaVA-NeXT-34B's multimodal prefill and text serving, (c)
+    Llama-3-405B's first layers served, the card emptied between."""
+    from repro_torch.configs import get
+    t_phase = time.perf_counter()
+    out = {"hubert": hubert_phase(get("hubert-xlarge"), seed)}
+    free_card()
+    out["llava"] = llava_phase(dataclasses.replace(
+        get("llava-next-34b"), n_layers=LLAVA_LAYERS), seed)
+    free_card()
+    out["llama405"] = llama405_phase(dataclasses.replace(
+        get("llama3-405b"), n_layers=LLAMA405_LAYERS), seed)
+    free_card()
+    out["launches"] = sum(v["launches"] for v in out.values())
+    out["convert_launches"] = out["hubert"]["convert_launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve frontends: phase {out['phase_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3751,15 +4264,24 @@ def main() -> None:
         fail(f"dispatch resolved the spec {spec!r}, not 'gpu-h100': the "
              "kernels would not run")
 
-    t0 = time.perf_counter()
-    libs = ops.ensure_built()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, in parallel)")
+    secs = {}
+
+    def run(label, fn, *args):
+        """``fn(*args)``, its seconds printed and kept by ``label``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[label] = round(time.perf_counter() - t, 1)
+        print(f"phase {label}: {secs[label]:.1f} s")
+        return out
+
+    libs = run("1 build", ops.ensure_built)
     for name, info in _build.BUILD_INFO.items():
         print(f"build {name}: " + " | ".join(ptxas_rows(info["log"])))
     check_sass(libs)
 
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
     policy = Policy(kind="ratio", ratio_high=0.5)   # InternLM2's default
+    t0 = time.perf_counter()
     ks_err = check_ksplit(gen, policy)
     tile_err = check_tile(gen)
     gr_err = check_grouped(gen)
@@ -3767,29 +4289,38 @@ def main() -> None:
     split_err = check_split(gen)
     check_split_order(gen)
     cv_err = check_convert(gen)
-    check_mp_matmul(gen)
-    check_mp_matmul_split(gen)
+    secs["2 kernels vs plain"] = round(time.perf_counter() - t0, 1)
+    print(f"phase 2 kernels vs plain: {secs['2 kernels vs plain']:.1f} s")
+    run("3 mp_matmul", lambda: (check_mp_matmul(gen),
+                                check_mp_matmul_split(gen)))
     from repro_torch.configs import get
     cfg = get("internlm2-1.8b")
-    sv = serve(cfg)
-    ss = serve_state(dataclasses.replace(cfg, n_layers=STATE_LAYERS))
-    sq = serve_quant(cfg)
-    sm9 = serve_moe(dataclasses.replace(get("qwen2-moe-a2.7b"),
-                                        n_layers=MOE_LAYERS))
-    sw9 = serve_windowed(dataclasses.replace(get("gemma3-4b"),
-                                             n_layers=GEMMA_LAYERS))
-    sx10 = serve_xlstm(dataclasses.replace(get("xlstm-1.3b"),
-                                           n_layers=XLSTM_LAYERS))
-    sj11 = serve_jamba_period(dataclasses.replace(get("jamba-v0.1-52b"),
-                                                  n_layers=JAMBA_LAYERS))
-    sol = solve_phase()
-    parity_phase()
-    tr = train_phase(cfg)
-    sm = summa_phase(torch.Generator(device=DEVICE).manual_seed(88))
+    sv = run("4 serve", serve, cfg)
+    ss = run("4b serve state", serve_state,
+             dataclasses.replace(cfg, n_layers=STATE_LAYERS))
+    sq = run("4c serve quant", serve_quant, cfg)
+    sm9 = run("9a serve moe", serve_moe, dataclasses.replace(
+        get("qwen2-moe-a2.7b"), n_layers=MOE_LAYERS))
+    sw9 = run("9b serve gemma3", serve_windowed, dataclasses.replace(
+        get("gemma3-4b"), n_layers=GEMMA_LAYERS))
+    sx10 = run("10 serve xlstm", serve_xlstm, dataclasses.replace(
+        get("xlstm-1.3b"), n_layers=XLSTM_LAYERS))
+    sj11 = run("11 serve jamba period", serve_jamba_period,
+               dataclasses.replace(get("jamba-v0.1-52b"),
+                                   n_layers=JAMBA_LAYERS))
+    sf12 = run("12 frontends", frontends_phase)
+    sol = run("5 solve", solve_phase)
+    run("5 parity", parity_phase)
+    tr = run("7 train", train_phase, cfg)
+    sm = run("8 summa", summa_phase,
+             torch.Generator(device=DEVICE).manual_seed(88))
+    t0 = time.perf_counter()
     ks_rows = time_ksplit(gen, policy)
     tg = time_tile_grouped(gen)
     sp = time_split(gen)
     cv = time_convert(gen)
+    secs["6 timings"] = round(time.perf_counter() - t0, 1)
+    print(f"phase 6 timings: {secs['6 timings']:.1f} s")
 
     main_row = next(r for r in ks_rows if (r["m"], r["n"]) == (4, 8192))
     kernels = [
@@ -3799,7 +4330,8 @@ def main() -> None:
          "launches": (sv["launches"] + ss["launches"] + sq["launches"]
                       + tr["launches"] + sm9["launches"]
                       + sm9["launches16"] + sw9["launches"]
-                      + sx10["launches"] + sj11["launches"]),
+                      + sx10["launches"] + sj11["launches"]
+                      + sf12["launches"]),
          "launches_by_phase": {"serve": sv["launches"],
                                "serve_state": ss["launches"],
                                "serve_quant": sq["launches"],
@@ -3808,10 +4340,17 @@ def main() -> None:
                                "serve_moe_cf16": sm9["launches16"],
                                "serve_gemma3": sw9["launches"],
                                "serve_xlstm": sx10["launches"],
-                               "serve_jamba_period": sj11["launches"]},
+                               "serve_jamba_period": sj11["launches"],
+                               "serve_frontends": sf12["launches"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}},
+                                            "bound_by", "library_ms")},
+         # phase 12's shapes: the 405B up/gate at decode, the bulk
+         # LLaVA up/gate and HuBERT up
+         "phase12_rows": [
+             {key: r[key] for key in ("m", "k", "n", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+             for r in ks_rows if (r["m"], r["k"], r["n"]) in KSPLIT_TIMED]},
         {"name": "mp_gemm_tile", "route": "cuda",
          "source": "src/repro_torch/csrc/mp_gemm_tile.cu",
          "replaces": "src/repro/kernels/mp_gemm_tile.py:121",
@@ -3857,7 +4396,8 @@ def main() -> None:
          "replaces": "src/repro/kernels/convert.py:23",
          "launches": (sum(v["convert_launches"] + v["class_launches"]
                           for v in sol.values())
-                      + sq["convert_launches"] + tr["convert_launches"]),
+                      + sq["convert_launches"] + tr["convert_launches"]
+                      + sf12["convert_launches"]),
          "launches_by_form": {
              "convert": sum(v["convert_launches"] for v in sol.values()),
              "convert_by_class": sum(v["class_launches"]
@@ -3866,11 +4406,13 @@ def main() -> None:
              "solve": sum(v["convert_launches"] + v["class_launches"]
                           for v in sol.values()),
              "serve_quant": sq["convert_launches"],
-             "train": tr["convert_launches"]},
+             "train": tr["convert_launches"],
+             "serve_frontends": sf12["convert_launches"]},
          "max_abs_err": max(cv_err.values()), **cv},
     ]
     train_row = next(r for r in ks_rows
                      if (r["m"], r["n"]) == (TRAIN_SEQ * TRAIN_BATCH, 8192))
+    hb, lv, ll = sf12["hubert"], sf12["llava"], sf12["llama405"]
     print(f"serve tokens/s {sv['tokens_per_s']:.2f}; ksplit launches per "
           f"model step {sv['launches_per_step']:.1f}; serve state tokens/s "
           f"{ss['tokens_per_s']:.2f} (phase {ss['phase_s']:.1f} s); serve "
@@ -3894,8 +4436,17 @@ def main() -> None:
           f"serve jamba period {sj11['tokens_per_s']:.2f} tokens/s, decode "
           f"step {sj11['wall_ms']:.2f} ms (byte bound {sj11['bound_ms']:.2f} "
           f"ms), peak {sj11['peak_gb']:.2f} GB (phase {sj11['phase_s']:.1f} "
-          f"s); total "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"s); hubert encoder pass {hb['encoder_ms']:.1f} ms, train step "
+          f"{hb['step_ms']:.1f} ms, peak {hb['peak_gb']:.2f} GB; llava "
+          f"prefill {lv['prefill_ms']:.1f} ms, serve "
+          f"{lv['tokens_per_s']:.2f} tokens/s, decode step "
+          f"{lv['wall_ms']:.2f} ms (byte bound {lv['bound_ms']:.2f} ms), "
+          f"peak {lv['peak_gb']:.2f} GB; "
+          f"llama405 decode step {ll['wall_ms']:.2f} ms (byte bound "
+          f"{ll['bound_ms']:.2f} ms), {ll['tokens_per_s']:.2f} tokens/s, "
+          f"peak {ll['peak_gb']:.2f} GB (phase 12 {sf12['phase_s']:.1f} s); "
+          f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"phase seconds: {json.dumps(secs)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Parameter bridge: the JAX package's decoder parameters (dense and MoE,
-full or local/global attention, xLSTM, the Mamba hybrid) and AdamW
-state, handed over as numpy arrays plus class maps, into the port's —
+"""Parameter bridge: the JAX package's model parameters (dense and MoE,
+full or local/global attention, xLSTM, the Mamba hybrid, the audio
+encoder and the vision-language decoder) and AdamW state, handed over as numpy arrays plus class maps, into the port's —
 so both packages compute from the same state in the parity tests.
 (Checkpoints need no bridge:
 ``repro_torch.checkpoint`` reads and writes the reference's format.)
@@ -8,6 +8,7 @@ so both packages compute from the same state in the parity tests.
 It imports no JAX.  The numpy tree follows the reference's layout::
 
     {"embed": [V, d], "final_norm": [d], "lm_head": LIN,
+     ["frontend_proj": LIN, "pos_embed": [65536, d]],
      "blocks": [{"pos0": {"norm1": [R, d], "norm2": [R, d],
                           "attn": {"wq": LIN, "wk": LIN, "wv": LIN,
                                    "wo": LIN},
@@ -150,10 +151,22 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
                                  f"repeats, config {len(idx)}")
             for r, i in enumerate(idx):
                 layers[i] = _layer(p, r, device)
-    return {"embed": tensor_from_numpy(tree["embed"], device),
-            "final_norm": tensor_from_numpy(tree["final_norm"], device),
-            "lm_head": _linear(tree["lm_head"], None, device),
-            "layers": LayerList(layers, period)}
+    out = {"embed": tensor_from_numpy(tree["embed"], device),
+           "final_norm": tensor_from_numpy(tree["final_norm"], device),
+           "lm_head": _linear(tree["lm_head"], None, device)}
+    # the frontend's projection and an encoder's position table
+    for key, want in (("frontend_proj", cfg.frontend != "none"),
+                      ("pos_embed", cfg.encoder_only)):
+        if (key in tree) != want:
+            raise ValueError(f"tree {'holds' if key in tree else 'lacks'} "
+                             f"{key!r}; config {cfg.name} "
+                             f"{'needs' if want else 'has none'}")
+    if cfg.frontend != "none":
+        out["frontend_proj"] = _linear(tree["frontend_proj"], None, device)
+    if cfg.encoder_only:
+        out["pos_embed"] = tensor_from_numpy(tree["pos_embed"], device)
+    out["layers"] = LayerList(layers, period)
+    return out
 
 
 def opt_state_from_numpy(state: dict, cfg: ArchConfig, device="cuda"):

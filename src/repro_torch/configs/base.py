@@ -1,17 +1,22 @@
 """Architecture configuration schema + registry (twin of
-``repro.configs.base`` for the families the port serves: dense and MoE
-decoders with full or local/global attention, the xLSTM recurrent stack
-and the Mamba-attention hybrid).
+``repro.configs.base``): every config the reference registers — dense
+and MoE decoders with full or local/global attention, the xLSTM
+recurrent stack, the Mamba-attention hybrid, the encoder-only audio
+model and the vision-language decoder.
 
-The port runs on one card, so there is no tensor parallelism: ``tp`` is
-1 by default and attention keeps the published kv-head count (the JAX
-package pads/duplicates heads for a 16-way model axis).  One decision
-of the reference's model axis changes numbers, not only placement: an
-MoE config whose expert count divides the axis stores its down
-projection K-split, otherwise N-split (``repro.models.moe.init_moe``).
-``ep_axis`` keeps that decision at the reference's published axis size,
-:data:`REFERENCE_TP`; :func:`reduced` sets it to the reduced ``tp``, as
-the reference's reduced configs decide at their own ``tp``.
+The port runs on one card, so there is no tensor parallelism.  ``tp``
+is the model-axis size whose head padding the attention geometry keeps
+(``models.transformer.dims_of``): 1 by default, so attention keeps the
+published head counts (the JAX package pads q heads and duplicates kv
+heads for its 16-way axis), and :data:`REFERENCE_TP` for LLaVA-NeXT-34B
+and Llama-3-405B, whose padded q heads and duplicated kv heads are real
+weights in the reference (56 → 64 q heads with 16 kv, and 128 q heads
+with 8 → 16 kv).  One decision of the reference's model axis changes
+numbers, not only placement: an MoE config whose expert count divides
+the axis stores its down projection K-split, otherwise N-split
+(``repro.models.moe.init_moe``).  ``ep_axis`` keeps that decision at
+:data:`REFERENCE_TP`; :func:`reduced` sets both to the reduced ``tp``,
+as the reference's reduced configs decide at their own ``tp``.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ REFERENCE_TP = 16
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid
+    family: str                  # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,8 +50,11 @@ class ArchConfig:
     global_every: int = 6        # 5 local : 1 global
     rope_theta: float = 500000.0
     use_rope: bool = True
-    encoder_only: bool = False   # no counterpart yet (item 7)
-    frontend: str = "none"       # none only (audio / vision: item 7)
+    encoder_only: bool = False
+    # --- modality frontend (a projection of precomputed embeddings) -----
+    frontend: str = "none"       # none | audio | vision
+    frontend_dim: int = 0        # width of the embeddings the stub delivers
+    n_patches: int = 0           # vision tokens in the prompt
     # --- MoE --------------------------------------------------------------
     n_experts: int = 0
     top_k: int = 0
@@ -78,6 +86,7 @@ class ArchConfig:
     #: engine run at setup (``--summa PxQ`` overrides from the CLI)
     summa_grid: Optional[tuple] = None
     norm_eps: float = 1e-6
+    #: model-axis size of the attention head padding (see module doc)
     tp: int = 1
     gated_mlp: bool = True
     kv_dup_to_tp: bool = False
@@ -172,9 +181,10 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-_ARCH_MODULES = ["llama3_8b", "internlm2_1_8b", "gemma3_4b",
-                 "qwen2_moe_a2_7b", "phi35_moe", "xlstm_1_3b",
-                 "jamba_v01_52b"]
+_ARCH_MODULES = ["jamba_v01_52b", "hubert_xlarge", "llama3_8b",
+                 "internlm2_1_8b", "gemma3_4b", "llama3_405b",
+                 "qwen2_moe_a2_7b", "phi35_moe", "llava_next_34b",
+                 "xlstm_1_3b"]
 
 
 def load_all() -> dict[str, ArchConfig]:
@@ -207,6 +217,8 @@ def reduced(cfg: ArchConfig, tp: int = 2) -> ArchConfig:
         top_k=min(2, cfg.top_k) if cfg.top_k else 0,
         n_shared=min(1, cfg.n_shared),
         shared_d_ff=64 if cfg.n_shared else 0,
+        frontend_dim=32 if cfg.frontend != "none" else 0,
+        n_patches=8 if cfg.frontend == "vision" else 0,
         mp_tile=16,
         tp=tp,
         ep_axis=tp,

@@ -6,9 +6,11 @@ numpy generator as the reference's, so the batches are bit for bit the
 reference's and a replay after a restart is exact.  A background thread
 keeps ``depth`` batches ahead of the training loop; each batch is staged
 in pinned host memory and copied to the device without blocking the
-host.  Only the token-input family is ported (the reference's audio and
-vision frontends come with their model families, ``ROADMAP.md`` queue 1,
-item 7).
+host.  The frontends' inputs are drawn as the reference draws them: an
+audio config takes fp32 ``frames`` [B, S, frontend_dim], a vision config
+fp32 ``patch_embeds`` [B, P, frontend_dim] and ``tokens`` [B, S - P],
+its ``labels`` covering the text only.  Fields are drawn in the
+reference's spec order, since that order consumes the generator.
 """
 from __future__ import annotations
 
@@ -27,10 +29,19 @@ def batch_spec(cfg: ArchConfig, seq_len: int, global_batch: int,
     """``{name: (shape, dtype)}`` of every model input of ``kind``
     (``train``, ``prefill`` or ``decode``)."""
     B, S = global_batch, seq_len
+    f32, i32 = torch.float32, torch.int32
     if kind in ("train", "prefill"):
-        spec = {"tokens": ((B, S), torch.int32)}
+        if cfg.frontend == "audio":
+            spec = {"frames": ((B, S, cfg.frontend_dim), f32)}
+        elif cfg.frontend == "vision":
+            P = cfg.n_patches
+            spec = {"patch_embeds": ((B, P, cfg.frontend_dim), f32),
+                    "tokens": ((B, S - P), i32)}
+        else:
+            spec = {"tokens": ((B, S), i32)}
         if kind == "train":
-            spec["labels"] = ((B, S), torch.int32)
+            lab_s = S - cfg.n_patches if cfg.frontend == "vision" else S
+            spec["labels"] = ((B, lab_s), i32)
         return spec
     if kind == "decode":
         return {"tokens": ((B, 1), torch.int32)}

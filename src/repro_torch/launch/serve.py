@@ -9,14 +9,16 @@ The first serves InternLM2-1.8B at full width on the card (``--device
 cuda``, the default); the second its reduced twin with the kernels'
 plain versions on the CPU. ``--arch`` takes every registered config:
 ``qwen2-moe-a2.7b`` (MoE), ``gemma3-4b`` (local/global attention),
-``xlstm-1.3b`` (recurrent cells) and ``jamba-v0.1-52b`` (Mamba mixers,
-one attention layer in eight, MoE on odd layers) serve in the engine's
-equal mode, where refill, the prefix cache and chunked prefill are off;
-``phi3.5-moe-42b-a6.6b`` and ``jamba-v0.1-52b`` fit one card only
-reduced (``--smoke``): Jamba's 32 layers hold 51.6e9 parameters, and
-the launcher has no depth option, as the reference's has none.
-``chip_smoke.py`` phase 11 serves Jamba's first pattern period (8
-layers at every published width) on the card. Every
+``xlstm-1.3b`` (recurrent cells), ``jamba-v0.1-52b`` (Mamba mixers,
+one attention layer in eight, MoE on odd layers) and ``llava-next-34b``
+(served on text tokens only, as the reference's engine serves it) serve
+in the engine's equal mode, where refill, the prefix cache and chunked
+prefill are off; ``hubert-xlarge`` is encoder-only and exits non-zero
+with the reference's message. ``phi3.5-moe-42b-a6.6b``,
+``jamba-v0.1-52b``, ``llava-next-34b`` and ``llama3-405b`` fit one card
+only reduced (``--smoke``): the launcher has no depth option, as the
+reference's has none. ``chip_smoke.py`` phases 11 and 12 serve their
+first layers at every published width on the card. Every
 knob maps onto :class:`repro_torch.serve.ServeConfig`; refill, the paged
 prefix cache and chunked prefill are on unless switched off. The engine
 resolves every plan and builds the kernels before serving unless
@@ -122,12 +124,6 @@ def main(argv=None) -> int:
     from repro_torch.models import transformer as T
     from repro_torch.serve import Engine, Request, ServeConfig
 
-    if args.device.startswith("cuda"):
-        if not torch.cuda.is_available():
-            raise SystemExit("no CUDA device: pass --device cpu to serve "
-                             "with the kernels' plain versions")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     cfg = get(args.arch)
     if args.quantize and cfg.n_experts:
         raise SystemExit(f"not ported yet: {MOE_QUANTIZE}")
@@ -136,6 +132,14 @@ def main(argv=None) -> int:
     if args.formats:
         cfg = dataclasses.replace(
             cfg, mp_formats=FormatSet.parse(args.formats).key())
+    if cfg.encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
+    if args.device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device: pass --device cpu to serve "
+                             "with the kernels' plain versions")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     params = T.init_model(
         torch.Generator(device=args.device).manual_seed(args.seed), cfg)
     if args.ckpt:

@@ -5,9 +5,15 @@
 
 The first trains InternLM2-1.8B at full width on the card (``--device
 cuda``, the default); the second its reduced twin with the kernels'
-plain versions on the CPU.  ``--inject-fault S`` raises a
-``RestartSignal`` at step S, so the run restores its newest checkpoint
-and replays from there; ``--resume`` starts from the newest checkpoint
+plain versions on the CPU.  ``--arch`` takes the dense configs, among
+them ``hubert-xlarge`` (audio frames in, the encoder's one entry point:
+the serve launcher refuses it) and ``llava-next-34b`` (patch embeddings
+ahead of the text, the loss on the text); the pipeline draws each
+config's batch dict as the reference does.  MoE, xLSTM and Mamba
+training raise (``ROADMAP.md`` queue 1, item 7).
+
+``--inject-fault S`` raises a ``RestartSignal`` at step S, so the run
+restores its newest checkpoint and replays from there; ``--resume`` starts from the newest checkpoint
 in ``--ckpt-dir``.  ``--summa PxQ`` (default: the arch's
 ``summa_grid``) runs the SUMMA self-check at the config's
 tile/policy/format set on a P×Q grid of spawned ranks before training

@@ -1,7 +1,8 @@
-"""Shared model components: RMSNorm, RoPE, GQA attention (causal or
-sliding-window prefill; one-token decode with a ``kv_valid`` mask and
-per-row positions/slots, or a ring buffer for a window), the gated MLP
-and the embedding (twin of ``repro.models.common``).
+"""Shared model components: RMSNorm, RoPE, GQA attention (causal,
+bidirectional or sliding-window prefill; one-token decode with a
+``kv_valid`` mask and per-row positions/slots, or a ring buffer for a
+window), the gated or GELU MLP and the embedding (twin of
+``repro.models.common``).
 
 Every large matmul is an :class:`~repro_torch.core.linear.MPLinear`:
 wq/wk/wv/up/gate are KSplit (the ksplit kernel on the card), wo/down are
@@ -184,21 +185,25 @@ def sliding_window_attention(q, k, v, *, window: int) -> torch.Tensor:
     return out.reshape(B, H, S, dh).transpose(1, 2)
 
 
-def attention_block(params, x, dims: AttnDims, *, positions,
+def attention_block(params, x, dims: AttnDims, *, positions, causal=True,
                     window: int | None = None, rope_theta=10000.0,
                     use_rope=True) -> torch.Tensor:
-    """Causal prefill attention, windowed when ``window`` is set.
-    x: [B, S, d]."""
+    """Prefill attention.  x: [B, S, d].  As in the reference: banded
+    when ``window`` is set and ``causal``, otherwise over every key, with
+    the causal mask or (an encoder) without one.  The reference runs a
+    chunked online softmax over 1024-key chunks; the port's one-pass
+    softmax differs from it by fp32 summation order only."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, dims, positions, rope_theta, use_rope)
     k = _repeat_kv(k, dims.group)
     v = _repeat_kv(v, dims.group)
-    if window is not None:
+    if window is not None and causal:
         out = sliding_window_attention(q, k, v, window=window)
     else:
-        causal = torch.ones((S, S), dtype=torch.bool,
-                            device=x.device).tril()
-        out = _attend(q, k, v, causal[None, None])
+        valid = torch.ones((S, S), dtype=torch.bool, device=x.device)
+        if causal:
+            valid = valid.tril()
+        out = _attend(q, k, v, valid[None, None])
     out = out.to(ACT_DTYPE).reshape(B, S, dims.n_q * dims.head_dim)
     return params["wo"](out).to(ACT_DTYPE)
 

@@ -1,11 +1,13 @@
-"""Decoder model: init, caches, the training forward, prefill and
-one-token decode for the dense and MoE families, with full or
-local/global attention, the xLSTM stack and the Mamba-attention hybrid
-(twin of ``repro.models.transformer`` for those families).
+"""Model: init, caches, the training forward, prefill and one-token
+decode for every family of the reference — dense and MoE decoders with
+full or local/global attention, the xLSTM stack, the Mamba-attention
+hybrid, the encoder-only audio model and the vision-language decoder
+(twin of ``repro.models.transformer``).
 
 Parameters are a plain dict::
 
     {"embed": bf16[V, d], "final_norm": f32[d], "lm_head": MPLinear,
+     ["frontend_proj": MPLinear, "pos_embed": bf16[65536, d]],
      "layers": LayerList([{"norm1", "attn": {wq, wk, wv, wo}
                                     | "mamba": {...}, "norm2",
                            "mlp": {up, gate, down}
@@ -23,6 +25,15 @@ carry their own).  Layers run in a Python loop; the reference scans them
 in segments of whole pattern periods, and
 :class:`~repro_torch.tree.LayerList` carries the period so the port's
 trees walk as the reference's (``repro_torch.tree``).
+
+The frontends are stubs, as in the reference: precomputed embeddings
+arrive in the batch and ``frontend_proj`` (a KSplit linear at the
+default tile and format set for ``frontend_dim``) maps them to the model
+width.  An audio config embeds ``frames`` alone; a vision config puts
+its projected ``patch_embeds`` ahead of the embedded ``tokens``, and its
+loss covers the text positions only.  An encoder-only config adds the
+learned ``pos_embed`` table, attends without the causal mask and has no
+decode step.
 """
 from __future__ import annotations
 
@@ -40,8 +51,11 @@ from repro_torch.models import xlstm as X
 from repro_torch.models.common import ACT_DTYPE
 from repro_torch.tree import LayerList
 
-#: families the port serves; the rest wait in ROADMAP.md queue 1, item 7
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: rows of an encoder's learned position table (the reference's)
+POS_TABLE = 65536
+
+#: every family the reference registers
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def dims_of(cfg: ArchConfig) -> C.AttnDims:
@@ -52,8 +66,8 @@ def dims_of(cfg: ArchConfig) -> C.AttnDims:
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported: the audio and vision "
-            "families wait in ROADMAP.md queue 1, item 7")
+            f"family {cfg.family!r} is not one of the reference's "
+            f"{PORTED_FAMILIES}")
 
 
 def _window(cfg: ArchConfig, mixer: str):
@@ -107,6 +121,15 @@ def init_model(gen: torch.Generator, cfg: ArchConfig) -> dict:
                                   cfg.mp_policy, split="ksplit",
                                   tile=cfg.mp_tile, fset=fs, device=dev),
     }
+    if cfg.frontend != "none":
+        # the reference's default tile and format set, not the config's
+        params["frontend_proj"] = init_mp_linear(
+            gen, cfg.frontend_dim, cfg.d_model, cfg.mp_policy,
+            split="ksplit", tile=None, device=dev)
+    if cfg.encoder_only:
+        params["pos_embed"] = (torch.randn(
+            (POS_TABLE, cfg.d_model), generator=gen, device=dev,
+            dtype=torch.float32) * 0.02).to(ACT_DTYPE)
     params["layers"] = LayerList(
         [_init_layer(gen, cfg, mixer, ffn)
          for mixer, ffn in cfg.layer_kinds()],
@@ -156,15 +179,47 @@ def _ffn(lp, cfg: ArchConfig, ffn: str, h, aux: bool = False,
     return out if aux else (out, None)
 
 
-def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor):
-    """Embed ``tokens`` [B, S] and run every layer over the full sequence
-    (causal, windowed on local layers); returns the residual stream
-    [B, S, d] and the summed MoE aux loss."""
+def _batch_of(cfg: ArchConfig, inputs) -> dict:
+    """The reference's batch dict; a bare token tensor [B, S] stands for
+    ``{"tokens": inputs}`` where the config has no frontend."""
+    if isinstance(inputs, dict):
+        return inputs
+    if cfg.frontend != "none":
+        raise ValueError(
+            f"{cfg.name} has a {cfg.frontend} frontend: pass the batch dict "
+            "(" + ("frames" if cfg.frontend == "audio"
+                   else "patch_embeds and tokens") + "), not a token tensor")
+    return {"tokens": inputs}
+
+
+def _embed_inputs(params, cfg: ArchConfig, batch: dict):
+    """Token or frontend embedding: (x [B, S, d] bf16, positions [B, S])."""
+    if cfg.frontend == "audio":
+        x = params["frontend_proj"](batch["frames"].to(ACT_DTYPE))
+        x = x.to(ACT_DTYPE)
+    elif cfg.frontend == "vision":
+        pe = params["frontend_proj"](
+            batch["patch_embeds"].to(ACT_DTYPE)).to(ACT_DTYPE)
+        te = C.embed(params["embed"], batch["tokens"])
+        x = torch.cat([pe, te], dim=1)
+    else:
+        x = C.embed(params["embed"], batch["tokens"])
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.encoder_only:
+        x = x + params["pos_embed"][None, :S]
+    return x, positions
+
+
+def _run_layers(params, cfg: ArchConfig, inputs):
+    """Embed ``inputs`` (a batch dict, or a token tensor [B, S] for a
+    config without a frontend) and run every layer over the full sequence
+    (causal, windowed on local layers; bidirectional in an encoder);
+    returns the residual stream [B, S, d] and the summed MoE aux loss."""
     dims = dims_of(cfg)
-    x = C.embed(params["embed"], tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x, positions = _embed_inputs(params, cfg, _batch_of(cfg, inputs))
+    causal = not cfg.encoder_only
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, (mixer, ffn) in zip(params["layers"], cfg.layer_kinds()):
         h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
         if mixer == "mlstm":
@@ -175,7 +230,7 @@ def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor):
             x = x + M.mamba_block(lp["mamba"], h)
         else:
             x = x + C.attention_block(lp["attn"], h, dims,
-                                      positions=positions,
+                                      positions=positions, causal=causal,
                                       window=_window(cfg, mixer),
                                       rope_theta=cfg.rope_theta,
                                       use_rope=cfg.use_rope)
@@ -191,8 +246,10 @@ def _run_layers(params, cfg: ArchConfig, tokens: torch.Tensor):
 
 
 def forward_train(params, cfg: ArchConfig, batch: dict):
-    """Training forward: ``batch`` {"tokens", "labels"} [B, S] → (loss,
-    metrics).  No remat: the reference's ``jax.checkpoint`` saves memory
+    """Training forward: ``batch`` (the pipeline's dict: ``tokens``,
+    ``frames`` or ``patch_embeds`` and ``tokens``, and ``labels``) →
+    (loss, metrics).  A vision config's loss covers the text positions
+    (the last ``labels.shape[1]``).  No remat: the reference's ``jax.checkpoint`` saves memory
     and changes no number.  Past the local window the local layers attend
     to the last w keys, as the reference's decode does; the reference's
     bulk band admits up to 2w - 1 (``ROADMAP.md`` queue 3, F8: decided
@@ -211,20 +268,26 @@ def forward_train(params, cfg: ArchConfig, batch: dict):
         raise NotImplementedError(
             "xLSTM training (the scans' backward) is not ported: the "
             "family serves only; ROADMAP.md queue 1, item 7")
-    x, aux = _run_layers(params, cfg, batch["tokens"])
+    x, aux = _run_layers(params, cfg, batch)
     x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = C.cross_entropy(params["lm_head"](x), batch["labels"])
+    logits = params["lm_head"](x)
+    labels = batch["labels"]
+    if cfg.frontend == "vision":
+        logits = logits[:, -labels.shape[1]:]
+    loss = C.cross_entropy(logits, labels)
     return loss, {"ce": loss, "aux": aux}
 
 
-def forward_prefill(params, cfg: ArchConfig, tokens: torch.Tensor
-                    ) -> torch.Tensor:
-    """Run the prompt [B, S] (causal; windowed on local layers);
-    last-position logits [B, 1, V].  Past the window the local layers
-    attend to the last w keys, as the reference's decode does, not to its
-    bulk band of up to 2w - 1 (``ROADMAP.md`` queue 3, F8)."""
+def forward_prefill(params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """Run the prompt — the reference's batch dict (``tokens``,
+    ``frames``, or ``patch_embeds`` and ``tokens``), or a token tensor
+    [B, S] for a config without a frontend — and return the
+    last-position logits [B, 1, V].  Causal (bidirectional in an
+    encoder), windowed on local layers: past the window they attend to
+    the last w keys, as the reference's decode does, not to its bulk
+    band of up to 2w - 1 (``ROADMAP.md`` queue 3, F8)."""
     check_family(cfg)
-    x, _ = _run_layers(params, cfg, tokens)
+    x, _ = _run_layers(params, cfg, batch)
     x = C.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return params["lm_head"](x)
 
@@ -240,8 +303,11 @@ def forward_decode(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
     dropped (token, expert) pairs (device scalars).  A recurrent layer's
     state dict takes the step's new state (mLSTM's C and Mamba's h in
     place, the rest replaced); it needs no position.  Returns (logits
-    [B, 1, V] fp32, caches)."""
+    [B, 1, V] fp32, caches).  An encoder-only config has no decode step:
+    ValueError, as in the reference."""
     check_family(cfg)
+    if cfg.encoder_only:
+        raise ValueError("encoder-only arch has no decode step")
     dims = dims_of(cfg)
     x = C.embed(params["embed"], tokens)
     for lp, cache, (mixer, ffn) in zip(params["layers"], caches,

@@ -8,7 +8,10 @@ decoders serve in ``masked`` mode (below); sliding-window attention
 (gemma3's local layers), MoE and the recurrent mixers — xLSTM cells and
 Jamba's Mamba mixers, their fp32 state carried per row in the caches
 beside any attention layer's KV and updated in place where it is large
-(mLSTM's C, Mamba's h) — serve in ``equal`` mode, where a
+(mLSTM's C, Mamba's h) — and the vision-language decoder, served on
+its text tokens only (the reference's prefill steps the decode
+function, which embeds tokens alone; an image never reaches the
+engine), serve in ``equal`` mode, where a
 bucket holds requests of one exact length and every row shares a scalar
 position — prefill steps the decode function over positions
 ``0 .. S-1``, decode runs at ``S + t - 1``, filler rows repeat the last real

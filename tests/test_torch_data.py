@@ -1,10 +1,10 @@
 """Port parity of the data pipeline (twin of ``tests/test_serve_data.py``):
 the port's batches are bit for bit the reference's for the same (seed,
 step), the prefetcher replays the same stream from any step, and the
-engine's greedy serving is deterministic.  The reference's frontend
-(audio, vision) configurations come with their model families
-(``ROADMAP.md`` queue 1, item 7); the token batches are compared on the
-reduced InternLM2 and Llama-3-8B shapes.
+engine's greedy serving is deterministic.  The batches are compared on
+the reduced InternLM2 and Llama-3-8B shapes (tokens) and on the reduced
+HuBERT-XLarge (fp32 frames) and LLaVA-NeXT-34B (fp32 patch embeddings
+ahead of the tokens, labels over the text) shapes.
 """
 import numpy as np
 import pytest
@@ -33,19 +33,21 @@ def test_pipeline_deterministic():
     assert not torch.equal(b1["tokens"], b3["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "llama3-8b",
+                                  "hubert-xlarge", "llava-next-34b"])
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_batches_equal_reference(arch, kind):
     jcfg = jreduced(jload_all()[arch], tp=2)
-    cfg = reduced(get("internlm2-1.8b"), tp=2)
+    cfg = reduced(get(arch), tp=2)
     assert cfg.vocab == jcfg.vocab
     for seed, step in ((0, 0), (3, 11), (7, 2 ** 19 + 5)):
         want = jmake_batch(jcfg, 16, 4, kind=kind, seed=seed, step=step)
         got = make_batch(cfg, 16, 4, kind=kind, seed=seed, step=step,
                          device="cpu")
-        assert set(got) == set(want)
+        assert list(got) == list(want)
         for k in want:
-            assert got[k].dtype == torch.int32
+            assert str(got[k].dtype) == f"torch.{want[k].dtype}", k
+            assert got[k].shape == want[k].shape
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 

@@ -74,9 +74,7 @@ def _schedule(cfg):
 def test_registered_configs_match_reference():
     ref = load_all()
     ported = PB.load_all()
-    assert set(ported) == {"internlm2-1.8b", "llama3-8b", "gemma3-4b",
-                           "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
-                           "xlstm-1.3b", "jamba-v0.1-52b"}
+    assert set(ported) == set(ref)
     assert PB.REFERENCE_TP == DEFAULT_TP
     for name, pcfg in ported.items():
         jcfg = ref[name]

@@ -25,6 +25,20 @@ At full width (caches on the meta device, no memory) it keeps qwen2's
 bound as it was, gives xLSTM-1.3B the 10.71 GB at batch 4 that phase 10
 printed, and counts the Jamba period's one KV cache and seven Mamba
 states.
+
+Phase 12's gates (reduced HuBERT, LLaVA and Llama-3-405B; the ksplit
+function wrapped so that each call on a CPU tensor counts as a launch,
+as the kernel's wrapper counts on the card):
+
+* the encoder gate passes, and fails when the encoder attends causally;
+* the image and text-order gates pass, and fail when the patches are
+  dropped or placed after the text;
+* the per-step launch gate passes at the expected count (194 per HuBERT
+  forward, 42 per LLaVA prefill at 8 layers, 41 per its model step, 11
+  per Llama-3-405B step at 2 layers), and fails when one step launches
+  one more;
+* the kernel-against-plain gate fails on a kernel whose output is off
+  by more than twice the plain orders' gap.
 """
 import dataclasses
 import os
@@ -36,7 +50,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get, reduced
+from repro_torch.data import pipeline as DP
 from repro_torch.kernels import ksplit_gemm as K
+from repro_torch.models import common as PC
 from repro_torch.models import transformer as PT
 from repro_torch.obs import metrics as PM
 from repro_torch.tune import device as DV
@@ -202,3 +218,156 @@ def test_decode_bytes_jamba_period():
     assert parts["logits"] == 4 * 65536 * 4
     assert parts["embedding_rows"] == 4 * 4096 * 2
     assert np.isclose(parts["state"] / 4 / 2 / 7, 622592)
+
+
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def counted(monkeypatch):
+    """Each ksplit call counts as a launch (on the card the kernel's
+    wrapper counts; its plain version on the CPU does not)."""
+    plain = K.ksplit_gemm_multi
+
+    def launch(*a, **kw):
+        K.launches += 1
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(K, "ksplit_gemm_multi", launch)
+    return launch
+
+
+def _model(name, **kw):
+    cfg = dataclasses.replace(reduced(get(name)), **kw)
+    return cfg, PT.init_model(torch.Generator().manual_seed(0), cfg)
+
+
+def test_expected_launch_counts_at_the_card_depths():
+    hubert = get("hubert-xlarge")
+    llava = dataclasses.replace(get("llava-next-34b"),
+                                n_layers=CS.LLAVA_LAYERS)
+    llama = dataclasses.replace(get("llama3-405b"),
+                                n_layers=CS.LLAMA405_LAYERS)
+    assert CS.ksplit_linears(hubert, frontend=True) == 48 * 4 + 2 == 194
+    assert CS.ksplit_linears(llava, frontend=True) == 8 * 5 + 2 == 42
+    assert CS.ksplit_linears(llava, frontend=False) == 8 * 5 + 1 == 41
+    assert CS.ksplit_linears(llama, frontend=False) == 2 * 5 + 1 == 11
+
+
+def test_encoder_gate_passes_clean_run():
+    cfg, params = _model("hubert-xlarge")
+    batch = DP.make_batch(cfg, 16, 2, kind="train", device="cpu")
+    assert CS.encoder_attends_both_ways(params, cfg, batch, "rehearsal") > 0
+
+
+def test_encoder_gate_fails_causal_attention(monkeypatch):
+    cfg, params = _model("hubert-xlarge")
+    batch = DP.make_batch(cfg, 16, 2, kind="train", device="cpu")
+    orig = PC.attention_block
+
+    def causal(*a, **kw):
+        return orig(*a, **dict(kw, causal=True))
+
+    monkeypatch.setattr(PC, "attention_block", causal)
+    with pytest.raises(SystemExit, match="attends causally"):
+        CS.encoder_attends_both_ways(params, cfg, batch, "rehearsal")
+
+
+def _llava_gates(cfg, params):
+    batch = DP.make_batch(cfg, 16, 1, kind="prefill", device="cpu")
+
+    def prefill():
+        with torch.no_grad():
+            return PT.forward_prefill(params, cfg, batch)
+
+    logits, plain, plain2 = CS.three_orders(prefill)
+    gate = CS.order_gate("rehearsal", logits, plain, plain2)
+    return CS.image_and_text_order(params, cfg, batch, logits,
+                                   gate["allowance"], "rehearsal")
+
+
+def test_image_gates_pass_clean_run():
+    assert _llava_gates(*_model("llava-next-34b")) > 0
+
+
+@pytest.mark.parametrize("fault, match", [
+    ("dropped", "does not see the image"),
+    ("after", "not the prompt's last part")])
+def test_image_gates_fail_misplaced_patches(monkeypatch, fault, match):
+    cfg, params = _model("llava-next-34b")
+
+    def embed(params, cfg, batch):
+        te = PC.embed(params["embed"], batch["tokens"])
+        pe = params["frontend_proj"](
+            batch["patch_embeds"].to(torch.bfloat16)).to(torch.bfloat16)
+        x = te if fault == "dropped" else torch.cat([te, pe], dim=1)
+        B, S = x.shape[:2]
+        return x, torch.arange(S)[None].expand(B, S)
+
+    monkeypatch.setattr(PT, "_embed_inputs", embed)
+    with pytest.raises(SystemExit, match=match):
+        _llava_gates(cfg, params)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_step_launch_gate(counted, monkeypatch, extra):
+    """Reduced Llama-3-405B served in masked mode: every model step's
+    launches are read apart and must equal ksplit_linears (5 per layer,
+    the lm_head); one extra launch in one step fails the gate."""
+    from repro_torch.serve import Engine, ServeConfig
+    cfg, params = _model("llama3-405b")
+    eng = Engine(cfg, params, ServeConfig(
+        max_batch=4, max_seq=32, refill=False, prefix_cache=False,
+        chunked_prefill=False))
+    eng.warmup()
+    if extra:
+        orig, calls = PT.forward_decode, []
+
+        def one_more(*a, **kw):
+            calls.append(1)
+            if len(calls) == 3:
+                K.launches += 1
+            return orig(*a, **kw)
+
+        monkeypatch.setattr(PT, "forward_decode", one_more)
+
+    def stream():
+        return CS.family_stream(cfg.vocab, (4, 4, 8, 8), 3, 0)
+
+    want = CS.ksplit_linears(cfg, frontend=False)
+    assert want == cfg.n_layers * 5 + 1
+    if extra:
+        with pytest.raises(SystemExit, match=f"not {want} in each"):
+            CS.served_counted(eng, stream, want, "rehearsal")
+        return
+    reqs, _, launches, st, steps = CS.served_counted(eng, stream, want,
+                                                     "rehearsal")
+    assert len(steps) == st["prefill_steps"] + st["decode_steps"] > 0
+    assert launches["ksplit_gemm"] == want * len(steps)
+
+
+def test_hubert_forward_launch_count(counted):
+    """One encoder pass of reduced HuBERT launches ksplit_linears(cfg,
+    frontend=True) times: 4 per layer, frontend_proj, lm_head."""
+    from repro_torch.kernels import ops
+    cfg, params = _model("hubert-xlarge")
+    batch = DP.make_batch(cfg, 16, 2, kind="prefill", device="cpu")
+    ops.reset_launch_counts()
+    CS.all_logits(params, cfg, batch)
+    n = ops.launch_counts()["ksplit_gemm"]
+    assert n == CS.ksplit_linears(cfg, frontend=True) == 4 * 2 + 2
+    CS.check_counts("rehearsal", [n], n)
+    with pytest.raises(SystemExit):
+        CS.check_counts("rehearsal", [n + 1], n)
+
+
+def test_order_gate_fails_an_off_kernel():
+    plain = torch.linspace(-4.0, 4.0, 1000)
+    plain2 = plain + 1e-4
+    assert CS.order_gate("rehearsal", plain + 1e-4, plain, plain2)
+    off = plain.clone()
+    off[7] += 0.1            # beyond 2x the orders' gap and the bf16 floor
+    with pytest.raises(SystemExit, match="off its plain version"):
+        CS.order_gate("rehearsal", off, plain, plain2)
+
