@@ -216,6 +216,29 @@ Phases (each raises on failure, so a failing run never exits 0):
    widths (128 q heads, 16 kv) in masked mode, as phase 4: the same four
    requests equal to their reference, 11 launches in every model step,
    the batch-4 decode step beside its byte bound and the peak memory.
+13. (run after 12) training the MoE, xLSTM and Mamba-hybrid families at
+   published widths, depth the only cut (``FT_CELLS``): Qwen1.5-MoE-
+   A2.7B's first 2 layers at seq 128 x batch 4, xLSTM-1.3B's first 16
+   at 512 x 2 (the mLSTM scan crosses its 256-position chunk), Jamba-
+   v0.1's layer 0 at 256 x 2 (the selective scan crosses its 128-
+   position chunk); each prints the bytes of weights, gradients and
+   AdamW state before its run.  Gates: (a) step 0 through the ksplit
+   kernel, its per-token losses and gradients within twice the gaps of
+   two plain orders (an MoE's every run replays the kernel run's expert
+   picks); (b) every forward KSplit linear on the kernel, and each
+   step's ksplit and convert launches, read per step, equal to
+   ``step_launches``' reckoning, with no fresh resolution; (c)
+   FT_STEPS AdamW steps at 3e-4 on a repeated batch, a finite falling
+   loss; (d) for every mLSTM and Mamba layer, a loss on the last chunk
+   moves position 0's input and one on the first chunk leaves position
+   S - 1's exactly unmoved; (e) the MoE loss is the cross entropy plus
+   0.01 x aux, and every expert's gradient is nonzero exactly where it
+   kept a token (the full batch and an 8-token probe; drops counted).
+   Each prints the step's wall, its busy and idle share over 3 profiled
+   steps and the peak memory.  Then qwen2's depth on a fresh init serves
+   four requests in equal mode, two on an ``int8_pt+fp32`` variant whose
+   expert tensors are the default weights' own, each equal to
+   ``generate_reference``.
 
 Every phase's seconds are printed (``phase ...: s``) and summed up in
 the ``phase seconds`` line.  The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
@@ -1645,20 +1668,30 @@ def leaf_gaps(ga, gb) -> tuple[float, float, str]:
 def profile_step(step_fn, params, opt, batch, wall_ms: float) -> dict:
     """PROFILE_STEPS train steps under ``torch.profiler``: device busy
     time per step, its idle share of ``wall_ms`` (the median unprofiled
-    step's wall), and the top kernels."""
+    step's wall), and the top kernels.  It records the device activity
+    alone and sums the kernels' durations from the profiler's raw events:
+    the busy time is the same as with host ops recorded and read through
+    ``key_averages()`` (199.63 against 199.52 ms a qwen2 step, 480.90
+    against 480.90 an xLSTM one on one H100), and ``key_averages()``
+    alone took 66.9 s over xLSTM's 352k kernels of three steps, the raw
+    events 3.4 s."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():       # a CPU rehearsal
+        print("profile train step: no card: busy share not measured")
+        return {"wall_ms": wall_ms, "busy_ms": None}
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_STEPS):
             params, opt, _ = step_fn(params, opt, batch)
         sync()
-    rows = [(e.key, e.self_device_time_total / 1e3 / PROFILE_STEPS)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    total: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            total[e.name()] = total.get(e.name(), 0) + e.duration_ns()
+    rows = sorted(((name, ns / 1e6 / PROFILE_STEPS)
+                   for name, ns in total.items() if ns > 0),
+                  key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms in rows)
     if not busy_ms:
         print("profile train step: the profiler saw no device time: busy "
@@ -2586,17 +2619,18 @@ def _logit_gaps(a, b) -> dict:
 
 def _record_routing(log: list):
     """Wrap ``moe.route`` to log each call's expert picks [T, k], the gap
-    between the k-th and (k+1)-th probability [T] and the largest
-    probability [T]; returns the function to restore."""
+    between the k-th and (k+1)-th probability [T], the largest
+    probability [T] and the :class:`Routing` itself; returns the function
+    to restore."""
     import torch
     from repro_torch.models import moe as MOE
     orig = MOE.route
 
     def route(probs, top_k, capacity_factor, picks=None):
         r = orig(probs, top_k, capacity_factor, picks)
-        top = torch.topk(probs.float(), top_k + 1, dim=-1).values
+        top = torch.topk(probs.detach().float(), top_k + 1, dim=-1).values
         log.append((r.flat_e.reshape(-1, top_k), top[:, -2] - top[:, -1],
-                    top[:, 0]))
+                    top[:, 0], r))
         return r
 
     MOE.route = route
@@ -2729,8 +2763,8 @@ def decode_vs_bulk(cfg, params, n: int, seed: int, label: str) -> dict:
             f"2^-8 x max |logit|); plain decode allowance {allow_path:.4e} "
             f"= max(2 x bulk_order2, 2^-8 x max |logit|)")
     if moe:
-        margins = torch.cat([m for _, m, _ in recorded]).float().cpu()
-        max_p = float(torch.cat([p for _, _, p in recorded]).max())
+        margins = torch.cat([m for _, m, *_ in recorded]).float().cpu()
+        max_p = float(torch.cat([p for _, _, p, _ in recorded]).max())
         plain_max = max(flips["plain_decode"] + flips["bulk_order2"],
                         default=0.0)
         bound = max(2.0 * plain_max, 2.0 ** -8 * max_p)
@@ -3847,6 +3881,490 @@ def frontends_phase(seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training the MoE, xLSTM and Mamba-hybrid families
+# ---------------------------------------------------------------------------
+
+#: phase 13's cells, every width as published and depth the only cut:
+#: (config, layers, seq, batch).  Qwen1.5-MoE-A2.7B's first 2 of 24
+#: layers (~1.76e9 parameters, ~30 GB with gradients and AdamW state);
+#: xLSTM-1.3B's first 16 of 48, as phase 10 serves it, at S = 512 (the
+#: mLSTM bulk scan crosses its 256-position chunk); Jamba-v0.1's layer 0
+#: alone (a Mamba mixer and its d_ff 14336 MLP) at S = 256 (the selective
+#: scan crosses its 128-position chunk).  Jamba's layer 1, a 16-expert MoE,
+#: is ~2.8e9 parameters: with layers 0-1 the state comes to ~66 GB before
+#: activations, so that layer trains on the CPU only, reduced
+FT_CELLS = (("qwen2-moe-a2.7b", 2, 128, 4), ("xlstm-1.3b", 16, 512, 2),
+            ("jamba-v0.1-52b", 1, 256, 2))
+#: gate (c): AdamW steps on one repeated batch, at phase 12's learning
+#: rate
+FT_STEPS, FT_LR = 4, 3e-4
+#: the bulk scans' chunks (``mlstm_block`` and ``mamba_block``'s
+#: defaults): gate (d) runs on every layer with one of these mixers
+SCAN_CHUNK = {"mlstm": 256, "mamba": 128}
+#: gate (e)'s probe: one row of this many tokens, whose top-k picks leave
+#: most experts without a token
+EXPERT_PROBE = 8
+#: the MoE cell's requests on a fresh init after training: prompt lengths
+#: (the odd ones on the int8 variant), new tokens, the engine's max_seq
+FT_SERVE_LENS = (32, 32, 64, 64)
+FT_SERVE_NEW = 8
+FT_MAX_SEQ = 80
+#: the aux term's weight in the MoE loss (the reference's)
+AUX_WEIGHT = 0.01
+
+
+def train_state_bytes(params) -> dict:
+    """Parameters, and bytes of the weights, their gradients (each in its
+    parameter's dtype) and AdamW's fp32 state (two moments and the
+    master copy, 12 bytes a parameter)."""
+    from repro_torch import tree as TR
+    ts = TR.tensors(params)
+    w = sum(t.numel() * t.element_size() for t in ts)
+    n = sum(t.numel() for t in ts)
+    return {"params": n, "weights": w, "grads": w, "adamw": 12 * n,
+            "total": 2 * w + 12 * n}
+
+
+def step_launches(params) -> dict:
+    """One train step's reckoned launches.  ksplit: once per KSplit
+    linear (its forward; the backward is cuBLAS).  convert: once per
+    non-empty tensor stored below fp32 (AdamW re-quantizes it), and once
+    per NSplit linear with an fp32 segment (the backward rounds the
+    cotangent of its bf16 input through that segment's fp32 operand)."""
+    import torch
+    from repro_torch import tree as TR
+    from repro_torch.core.layout import KSplitWeight, NSplitWeight
+    from repro_torch.core.linear import MPLinear
+    ksplit = nsplit = 0
+
+    def visit(node):
+        nonlocal ksplit, nsplit
+        if isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, list):
+            for v in node:
+                visit(v)
+        elif isinstance(node, MPLinear):
+            if isinstance(node.w, KSplitWeight):
+                ksplit += 1
+            elif isinstance(node.w, NSplitWeight):
+                nsplit += any(b.dtype == torch.float32 and b.numel()
+                              for b in node.w.bufs)
+    visit(params)
+    low = sum(1 for t in TR.tensors(params)
+              if t.dtype != torch.float32 and t.numel())
+    return {"ksplit_gemm": ksplit, "convert": low + nsplit,
+            "convert_backward": nsplit}
+
+
+def check_step_launches(label: str, per_step: list, want: dict) -> None:
+    """Gate (b): every step's launches of each kernel, read per step,
+    equal the reckoning."""
+    for key, n in want.items():
+        got = [c[key] for c in per_step]
+        if not got or any(g != n for g in got):
+            fail(f"{label}: {key} launches per step {got}, not {n} in each")
+
+
+def expert_grads_follow_kept(cfg, recorded: list, grads, label: str
+                             ) -> dict:
+    """Gate (e): in every MoE layer, the gradient of each expert's gate,
+    up and down buffers is nonzero exactly where the routing kept a
+    token for that expert.  ``recorded``: one forward's routing calls in
+    layer order (``_record_routing``'s log).  Returns the experts with
+    and without a kept token and the dropped pairs."""
+    import torch
+    layers = [i for i, (_, ffn) in enumerate(cfg.layer_kinds())
+              if ffn == "moe"]
+    if len(recorded) != len(layers):
+        fail(f"{label}: {len(recorded)} routings for {len(layers)} MoE "
+             "layers")
+    with_tok = without = drops = 0
+    for (*_, r), i in zip(recorded, layers):
+        E = r.table.shape[0]
+        kept = torch.bincount(r.flat_e[r.keep], minlength=E) > 0
+        with_tok += int(kept.sum())
+        without += int((~kept).sum())
+        drops += int((~r.keep).sum())
+        for name in ("gate", "up", "down"):
+            w = grads["layers"][i]["moe"][name]
+            nz = torch.zeros(E, dtype=torch.bool, device=kept.device)
+            for t in (w.w_hi, w.w_lo):
+                if t.numel():
+                    nz |= t.reshape(E, -1).abs().amax(1) > 0
+            if not torch.equal(nz, kept):
+                bad = (nz != kept).nonzero().flatten().tolist()
+                fail(f"{label}: layer {i} {name}: experts {bad} have a "
+                     "gradient that does not follow their kept tokens")
+    return {"experts_with_tokens": with_tok, "experts_without": without,
+            "dropped_pairs": drops}
+
+
+def aux_in_loss(params, cfg, batch, loss, metrics, label: str) -> dict:
+    """Gate (e): the training loss minus the cross entropy of the same
+    forward without grad equals AUX_WEIGHT times the aux loss (within the
+    rounding of one fp32 addition at the loss's size), the aux is
+    positive, and ``metrics["ce"]`` is the loss (the reference reports
+    the sum under that name)."""
+    import torch
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        x, aux = T._run_layers(params, cfg, batch)
+        x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        ce = C.cross_entropy(params["lm_head"](x), batch["labels"])
+    loss, ce, aux = float(loss), float(ce), float(aux)
+    term = AUX_WEIGHT * aux
+    tol = float(np.finfo(np.float32).eps) * abs(loss)
+    print(f"{label} (e): loss {loss:.7f} - ce without aux {ce:.7f} = "
+          f"{loss - ce:.7e}; {AUX_WEIGHT} x aux {aux:.6f} = {term:.7e} "
+          f"(within {tol:.2e}); metrics ce {float(metrics['ce']):.7f}")
+    if not (aux > 0 and abs(loss - ce - term) <= tol and term > 100 * tol):
+        fail(f"{label} (e): the loss is not ce + {AUX_WEIGHT} x aux")
+    if float(metrics["ce"]) != loss or float(metrics["aux"]) != aux:
+        fail(f"{label} (e): metrics ce/aux are not the loss and its aux")
+    return {"ce": ce, "aux": aux, "loss": loss}
+
+
+def cross_chunk_gate(params, cfg, x, label: str) -> dict:
+    """Gate (d), for every layer whose mixer runs a chunked scan: with
+    ``x`` [B, S, d] (the embedding output) as the layer's input, the
+    mixer's output on the last chunk's positions alone must give a
+    nonzero gradient at position 0, and on the first chunk's an exactly
+    zero one at position S - 1.  Only the scan's carry joins positions a
+    chunk apart (the causal conv spans 3)."""
+    import torch
+    from repro_torch.models import common as C
+    from repro_torch.models import mamba as M
+    from repro_torch.models import xlstm as X
+    S = x.shape[1]
+    moved, still, n = [], [], 0
+    for i, (lp, (mixer, _)) in enumerate(zip(params["layers"],
+                                             cfg.layer_kinds())):
+        if mixer not in SCAN_CHUNK:
+            continue
+        chunk = SCAN_CHUNK[mixer]
+        if S <= chunk:
+            fail(f"{label} (d): S = {S} does not cross the {chunk}-position "
+                 "chunk")
+
+        def grad_at(sl, lp=lp, mixer=mixer):
+            xx = x.detach().clone().requires_grad_(True)
+            h = C.rms_norm(xx, lp["norm1"], cfg.norm_eps)
+            out = (X.mlstm_block(lp["mlstm"], h, n_heads=cfg.n_heads)
+                   if mixer == "mlstm" else M.mamba_block(lp["mamba"], h))
+            (g,) = torch.autograd.grad(out[:, sl].float().square().mean(),
+                                       [xx])
+            return g
+
+        first = float(grad_at(slice(S - chunk, S))[:, 0].float().abs().max())
+        last = float(grad_at(slice(0, chunk))[:, -1].float().abs().max())
+        moved.append(first)
+        still.append(last)
+        n += 1
+        if not (first > 0 and last == 0):
+            fail(f"{label} (d): layer {i} ({mixer}): the last chunk's loss "
+                 f"moves position 0 by {first:.3e} (must be > 0), the "
+                 f"first chunk's moves position {S - 1} by {last:.3e} "
+                 "(must be 0)")
+    if not n:
+        fail(f"{label} (d): no layer runs a chunked scan")
+    print(f"{label} (d): {n} scanned layers at S = {S}: the last chunk's "
+          f"loss reaches position 0 with max|g| {min(moved):.3e} at least; "
+          f"the first chunk's reaches position {S - 1} with max|g| "
+          f"{max(still):g}")
+    return {"layers": n, "min_moved": min(moved), "max_still": max(still)}
+
+
+def family_train_cell(cfg, seq: int, nb: int, seed: int = 0) -> dict:
+    """Train ``cfg`` (a config cut in depth only) on one card: gates (a) step 0 through the kernel against the plain version
+    and a second plain order (an MoE's every run replays the kernel run's
+    expert picks), (b) every forward KSplit linear on the kernel and each
+    step's ksplit and convert launches equal to the reckoning with no
+    fresh resolution, (c) FT_STEPS AdamW steps with a finite, falling
+    loss, (d) the cross-chunk gradient of the scanned mixers, (e) an
+    MoE's aux term in the loss and its experts' gradients; then the
+    step's wall time, busy and idle share and peak memory."""
+    import torch
+    from repro_torch.data import pipeline as DP
+    from repro_torch.kernels import ksplit_gemm as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.tune import dispatch
+    t_cell = time.perf_counter()
+    label = f"family train {cfg.name}"
+    moe = any(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    scanned = any(mixer in SCAN_CHUNK for mixer, _ in cfg.layer_kinds())
+    tokens = seq * nb
+    free_card()
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    sync()
+    sb = train_state_bytes(params)
+    kinds = bytes_by_kind(params)
+    want = step_launches(params)
+    print(f"{label}: {cfg.n_layers} layers d="
+          f"{cfg.d_model} vocab={cfg.vocab}, seq {seq} x batch {nb}; "
+          f"{sb['params'] / 1e9:.3f}e9 parameters: weights "
+          f"{sb['weights'] / 1e9:.3f} GB (" + ", ".join(
+              f"{k} {v / 1e9:.3f}" for k, v in kinds.items())
+          + f"), gradients {sb['grads'] / 1e9:.3f} GB, AdamW state "
+          f"{sb['adamw'] / 1e9:.3f} GB: {sb['total'] / 1e9:.3f} GB before "
+          f"activations; reckoned per step: {want}")
+    batch = DP.make_batch(cfg, seq, nb, kind="train", seed=seed,
+                          device=DEVICE)
+    dispatch.warm_registry()
+    dispatch.tune_linear_params(params, m_hint=tokens)
+    fresh0 = dispatch.fresh_resolutions()
+
+    # (a) and (b) at step 0: the kernel run, its routing recorded
+    rec: list = []
+    undo = _record_routing(rec) if moe else None
+    lin0 = dispatch.dispatch_counts("linear")
+    ops.reset_launch_counts()
+    try:
+        loss_k, m_k, g_k = loss_and_grads(params, cfg, batch)
+        sync()
+    finally:
+        if undo:
+            undo()
+    step0 = ops.launch_counts()
+    fresh_fwd = dispatch.fresh_resolutions() - fresh0
+    lin = {p: v - lin0.get(p, 0)
+           for p, v in dispatch.dispatch_counts("linear").items()}
+    out: dict = {}
+    if moe:
+        out["aux"] = aux_in_loss(params, cfg, batch, loss_k, m_k, label)
+        out["experts"] = expert_grads_follow_kept(cfg, rec, g_k,
+                                                  f"{label} (e) full batch")
+    flips: list = []
+    kernel_fn = K.ksplit_gemm_multi
+    undo = _replay_routing(rec, False, flips) if moe else None
+    try:
+        tok_k = token_losses(params, cfg, batch)
+        K.ksplit_gemm_multi = K.ksplit_gemm_plain
+        loss_p, _, g_p = loss_and_grads(params, cfg, batch)
+        tok_p = token_losses(params, cfg, batch)
+        K.ksplit_gemm_multi = ksplit_one_matmul
+        _, _, g_a = loss_and_grads(params, cfg, batch)
+        tok_a = token_losses(params, cfg, batch)
+        sync()
+    finally:
+        K.ksplit_gemm_multi = kernel_fn
+        if undo:
+            undo()
+    frob, worst, where = leaf_gaps(g_k, g_p)
+    frob_a, worst_a, _ = leaf_gaps(g_a, g_p)
+    tok_gap, tok_gap_a = rel_gap(tok_k, tok_p), rel_gap(tok_a, tok_p)
+    del g_k, g_p, g_a, tok_k, tok_p, tok_a
+    print(f"{label} (a) step 0: loss kernel {float(loss_k):.6f} plain "
+          f"{float(loss_p):.6f}; per-token losses ||d||/||l|| kernel vs "
+          f"plain {tok_gap:.2e}, two plain orders {tok_gap_a:.2e}; "
+          f"gradients worst ||d||/||g|| {frob:.2e} (orders {frob_a:.2e}), "
+          f"worst max|d|/max|g| {worst:.2e} at {where} (orders "
+          f"{worst_a:.2e}); allowance {TRAIN_ORDER_RATIO:g}x the orders"
+          + (f"; expert picks replayed from the kernel run, own picks "
+             f"differing in {len(flips)} (token, layer) decisions"
+             + (f" at top-k margins <= {max(flips):.3e}" if flips else "")
+             if moe else ""))
+    if not (np.isfinite(float(loss_k))
+            and tok_gap <= TRAIN_ORDER_RATIO * tok_gap_a
+            and frob <= TRAIN_ORDER_RATIO * frob_a):
+        fail(f"{label} (a): step 0 through the kernel is off the plain "
+             "version's")
+    print(f"{label} (b) step 0: forward KSplit linears {lin}, launches "
+          f"{step0}; fresh resolutions after setup {fresh_fwd}; gates (a) "
+          f"done at {time.perf_counter() - t_cell:.1f} s")
+    if (lin.get("ksplit_torch", 0)
+            or lin.get("ksplit_cuda", 0) != want["ksplit_gemm"]
+            or step0["ksplit_gemm"] != want["ksplit_gemm"]
+            or step0["convert"] != want["convert_backward"] or fresh_fwd):
+        fail(f"{label} (b): step 0 off its reckoning {want}")
+
+    if moe:
+        probe = {k: v[:1, :EXPERT_PROBE] for k, v in batch.items()}
+        probe_rec: list = []
+        undo = _record_routing(probe_rec)
+        try:
+            _, _, g = loss_and_grads(params, cfg, probe)
+        finally:
+            undo()
+        out["probe"] = expert_grads_follow_kept(cfg, probe_rec, g,
+                                                f"{label} (e) probe")
+        del g
+        print(f"{label} (e): full batch {out['experts']}; probe of "
+              f"{EXPERT_PROBE} tokens {out['probe']}: every expert's "
+              "gradient nonzero exactly where it kept a token")
+    if scanned:
+        x0, _ = T._embed_inputs(params, cfg, batch)
+        out["cross_chunk"] = cross_chunk_gate(params, cfg, x0, label)
+        del x0
+
+    # (b) and (c): AdamW steps on the repeated batch, launches per step
+    ocfg = adamw.AdamWConfig(lr_peak=FT_LR, warmup_steps=1,
+                             total_steps=FT_STEPS)
+    opt = adamw.init(params, ocfg)
+    step_fn = make_train_step(cfg, ocfg, 1, tune_params=params,
+                              tune_tokens=tokens)
+    fresh0 = dispatch.fresh_resolutions()
+    losses, step_ms, per_step = [], [], []
+    ops.reset_launch_counts()
+    seen = ops.launch_counts()
+    for _ in range(FT_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))        # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        now = ops.launch_counts()
+        per_step.append({k: now[k] - seen[k] for k in now})
+        seen = now
+    fresh = dispatch.fresh_resolutions() - fresh0
+    steady = float(np.median(step_ms[1:]))
+    t_prof = time.perf_counter()
+    prof = profile_step(step_fn, params, opt, batch, steady)
+    prof_s = time.perf_counter() - t_prof
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if DEVICE != "cpu"
+               else 0.0)
+    idle = (f"{1 - prof['busy_ms'] / steady:.1%}" if prof["busy_ms"]
+            else "not measured")
+    print(f"{label} (c) ({smi_line()}): losses "
+          f"{[round(v, 4) for v in losses]}; step wall ms "
+          f"{[round(v, 1) for v in step_ms]}, median of steps 1-"
+          f"{FT_STEPS - 1} {steady:.1f} ms = {tokens / steady * 1e3:.1f} "
+          f"tokens/s, idle share {idle}; ksplit launches per step "
+          f"{[c['ksplit_gemm'] for c in per_step]}, convert "
+          f"{[c['convert'] for c in per_step]}; fresh resolutions {fresh}; "
+          f"peak memory {peak_gb:.2f} GB; the {PROFILE_STEPS} profiled "
+          f"steps took {prof_s:.1f} s")
+    check_step_launches(f"{label} (b)", per_step,
+                        {k: want[k] for k in ("ksplit_gemm", "convert")})
+    if fresh:
+        fail(f"{label} (b): {fresh} fresh plan resolutions in the steps")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{label} (c): losses {losses} are not finite and falling")
+    del params, opt, step_fn, batch
+    free_card()
+    cell_s = time.perf_counter() - t_cell
+    print(f"{label}: {cell_s:.1f} s")
+    return {"launches": step0["ksplit_gemm"] + sum(
+                c["ksplit_gemm"] for c in per_step),
+            "convert_launches": step0["convert"] + sum(
+                c["convert"] for c in per_step),
+            "per_step": want, "step_ms": steady,
+            "tokens_per_s": tokens / steady * 1e3, "losses": losses,
+            "peak_gb": peak_gb, "state_gb": sb["total"] / 1e9,
+            "step0": {"tok_gap": tok_gap, "tok_gap_orders": tok_gap_a,
+                      "frob": frob, "frob_orders": frob_a,
+                      "flips": len(flips)},
+            "cell_s": cell_s, **out, **prof}
+
+
+def moe_variant_serve(cfg, seed: int = 0) -> dict:
+    """Qwen1.5-MoE-A2.7B (``cfg``'s depth) on a fresh init: an
+    ``int8_pt+fp32`` variant from ``quantize_params`` whose expert
+    tensors are the default weights' own (same ``data_ptr``), and
+    FT_SERVE_LENS requests through one equal-mode engine, the odd ones on
+    the variant; each must equal ``generate_reference``."""
+    import torch
+    from repro_torch.core.formats import FormatSet, format_set
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import ActStats, quantize_params
+    from repro_torch.serve import Engine, Request, ServeConfig
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, L).astype(np.int64)
+               for L in FT_SERVE_LENS]
+    stats = ActStats()
+    for p in prompts:
+        stats.observe(params["embed"][torch.from_numpy(p).to(DEVICE)])
+    fs = FormatSet.from_key(cfg.mp_formats)
+    qset = format_set("int8_pt", fs.names[fs.high])
+    tag = qset.key()
+    qparams = quantize_params(params, stats, fset=qset,
+                              ratio_high=QUANT_RATIO)
+    shared = all(
+        getattr(q["moe"][n], t).data_ptr() == getattr(d["moe"][n],
+                                                      t).data_ptr()
+        for q, d in zip(qparams["layers"], params["layers"])
+        for n in ("gate", "up", "down") for t in ("w_hi", "w_lo"))
+    eng = Engine(cfg, params, ServeConfig(max_batch=4, max_seq=FT_MAX_SEQ),
+                 variants={tag: qparams})
+    if eng.mode != "equal":
+        fail(f"family serve {tag}: engine mode {eng.mode!r}, not equal")
+    eng.warmup()
+
+    def reqs():
+        return [Request(p, max_new_tokens=FT_SERVE_NEW,
+                        fset=("default", tag)[i % 2])
+                for i, p in enumerate(prompts)]
+
+    before = linear_counts_by_formats()
+    ops.reset_launch_counts()
+    got = eng.generate(reqs())
+    sync()
+    launches = ops.launch_counts()
+    by_fmt = {f: {p: v - before.get(f, {}).get(p, 0) for p, v in c.items()
+                  if v - before.get(f, {}).get(p, 0)}
+              for f, c in linear_counts_by_formats().items()}
+    st = eng.stats()
+    refs = eng.generate_reference(reqs())
+    bad = [i for i, (r, f) in enumerate(zip(got, refs))
+           if not r.done or r.out_tokens != f.out_tokens
+           or len(r.out_tokens) != FT_SERVE_NEW]
+    buckets = {r.bucket.split("/", 1)[1] for r in got}
+    fresh = st["plans"]["post_warmup_fresh_resolutions"]
+    print(f"family serve {cfg.name} ({cfg.n_layers} layers): variant {tag} "
+          f"shares every expert tensor with the default weights: {shared}; "
+          f"{len(got)} requests (prompts {list(FT_SERVE_LENS)}, "
+          f"{FT_SERVE_NEW} new, odd ones on {tag}) == unbatched reference "
+          f"for {len(got) - len(bad)}; buckets {sorted(buckets)}; linear "
+          f"dispatch by formats {by_fmt}; launches {launches}; dropped "
+          f"pairs per microbatch {st['moe']['dropped_per_microbatch']}; "
+          f"fresh resolutions {fresh}; {time.perf_counter() - t0:.1f} s")
+    if not shared:
+        fail(f"family serve {tag}: the variant copied expert tensors")
+    if bad:
+        fail(f"family serve {tag}: requests {bad} differ from their "
+             "reference")
+    if buckets != {"default", tag} or fresh:
+        fail(f"family serve {tag}: buckets {buckets}, fresh {fresh}")
+    if by_fmt.get(cfg.mp_formats, {}).get("ksplit_torch", 0) \
+            or launches["ksplit_gemm"] < 1:
+        fail(f"family serve {tag}: default-weight linears off the kernel")
+    del eng, params, qparams
+    free_card()
+    return {"launches": launches["ksplit_gemm"], "requests": len(got)}
+
+
+def family_train_phase(seed: int = 0) -> dict:
+    """Phase 13: the three FT_CELLS trained on one card, then the MoE
+    cell's depth served with its int8 variant."""
+    from repro_torch.configs import get
+    t_phase = time.perf_counter()
+    out = {name: family_train_cell(
+        dataclasses.replace(get(name), n_layers=layers), seq, nb, seed)
+        for name, layers, seq, nb in FT_CELLS}
+    name, layers = FT_CELLS[0][:2]
+    out["serve"] = moe_variant_serve(
+        dataclasses.replace(get(name), n_layers=layers), seed)
+    out["launches"] = sum(v["launches"] for v in out.values())
+    out["convert_launches"] = sum(v.get("convert_launches", 0)
+                                  for v in out.values()
+                                  if isinstance(v, dict))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"family train: phase {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: SUMMA on one card
 # ---------------------------------------------------------------------------
 
@@ -4309,6 +4827,7 @@ def main() -> None:
                dataclasses.replace(get("jamba-v0.1-52b"),
                                    n_layers=JAMBA_LAYERS))
     sf12 = run("12 frontends", frontends_phase)
+    sf13 = run("13 family train", family_train_phase)
     sol = run("5 solve", solve_phase)
     run("5 parity", parity_phase)
     tr = run("7 train", train_phase, cfg)
@@ -4331,7 +4850,7 @@ def main() -> None:
                       + tr["launches"] + sm9["launches"]
                       + sm9["launches16"] + sw9["launches"]
                       + sx10["launches"] + sj11["launches"]
-                      + sf12["launches"]),
+                      + sf12["launches"] + sf13["launches"]),
          "launches_by_phase": {"serve": sv["launches"],
                                "serve_state": ss["launches"],
                                "serve_quant": sq["launches"],
@@ -4341,7 +4860,8 @@ def main() -> None:
                                "serve_gemma3": sw9["launches"],
                                "serve_xlstm": sx10["launches"],
                                "serve_jamba_period": sj11["launches"],
-                               "serve_frontends": sf12["launches"]},
+                               "serve_frontends": sf12["launches"],
+                               "family_train": sf13["launches"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")},
@@ -4397,7 +4917,8 @@ def main() -> None:
          "launches": (sum(v["convert_launches"] + v["class_launches"]
                           for v in sol.values())
                       + sq["convert_launches"] + tr["convert_launches"]
-                      + sf12["convert_launches"]),
+                      + sf12["convert_launches"]
+                      + sf13["convert_launches"]),
          "launches_by_form": {
              "convert": sum(v["convert_launches"] for v in sol.values()),
              "convert_by_class": sum(v["class_launches"]
@@ -4407,7 +4928,8 @@ def main() -> None:
                           for v in sol.values()),
              "serve_quant": sq["convert_launches"],
              "train": tr["convert_launches"],
-             "serve_frontends": sf12["convert_launches"]},
+             "serve_frontends": sf12["convert_launches"],
+             "family_train": sf13["convert_launches"]},
          "max_abs_err": max(cv_err.values()), **cv},
     ]
     train_row = next(r for r in ks_rows
@@ -4445,6 +4967,10 @@ def main() -> None:
           f"llama405 decode step {ll['wall_ms']:.2f} ms (byte bound "
           f"{ll['bound_ms']:.2f} ms), {ll['tokens_per_s']:.2f} tokens/s, "
           f"peak {ll['peak_gb']:.2f} GB (phase 12 {sf12['phase_s']:.1f} s); "
+          + "; ".join(
+              f"{name} train step {sf13[name]['step_ms']:.1f} ms, peak "
+              f"{sf13[name]['peak_gb']:.2f} GB" for name, *_ in FT_CELLS)
+          + f" (phase 13 {sf13['phase_s']:.1f} s); "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(f"phase seconds: {json.dumps(secs)}")
     print(json.dumps({"kernels": kernels}))

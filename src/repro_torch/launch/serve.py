@@ -27,7 +27,10 @@ after the stream drains.
 
 ``--ckpt DIR`` serves the params of a training checkpoint (written by
 either package); ``--quantize SPEC`` serves every request through an
-activation-aware quantized variant (``repro_torch.quant``).  Options of
+activation-aware quantized variant (``repro_torch.quant``).  On an MoE
+config the variant calibrates the KSplit linears (attention, the shared
+expert, the lm_head) and shares the expert weights with the default
+tree, as the reference's does; it serves in equal mode.  Options of
 the reference launcher that the port cannot serve yet exit non-zero,
 naming the ``ROADMAP.md`` queue-1 item that ports them.  Exit
 status is also non-zero if any request was rejected at admission.
@@ -41,10 +44,6 @@ UNPORTED = {
                 "(ROADMAP.md queue 1, item 9)",
     "trace": "--trace needs obs tracing (ROADMAP.md queue 1, item 8)",
 }
-#: --quantize on an MoE config: calibrating the expert weights is not
-#: ported
-MOE_QUANTIZE = ("--quantize on an MoE config: calibrating the expert "
-                "weights waits in ROADMAP.md queue 1, item 7")
 
 
 def _parse(argv=None):
@@ -125,8 +124,6 @@ def main(argv=None) -> int:
     from repro_torch.serve import Engine, Request, ServeConfig
 
     cfg = get(args.arch)
-    if args.quantize and cfg.n_experts:
-        raise SystemExit(f"not ported yet: {MOE_QUANTIZE}")
     if args.smoke:
         cfg = reduced(cfg, tp=2)
     if args.formats:

@@ -5,12 +5,18 @@
 
 The first trains InternLM2-1.8B at full width on the card (``--device
 cuda``, the default); the second its reduced twin with the kernels'
-plain versions on the CPU.  ``--arch`` takes the dense configs, among
-them ``hubert-xlarge`` (audio frames in, the encoder's one entry point:
-the serve launcher refuses it) and ``llava-next-34b`` (patch embeddings
-ahead of the text, the loss on the text); the pipeline draws each
-config's batch dict as the reference does.  MoE, xLSTM and Mamba
-training raise (``ROADMAP.md`` queue 1, item 7).
+plain versions on the CPU.  ``--arch`` takes every registered config:
+the dense ones, among them ``hubert-xlarge`` (audio frames in, the
+encoder's one entry point: the serve launcher refuses it) and
+``llava-next-34b`` (patch embeddings ahead of the text, the loss on the
+text), the MoE configs ``qwen2-moe-a2.7b`` and ``phi3.5-moe-42b-a6.6b``
+(loss ``ce + 0.01·aux``), ``xlstm-1.3b`` and ``jamba-v0.1-52b``; the
+pipeline draws each config's batch dict as the reference does.  With
+AdamW state at full depth the MoE configs and Jamba do not fit one
+card's 80 GB (Qwen1.5-MoE-A2.7B alone holds 14.3e9 parameters): they
+train reduced (``--smoke``), since the launcher has no depth option, as
+the reference's has none; ``chip_smoke.py`` phase 13 trains their first
+layers at published widths.
 
 ``--inject-fault S`` raises a ``RestartSignal`` at step S, so the run
 restores its newest checkpoint and replays from there; ``--resume`` starts from the newest checkpoint

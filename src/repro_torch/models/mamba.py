@@ -9,7 +9,10 @@ associative scan is ``lax.associative_scan``'s odd/even recursion with
 the reference's ``combine``: the same tree of products and sums, in
 log2(chunk) levels of whole-tensor ops, so a chunk rounds as the
 reference's does.  Decode is the same function at ``chunk=1`` (as in the
-reference); there the state is updated in place.
+reference); there the state is updated in place.  Training runs the bulk
+scan under autograd as written: the interleaving slice writes record
+their backward, and every recursion level l keeps its [B, chunk/2^l,
+d_in, d_state] operands for it, for each chunk of the sequence.
 
 Projections are :class:`~repro_torch.core.linear.MPLinear`: ``in_proj``
 K-split (the ksplit kernel on the card), ``out_proj`` N-split (a library

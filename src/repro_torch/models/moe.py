@@ -22,6 +22,13 @@ go to the lower expert index, as ``jax.lax.top_k``), and the combine sums
 each token's kept contributions in ascending expert order (the order of
 the reference's scatter-add), never through atomics.
 
+Training: ``moe_block(return_aux=True)`` runs under autograd.  The
+router's gradient comes through the gates written into ``gate_table``
+(index writes that autograd carries; a dropped pick writes the cut-off
+column and gets none) and through ``load_balance_aux``'s mean router
+probability; the expert buffers' through the gathered rows, so an
+expert without a kept token gets an exact zero, as in the reference.
+
 ``moe_block_sharded`` (the mesh path) comes with data-parallel ranks
 (``ROADMAP.md`` queue 1, item 6b).
 """

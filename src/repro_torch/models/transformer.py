@@ -249,25 +249,14 @@ def forward_train(params, cfg: ArchConfig, batch: dict):
     """Training forward: ``batch`` (the pipeline's dict: ``tokens``,
     ``frames`` or ``patch_embeds`` and ``tokens``, and ``labels``) →
     (loss, metrics).  A vision config's loss covers the text positions
-    (the last ``labels.shape[1]``).  No remat: the reference's ``jax.checkpoint`` saves memory
+    (the last ``labels.shape[1]``).  An MoE config's loss adds 0.01 times
+    the layers' summed load-balance aux, and ``metrics["ce"]`` is that
+    sum, as the reference reports it.  No remat: the reference's ``jax.checkpoint`` saves memory
     and changes no number.  Past the local window the local layers attend
     to the last w keys, as the reference's decode does; the reference's
     bulk band admits up to 2w - 1 (``ROADMAP.md`` queue 3, F8: decided
     for the decode's band)."""
     check_family(cfg)
-    if cfg.block_type == "mamba_hybrid":
-        raise NotImplementedError(
-            "Mamba-hybrid training (the selective scan's backward, and the "
-            "MoE layers' training) is not ported: the family serves only; "
-            "ROADMAP.md queue 1, item 7")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE training (the load-balance aux loss in the loss and the "
-            "experts' backward) is not ported: ROADMAP.md queue 1, item 7")
-    if cfg.block_type == "xlstm":
-        raise NotImplementedError(
-            "xLSTM training (the scans' backward) is not ported: the "
-            "family serves only; ROADMAP.md queue 1, item 7")
     x, aux = _run_layers(params, cfg, batch)
     x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = params["lm_head"](x)
@@ -275,6 +264,8 @@ def forward_train(params, cfg: ArchConfig, batch: dict):
     if cfg.frontend == "vision":
         logits = logits[:, -labels.shape[1]:]
     loss = C.cross_entropy(logits, labels)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
     return loss, {"ce": loss, "aux": aux}
 
 

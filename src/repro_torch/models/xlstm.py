@@ -4,10 +4,13 @@ mLSTM: the matrix-memory cell with exponential gating, run as the
 reference runs it: chunked, log-space stabilised, quadratic inside a
 chunk and recurrent across chunks through the state C [B, nh, dh, dh].
 Decode is the same function at ``chunk=1`` (as in the reference), so a
-cached step and a bulk chunk differ only in summation order.
+cached step and a bulk chunk differ only in summation order.  Training
+runs the bulk scan under autograd; the carry C is then a new tensor each
+chunk (the decode step alone updates it in place).
 
 sLSTM: the scalar-memory cell with a block-diagonal recurrence, a
-sequential loop over time, then a gelu FFN.
+sequential loop over time (out of place, so autograd trains through it),
+then a gelu FFN.
 
 Projections are :class:`~repro_torch.core.linear.MPLinear`: ``up_proj``
 and ``ff_up`` K-split (the ksplit kernel on the card), ``down_proj`` and
@@ -98,9 +101,11 @@ def _mlstm_chunk(q, k, v, li, lf, state, *, chunk: int):
     q/k/v: [B, S, nh, dh]; li/lf: [B, S, nh] (log input/forget gates);
     state: (C [B, nh, dh, dh], n [B, nh, dh], m [B, nh]).  Returns
     (h [B, S, nh, dh], state').  ``chunk`` becomes ``min(chunk, S)`` and
-    must then divide S, as in the reference.  The carry's C is updated in
-    place (a decode step writes its cache's C without a copy); n and m
-    are new tensors.
+    must then divide S, as in the reference.  Where no graph is recorded
+    the carry's C is updated in place (a decode step writes its cache's C
+    without a copy); under autograd it is a new tensor each chunk, since
+    the chunk's ``h_inter`` product saved the old one.  n and m are new
+    tensors.
     """
     B, S, nh, dh = q.shape
     chunk = min(chunk, S)
@@ -148,7 +153,11 @@ def _mlstm_chunk(q, k, v, li, lf, state, *, chunk: int):
                           - m_next[..., None])        # [B, nh, s]
         # Σ_s k_s ⊗ (v_s · w_s): the reference's einsum scales v first
         upd = fp32_matmul(kb.transpose(-1, -2), vb * w_new[..., None])
-        C = C.mul_(w_keep[..., None, None]).add_(upd)
+        if upd.requires_grad or C.requires_grad:
+            # autograd saved C for h_inter's backward: a new tensor
+            C = C * w_keep[..., None, None] + upd
+        else:
+            C = C.mul_(w_keep[..., None, None]).add_(upd)
         n = n * w_keep[..., None] + fp32_matmul(w_new[..., None, :],
                                                 kb)[..., 0, :]
         m = m_next

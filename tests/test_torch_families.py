@@ -214,14 +214,6 @@ def test_window_refuses_per_row_masks():
                           caches, pos, slot=pos, kv_valid=valid)
 
 
-def test_moe_training_not_ported():
-    cfg = reduced(get("qwen2-moe-a2.7b"))
-    params = PT.init_model(torch.Generator().manual_seed(0), cfg)
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        PT.forward_train(params, cfg, {"tokens": toks, "labels": toks})
-
-
 def test_windowed_training_past_window_matches_reference_decode():
     """F8, decided for the decode's band: past the window the port trains
     on the w-key band the reference's own decode computes.  At S = 3w its

@@ -296,12 +296,3 @@ def test_decode_consistent_with_prefill():
     np.testing.assert_allclose(logits.numpy(), bulk.numpy(), rtol=0.1,
                                atol=0.15)
 
-
-def test_training_not_ported():
-    """The twin of ``test_train_step_smoke`` waits for MoE training: the
-    hybrid's ``forward_train`` names the Mamba scan's backward."""
-    cfg, params = _own()
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match="selective scan's backward.*queue 1, item 7"):
-        PT.forward_train(params, cfg, {"tokens": toks, "labels": toks})

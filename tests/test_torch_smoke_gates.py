@@ -371,3 +371,175 @@ def test_order_gate_fails_an_off_kernel():
     with pytest.raises(SystemExit, match="off its plain version"):
         CS.order_gate("rehearsal", off, plain, plain2)
 
+
+
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def counted_convert(monkeypatch):
+    """Each non-empty storage cast counts as a convert launch (on the card
+    the kernel's wrapper counts; its plain version on the CPU does not)."""
+    from repro_torch.kernels import convert as CV
+    plain = CV.convert
+
+    def launch(x, dtype):
+        if x.numel():
+            CV.launches += 1
+        return plain(x, dtype)
+
+    monkeypatch.setattr(CV, "convert", launch)
+
+
+def test_phase13_launch_reckoning_matches_a_step(counted, counted_convert):
+    """``step_launches`` reckons what one step of each family launches
+    (ksplit once per KSplit linear, convert once per tensor below fp32
+    and per NSplit linear with an fp32 segment); the per-step gate passes
+    on the counts read, and fails with one launch more in one step."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    for name, want in (("qwen2-moe-a2.7b", (11, 26)),
+                       ("xlstm-1.3b", (9, 48)),
+                       ("jamba-v0.1-52b", (19, 63))):
+        cfg, params = _model(name)
+        got = CS.step_launches(params)
+        assert (got["ksplit_gemm"], got["convert"]) == want, name
+        ocfg = adamw.AdamWConfig(warmup_steps=0, total_steps=10)
+        opt = adamw.init(params, ocfg)
+        step = make_train_step(cfg, ocfg, 1)
+        batch = DP.make_batch(cfg, 16, 2, kind="train", device="cpu")
+        per_step = []
+        for _ in range(2):
+            ops.reset_launch_counts()
+            params, opt, _ = step(params, opt, batch)
+            per_step.append(ops.launch_counts())
+        keys = {k: got[k] for k in ("ksplit_gemm", "convert")}
+        CS.check_step_launches("rehearsal", per_step, keys)
+        per_step[1] = dict(per_step[1], convert=per_step[1]["convert"] + 1)
+        with pytest.raises(SystemExit, match="convert launches per step"):
+            CS.check_step_launches("rehearsal", per_step, keys)
+
+
+def _scanned(name, S):
+    cfg, params = _model(name)
+    batch = DP.make_batch(cfg, S, 2, kind="train", device="cpu")
+    x, _ = PT._embed_inputs(params, cfg, batch)
+    return cfg, params, x
+
+
+@pytest.mark.parametrize("name, S", [("xlstm-1.3b", 512),
+                                     ("jamba-v0.1-52b", 256)])
+def test_cross_chunk_gate_passes_clean_run(name, S):
+    cfg, params, x = _scanned(name, S)
+    out = CS.cross_chunk_gate(params, cfg, x, "rehearsal")
+    assert out["layers"] == sum(m in CS.SCAN_CHUNK
+                                for m, _ in cfg.layer_kinds())
+    assert out["min_moved"] > 0 and out["max_still"] == 0
+
+
+@pytest.mark.parametrize("name, S, fn", [("xlstm-1.3b", 512, "_mlstm_chunk"),
+                                         ("jamba-v0.1-52b", 256,
+                                          "_ssm_chunked")])
+def test_cross_chunk_gate_fails_detached_carry(monkeypatch, name, S, fn):
+    """The scan run chunk by chunk with its carry detached between
+    chunks: the last chunk's loss no longer reaches position 0."""
+    from repro_torch.models import mamba as PMB
+    from repro_torch.models import xlstm as PX
+    mod = PX if fn == "_mlstm_chunk" else PMB
+    orig = getattr(mod, fn)
+
+    def detached(*args, chunk):
+        S = args[0].shape[1]
+        c = min(chunk, S)
+        seq, state = args[:-1], args[-1]
+        if fn == "_ssm_chunked":       # (u, dt, B, C | A, D), h0
+            seq, fixed = args[:4], args[4:6]
+        outs = []
+        for i in range(0, S, c):
+            part = [t[:, i:i + c] for t in seq]
+            if fn == "_ssm_chunked":
+                y, state = orig(*part, *fixed, state, chunk=c)
+                state = state.detach()
+            else:
+                y, state = orig(*part, state, chunk=c)
+                state = tuple(t.detach() for t in state)
+            outs.append(y)
+        return torch.cat(outs, dim=1), state
+
+    monkeypatch.setattr(mod, fn, detached)
+    cfg, params, x = _scanned(name, S)
+    with pytest.raises(SystemExit, match="moves position 0"):
+        CS.cross_chunk_gate(params, cfg, x, "rehearsal")
+
+
+def _moe_step0(monkeypatch=None):
+    from repro_torch.train.train_step import loss_and_grads
+    cfg, params = _model("qwen2-moe-a2.7b")
+    batch = DP.make_batch(cfg, 16, 2, kind="train", device="cpu")
+    caught = []
+    undo = CS._record_routing(caught)
+    try:
+        loss, metrics, grads = loss_and_grads(params, cfg, batch)
+    finally:
+        undo()
+    return cfg, params, batch, loss, metrics, grads, caught
+
+
+def test_aux_gate_passes_clean_run():
+    cfg, params, batch, loss, metrics, _, _ = _moe_step0()
+    out = CS.aux_in_loss(params, cfg, batch, loss, metrics, "rehearsal")
+    assert out["aux"] > 0
+
+
+def test_aux_gate_fails_when_the_aux_term_is_dropped(monkeypatch):
+    orig = PT.forward_train
+
+    def no_aux(params, cfg, batch):
+        loss, m = orig(params, cfg, batch)
+        loss = loss - CS.AUX_WEIGHT * m["aux"]
+        return loss, dict(m, ce=loss)
+
+    monkeypatch.setattr(PT, "forward_train", no_aux)
+    cfg, params, batch, loss, metrics, _, _ = _moe_step0()
+    with pytest.raises(SystemExit, match="not ce \\+ 0.01 x aux"):
+        CS.aux_in_loss(params, cfg, batch, loss, metrics, "rehearsal")
+
+
+def _probe(cfg, params, batch):
+    from repro_torch.train.train_step import loss_and_grads
+    probe = {k: v[:1, :CS.EXPERT_PROBE] for k, v in batch.items()}
+    caught = []
+    undo = CS._record_routing(caught)
+    try:
+        _, _, grads = loss_and_grads(params, cfg, probe)
+    finally:
+        undo()
+    return CS.expert_grads_follow_kept(cfg, caught, grads, "rehearsal")
+
+
+def test_expert_gradient_gate_passes_clean_run():
+    cfg, params, batch, _, _, grads, caught = _moe_step0()
+    full = CS.expert_grads_follow_kept(cfg, caught, grads, "rehearsal")
+    assert full["experts_with_tokens"] > 0
+    probe = _probe(cfg, params, batch)
+    assert probe["experts_without"] > 0
+
+
+def test_expert_gradient_gate_fails_wrong_expert_gathered(monkeypatch):
+    """The dispatch table's rows rolled by one expert: each expert
+    computes on its neighbour's tokens, so the experts whose gradient is
+    nonzero are not the ones that kept a token."""
+    import dataclasses as dc
+    from repro_torch.models import moe as PMOE
+    orig = PMOE.route
+
+    def wrong(*a, **kw):
+        r = orig(*a, **kw)
+        return dc.replace(r, table=torch.roll(r.table, 1, dims=0))
+
+    monkeypatch.setattr(PMOE, "route", wrong)
+    cfg, params, batch, *_ = _moe_step0()
+    with pytest.raises(SystemExit, match="does not follow their kept"):
+        _probe(cfg, params, batch)

@@ -278,14 +278,6 @@ def test_decode_steps():
         tok = logits.argmax(-1)
 
 
-def test_training_not_ported():
-    cfg = reduced(get(ARCH))
-    params = PT.init_model(torch.Generator().manual_seed(0), cfg)
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        PT.forward_train(params, cfg, {"tokens": toks, "labels": toks})
-
-
 def test_port_tree_has_reference_leaves():
     """The bridged tree and a port-initialised one have the reference's
     leaf paths, order and shapes (``repro_torch.tree.walk``)."""
