@@ -58,7 +58,9 @@ Phases (each raises on failure, so a failing run never exits 0):
    It prints the stream's tokens/s, the page and chunk counters, the host
    ms of copying a 16-page chain into a cache row, and (no gate) whether
    a row's logits are bit-equal at m = 1 and m = 4;
-4c. quantized weight variants at full width: ``quantize_params`` with
+4c. quantized weight variants at full width, 8 of InternLM2's 24 layers
+   (QUANT_LAYERS: the depth is cut to keep the run inside its time
+   limit; no gate depends on it): ``quantize_params`` with
    activation statistics from phase 4's prompts' embeddings (int8_pt in
    the LOW role beside the set's HIGH fp32, a quarter of the K-blocks kept
    HIGH), and a mixed stream of default and int8 requests through one
@@ -154,11 +156,11 @@ Phases (each raises on failure, so a failing run never exits 0):
    beside its byte bound, the idle share of profiled steps, the expert
    products' and the ksplit kernel's device time, the bf16 upcast's time,
    the ksplit launches read per step and the peak memory. Gemma-3-4B at
-   full width, 12 of its 34 layers (two periods of 5 local layers and 1
+   full width, 6 of its 34 layers (one period of 5 local layers and 1
    global, window 1024): two 64-token and two
-   32-token requests equal to ``generate_reference``; then its first
-   pattern period (6 layers) decoded through 2048 positions, past the
-   window, against the bulk forward under rule (c).
+   32-token requests equal to ``generate_reference``; then that pattern
+   period decoded through 2048 positions, past the window, against the
+   bulk forward under rule (c).
 10. (run after 9) the xLSTM family through the engine's equal mode:
    xLSTM-1.3B at full width, 16 of its 48 layers (14 mLSTM and 2 sLSTM,
    d 2048, 4 heads, vocab 50304; random weights from a seeded generator;
@@ -239,6 +241,34 @@ Phases (each raises on failure, so a failing run never exits 0):
    four requests in equal mode, two on an ``int8_pt+fp32`` variant whose
    expert tensors are the default weights' own, each equal to
    ``generate_reference``.
+
+14. (run after 8) the replica cluster, tracing and the measured
+   autotuner: (a) InternLM2-1.8B at published widths, STATE_LAYERS deep,
+   the serve defaults, phase 4's eight prompt lengths (four of them
+   sampled), 16 new tokens, served by ``Cluster(ServeConfig(replicas=2))``
+   (two engines sharing one parameter tree, each draining on its own
+   thread) and by one ``Engine``: every request's tokens equal bit for
+   bit, both replicas healthy and serving, none rejected, no fresh
+   resolution after warmup, every KSplit linear on the kernel; the
+   placement and both runs' tokens/s printed; (b) the same cluster run
+   traced (``repro_torch.configure(obs_trace=...)``): the same tokens,
+   the JSONL clean under ``repro_torch.obs.hygiene`` with at least
+   MIN_SPAN_TYPES span names, its Chrome export parsing back, and
+   ``serve.route`` naming both replicas; each span's count and host ms,
+   and the traced wall beside the untraced; (c) phase 5's operator at n
+   = TRACE_SOLVE_N solved untraced and traced (equal sweeps, promotions
+   and forward error; the trace holds solve.run, solve.factor,
+   solve.sweep and solve.escalate), and a SUMMA GEMM traced on a 1x1 grid
+   (one summa.gemm span, one summa.panel per k-panel); (d) the measured
+   search, in a child process with a cache file of its own (so its plans
+   never reach this process's registry): ``tune_linear_params(measure=True)``
+   at m = 4 on (a)'s weights (the same seed) and ``autotune`` on AUTOTUNE_CASES (the ref,
+   tile, grouped and split paths timed on the card): every winner
+   measured, the cache clean under ``repro_torch.tune.hygiene``, then
+   cache-only mode resolving the same plans from the file with no
+   measurement (a spy on ``measure``); one row per candidate (path,
+   measured and predicted µs); (e) ``launch.serve --smoke --replicas 2 --trace`` and
+   ``launch.solve --trace`` as subprocesses: exit 0, clean traces.
 
 Every phase's seconds are printed (``phase ...: s``) and summed up in
 the ``phase seconds`` line.  The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
@@ -1350,6 +1380,11 @@ QUANT_RATIO = 0.25
 #: the rows of results/bench_baseline/BENCH_quant.json (operator edge,
 #: tile) and the file itself
 QUANT_N, QUANT_TILE = 64, 16
+#: phase 4c's depth: 8 of InternLM2-1.8B's 24 layers (every width as
+#: published).  At 24 it took 59-80 s, three quarters of it in its three
+#: serving runs; the cut keeps the whole script inside its time limit on
+#: a slow host, and no gate depends on depth
+QUANT_LAYERS = 8
 QUANT_BASELINE = os.path.join(HERE, "results", "bench_baseline",
                               "BENCH_quant.json")
 
@@ -2509,10 +2544,11 @@ def host_clock_ms(fn, iters: int = 10) -> float:
 #: the depths phases 9 and 10 serve at (every width as published): the
 #: whole script must finish well inside its time limit on a slow host
 #: (at full depths it took 1161 s on one H100 machine), and no gate
-#: depends on depth. Qwen1.5-MoE-A2.7B: 8 of 24 layers; Gemma-3-4B: 12 of 34 (two
-#: periods of 5 local layers and 1 global); xLSTM-1.3B: 16 of 48 (two
-#: periods of 1 sLSTM and 7 mLSTM layers)
-MOE_LAYERS, GEMMA_LAYERS, XLSTM_LAYERS = 8, 12, 16
+#: depends on depth. Qwen1.5-MoE-A2.7B: 8 of 24 layers; Gemma-3-4B: 6 of 34
+#: (one period of 5 local layers and 1 global; 12 until the script passed
+#: 900 s on a slow host); xLSTM-1.3B: 16 of 48 (two periods of 1 sLSTM and
+#: 7 mLSTM layers)
+MOE_LAYERS, GEMMA_LAYERS, XLSTM_LAYERS = 8, 6, 16
 #: phase 9's qwen2 stream: four 32-token and four 64-token prompts, 12 new
 #: tokens each, requests 1 and 5 sampled (temperature 0.8); the cache
 #: holds the 64-token bucket's 64 + 12 - 1 slots
@@ -4405,8 +4441,8 @@ def summa_parity(out, other, A, B, C, dense, beta=0.0) -> float:
     return worst
 
 
-def summa_operands(gen):
-    """A, B, C at SUMMA_SIZE, t = 128, the default format set, 50% D and
+def summa_operands(gen, size: int = SUMMA_SIZE):
+    """A, B, C at ``size``, t = 128, the default format set, 50% D and
     25% Q: A and B sorted-balanced, C balanced; and their dense values."""
     import torch
     from repro_torch.core import schedule
@@ -4414,15 +4450,15 @@ def summa_operands(gen):
     from repro_torch.core.layout import MPMatrix
     from repro_torch.core.precision import Policy
     t, g = TILE, SUMMA_SEGMENTS
-    mt = SUMMA_SIZE // t
+    mt = size // t
     pol = Policy(kind="ratio", ratio_high=0.5, ratio_low8=0.25, seed=8)
     maps = (schedule.sorted_balanced_map(mt, mt, pol, axis=0, groups=g,
                                          fset=FS),
             schedule.sorted_balanced_map(mt, mt, pol, axis=1, groups=g,
                                          fset=FS),
             schedule.balanced_ratio_map(mt, mt, pol, g, g, fset=FS))
-    dense = [torch.randn((SUMMA_SIZE, SUMMA_SIZE), generator=gen,
-                         device=DEVICE) for _ in range(3)]
+    dense = [torch.randn((size, size), generator=gen, device=DEVICE)
+             for _ in range(3)]
     mats = [MPMatrix.from_dense(d, p, t, FS) for d, p in zip(dense, maps)]
     return mats, [d.cpu().numpy() for d in dense]
 
@@ -4706,6 +4742,447 @@ def summa_solves(grid, card: str) -> dict:
             "broadcast_share": d.broadcast_seconds / d.total_seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the replica cluster, tracing and the measured autotuner
+# ---------------------------------------------------------------------------
+
+#: phase 14's cluster: replicas, new tokens, and the requests that sample
+#: (temperature CLUSTER_TEMP; the rest are greedy) — a replica with
+#: another rng_seed then changes tokens
+CLUSTER_REPLICAS = 2
+CLUSTER_NEW = 16
+CLUSTER_SAMPLED = (1, 2, 5, 6)
+CLUSTER_TEMP = 0.8
+#: distinct span names a traced run must hold (the hygiene floor)
+MIN_SPAN_TYPES = 4
+#: the traced solve: phase 5's operator at this size (it escalates once)
+TRACE_SOLVE_N = 2048
+#: the traced SUMMA GEMM's size, on a 1x1 grid
+TRACE_SUMMA_SIZE = 1024
+#: the autotuned GEMMs at t = 128: (label, size, format set, D share);
+#: the first has ref, tile and grouped candidates, the second ref and
+#: split (its C holds split2 tiles)
+AUTOTUNE_CASES = (("0D100S", 4096, "fp8_e4m3+bf16+fp32", 0.0),
+                  ("split2 50D50S", 4096, "fp8_e4m3+bf16+split2_fp16", 0.5))
+#: the decode batch the measured linear search tunes at
+AUTOTUNE_M = 4
+
+
+def cluster_requests(vocab: int, seed: int = 0) -> list:
+    """Phase 4's eight prompt lengths, CLUSTER_NEW tokens each; the
+    CLUSTER_SAMPLED ones sample under their own seeds."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    lens = np.linspace(8, 96, 8).astype(int)
+    prompts = [rng.integers(0, vocab, L).astype(np.int64) for L in lens]
+    return [Request(p, max_new_tokens=CLUSTER_NEW,
+                    temperature=CLUSTER_TEMP if i in CLUSTER_SAMPLED else 0.0,
+                    seed=i)
+            for i, p in enumerate(prompts)]
+
+
+def served_run(server, reqs) -> tuple[float, dict]:
+    """Warm ``server`` (an Engine or a Cluster), then serve ``reqs``
+    counted from zero; returns (host seconds until every token is on the
+    host, launch counts)."""
+    from repro_torch.kernels import ops
+    server.warmup()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    server.generate(reqs)
+    sync()
+    return time.perf_counter() - t0, ops.launch_counts()
+
+
+def cluster_gate(label: str, reqs, want, st: dict) -> None:
+    """Every request served with the single engine's tokens, bit for bit;
+    every replica healthy and serving; none rejected; no fresh plan
+    resolution after warmup."""
+    bad = [i for i, (r, w) in enumerate(zip(reqs, want))
+           if r.error or not r.done or r.out_tokens != w]
+    if bad:
+        fail(f"{label}: requests {bad} differ from one engine's tokens")
+    per = [p["requests"]["served"] for p in st["per_replica"]]
+    if st["healthy"] != st["replicas"] or min(per) < 1:
+        fail(f"{label}: {st['healthy']}/{st['replicas']} healthy, served "
+             f"per replica {per}")
+    if st["requests"]["rejected"]:
+        fail(f"{label}: {st['requests']['rejected']} requests rejected")
+    if st["post_warmup_fresh_resolutions"] != 0:
+        fail(f"{label}: {st['post_warmup_fresh_resolutions']} fresh plan "
+             "resolutions after warmup")
+
+
+def trace_gate(label: str, path: str, replicas: int | None = None,
+               min_span_types: int = MIN_SPAN_TYPES) -> list:
+    """The JSONL passes ``repro_torch.obs.hygiene`` with the span floor,
+    its Chrome export parses back to the same events, and (for a cluster)
+    ``serve.route`` names every replica.  Returns the events."""
+    from repro_torch.obs import hygiene
+    from repro_torch.obs.trace import export_chrome, read_events
+    problems = hygiene.validate_trace(path, min_span_types=min_span_types)
+    if problems:
+        fail(f"{label}: trace fails hygiene: {problems[:5]}")
+    events = read_events(path)
+    with open(export_chrome(path)) as f:
+        if json.load(f)["traceEvents"] != events:
+            fail(f"{label}: the Chrome export differs from the JSONL")
+    if replicas is not None:
+        routed = {e["args"]["replica"] for e in events
+                  if e["name"] == "serve.route"}
+        if routed != set(range(replicas)):
+            fail(f"{label}: serve.route names replicas {sorted(routed)}, "
+                 f"not all {replicas}")
+    return events
+
+
+def span_summary(events) -> dict:
+    """{span name: [count, summed host ms]} of a trace's complete spans."""
+    out: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            row = out.setdefault(e["name"], [0, 0.0])
+            row[0] += 1
+            row[1] = round(row[1] + e["dur"] / 1e3, 3)
+    return dict(sorted(out.items()))
+
+
+def cluster_phase_serve(cfg, seed: int, tmp: str) -> dict:
+    """(a) one Engine and a Cluster of CLUSTER_REPLICAS on the same
+    weights and requests; (b) the same cluster run traced."""
+    import torch
+    import repro_torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Cluster, Engine, ServeConfig
+    from repro_torch.tune import dispatch as D
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = T.init_model(gen, cfg)
+    one = Engine(cfg, params, ServeConfig())
+    single = cluster_requests(cfg.vocab, seed)
+    one_s, _ = served_run(one, single)
+    want = [r.out_tokens for r in single]
+    if any(r.error or not r.done for r in single):
+        fail("cluster: the single engine did not serve every request")
+    sc = ServeConfig(replicas=CLUSTER_REPLICAS)
+    cl = Cluster(cfg, params, sc)
+    reqs = cluster_requests(cfg.vocab, seed)
+    lin0 = D.dispatch_counts("linear")
+    cl_s, launches = served_run(cl, reqs)
+    lin = {p: n - lin0.get(p, 0)
+           for p, n in D.dispatch_counts("linear").items()}
+    st = cl.stats()
+    gen_toks = st["tokens"]["generated"]
+    print(f"cluster {cfg.name}: {cfg.n_layers} layers, "
+          f"{CLUSTER_REPLICAS} replicas sharing one parameter tree "
+          f"({param_bytes(params) / 1e9:.3f} GB), ServeConfig defaults; "
+          f"placement {[r.replica for r in reqs]}; served per replica "
+          f"{[p['requests']['served'] for p in st['per_replica']]}; "
+          f"decode steps per replica "
+          f"{[p['decode_steps'] for p in st['per_replica']]}")
+    print(f"cluster: {gen_toks} tokens in {cl_s:.3f} s = "
+          f"{gen_toks / cl_s:.2f} tokens/s vs one engine "
+          f"{sum(len(w) for w in want) / one_s:.2f} tokens/s "
+          f"({one_s:.3f} s) on {smi_line()}; kernel launches {launches}; "
+          f"linear dispatch {lin}")
+    cluster_gate("cluster", reqs, want, st)
+    if launches["ksplit_gemm"] < 1 or lin.get("ksplit_torch", 0):
+        fail(f"cluster: KSplit linears off the kernel ({lin}, launches "
+             f"{launches})")
+    # (b) the same run traced
+    path = os.path.join(tmp, "cluster.jsonl")
+    traced = cluster_requests(cfg.vocab, seed)
+    repro_torch.configure(obs_trace=path)
+    try:
+        tr_s, _ = served_run(Cluster(cfg, params, sc), traced)
+    finally:
+        repro_torch.configure(obs_trace=None)
+    if [r.out_tokens for r in traced] != want:
+        fail("cluster traced: tokens differ from the untraced run")
+    events = trace_gate("cluster traced", path, CLUSTER_REPLICAS)
+    print(f"cluster traced: wall {tr_s:.3f} s vs untraced {cl_s:.3f} s; "
+          f"{len(events)} events; spans [count, host ms] "
+          f"{span_summary(events)}")
+    return {"launches": launches["ksplit_gemm"],
+            "tokens_per_s": gen_toks / cl_s,
+            "engine_tokens_per_s": sum(len(w) for w in want) / one_s,
+            "traced_s": tr_s, "untraced_s": cl_s}
+
+
+def cluster_phase_solve_summa(gen, tmp: str) -> dict:
+    """(c) phase 5's operator at TRACE_SOLVE_N solved untraced and
+    traced (equal reports), and one SUMMA GEMM traced on a 1x1 grid."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.core.summa import summa_mp_gemm
+    from repro_torch.launch.grid import Grid
+    from repro_torch.obs.trace import read_events
+    from repro_torch.solve import (SolveConfig, graded_spd,
+                                   rhs_for_solution, solve)
+    a = graded_spd(TRACE_SOLVE_N, cond=1e4, rho=0.9, seed=0)
+    xt, b = rhs_for_solution(a, nrhs=1, seed=1)
+    cfg = SolveConfig(tile=TILE, ratio_high=0.0, ratio_low8=0.0,
+                      tol=SOLVE_TOL)
+    plain = solve(a, b, cfg, device=DEVICE)
+    path = os.path.join(tmp, "solve.jsonl")
+    obs.configure(enabled=True, trace_path=path)
+    try:
+        rep = solve(a, b, cfg, device=DEVICE)
+    finally:
+        obs.configure(enabled=False)
+    same = ((rep.sweeps, rep.escalations, rep.promotions,
+             forward_error(rep.x, xt))
+            == (plain.sweeps, plain.escalations, plain.promotions,
+                forward_error(plain.x, xt)))
+    events = trace_gate("traced solve", path)
+    names = {e["name"] for e in events}
+    print(f"traced solve n={TRACE_SOLVE_N}: sweeps {rep.sweeps}, "
+          f"escalations {rep.escalations}, forward err "
+          f"{forward_error(rep.x, xt):.3g}, report equal to the untraced "
+          f"run: {same}; {len(events)} events, spans [count, host ms] "
+          f"{span_summary(events)}")
+    if not same:
+        fail("traced solve: its report differs from the untraced solve's")
+    need = {"solve.run", "solve.factor", "solve.sweep", "solve.escalate"}
+    if not need <= names:
+        fail(f"traced solve: the trace lacks {sorted(need - names)}")
+    # one SUMMA GEMM on a 1x1 grid in this process
+    card, backend = ((DEVICE + ":0", "nccl") if DEVICE == "cuda"
+                     else ("cpu", "gloo"))
+    (A, B, C), _ = summa_operands(gen, TRACE_SUMMA_SIZE)
+    rdv = tempfile.mkdtemp(prefix="chip-smoke-rdv-", dir=tmp)
+    spath = os.path.join(tmp, "summa.jsonl")
+    dist.init_process_group(backend, init_method=f"file://{rdv}/rdv",
+                            world_size=1, rank=0)
+    try:
+        grid = Grid(1, 1, device=card, backend=backend)
+        obs.configure(enabled=True, trace_path=spath)
+        try:
+            summa_mp_gemm(A, B, C, grid=grid)
+            sync()
+        finally:
+            obs.configure(enabled=False)
+    finally:
+        dist.destroy_process_group()
+    sev = read_events(spath)
+    gemms = [e for e in sev if e["name"] == "summa.gemm"]
+    panels = [e["args"]["step"] for e in sev if e["name"] == "summa.panel"]
+    print(f"traced summa 1x1 at {TRACE_SUMMA_SIZE}^3: {len(gemms)} "
+          f"summa.gemm span(s) ({gemms[0]['dur'] / 1e3 if gemms else 0:.3f} "
+          f"host ms), {len(panels)} summa.panel events")
+    if len(gemms) != 1 or panels != list(range(TRACE_SUMMA_SIZE // TILE)):
+        fail(f"traced summa: {len(gemms)} summa.gemm spans, panel steps "
+             f"{panels}")
+    return {"solve_events": len(events)}
+
+
+def cache_only_gate(label: str, fn):
+    """Run ``fn()`` with a spy on ``tune.search.measure``; fail if any
+    measurement happened.  Returns ``fn``'s result."""
+    from repro_torch.tune import search as S
+    calls = []
+    real = S.measure
+
+    def spy(f, **kw):
+        calls.append(kw)
+        return real(f, **kw)
+
+    S.measure = spy
+    try:
+        out = fn()
+    finally:
+        S.measure = real
+    if calls:
+        fail(f"{label}: cache-only mode measured {len(calls)} time(s)")
+    return out
+
+
+def autotune_operands(gen, size, fkey, hi):
+    """A, B, C at ``size``³, t = TILE, under ratio maps (``hi`` D, the
+    rest the set's LOW); for a split set C's HIGH tiles are split."""
+    return gemm_case(size, size, size, TILE, fkey, hi, 0.0, gen, seed0=41)
+
+
+def cluster_phase_autotune(cfg, seed: int, tmp: str) -> dict:
+    """(d) the measured search, in a child process whose
+    REPRO_TORCH_TUNE_CACHE names a file of its own: the plans it measures
+    and registers end with it, so no later phase routes by them.  The
+    child (:func:`autotune_child`) prints its table and gates, and leaves
+    its launches and rows in a JSON file read here."""
+    out = os.path.join(tmp, "autotune_result.json")
+    env = dict(os.environ)
+    env["REPRO_TORCH_TUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+    env.pop("REPRO_TORCH_TUNE_CACHE_ONLY", None)
+    env.pop("REPRO_TORCH_OBS_TRACE", None)
+    code = ("import sys, chip_smoke; chip_smoke.autotune_child("
+            f"{DEVICE!r}, {cfg.name!r}, {cfg.n_layers}, {seed}, {out!r})")
+    sys.stdout.flush()
+    run = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=env,
+                         timeout=600)
+    if run.returncode != 0:
+        fail(f"autotune: the measuring process exited {run.returncode}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def autotune_child(device: str, arch: str, n_layers: int, seed: int,
+                   out: str) -> None:
+    """Phase 14 (d) inside its own process: every KSplit signature of
+    ``arch`` at ``n_layers`` (phase 14's weights, from ``seed``) at m =
+    AUTOTUNE_M, and AUTOTUNE_CASES, measured into the process cache;
+    every winner measured and the file clean under ``tune.hygiene``; then
+    cache-only mode reads a copy of the file and resolves the same plans
+    from it without one measurement.  Writes the launches and the
+    candidate rows to ``out``."""
+    global DEVICE
+    DEVICE = device
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import shutil
+
+    import torch
+    import repro_torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tune import dispatch as D
+    from repro_torch.tune import hygiene
+    from repro_torch.tune import search as S
+    from repro_torch.tune.device import detect_device
+    cache_file = S.cache_path()
+    cfg = dataclasses.replace(get(arch), n_layers=n_layers)
+    params = T.init_model(torch.Generator(device=DEVICE).manual_seed(seed),
+                          cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(1414)
+    dev = detect_device(torch.device(DEVICE))
+    cases = [(label, *autotune_operands(gen, size, fkey, hi))
+             for label, size, fkey, hi in AUTOTUNE_CASES]
+    # every problem's report, for the candidate table (this process only)
+    reports = []
+    real = S.autotune_problem
+
+    def recording(prob, run_plan, **kw):
+        plan, rep = real(prob, run_plan, **kw)
+        reports.append((prob, kw.get("paths", D.PATHS), plan, rep))
+        return plan, rep
+
+    S.autotune_problem = recording
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    linear = D.tune_linear_params(params, m_hint=AUTOTUNE_M, measure=True)
+    gemms = {label: S.autotune(*mats) for label, _fs, mats, _m in cases}
+    sync()
+    measured_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    S.autotune_problem = real
+    rows = []
+    for prob, _paths, plan, rep in reports:
+        for c in rep.get("candidates", []):
+            rows.append({"key": S.plan_key(dev, prob),
+                         "path": c["plan"].split(":")[0],
+                         "measured_us": c.get("measured_us"),
+                         "predicted_us": c.get("predicted_us"),
+                         "error": c.get("error"),
+                         "won": c["plan"] == plan.key()})
+    bad = [S.plan_key(dev, p) for p, _, _, r in reports
+           if r["source"] != "measured"]
+    print(f"autotune: {len(reports)} problems measured in "
+          f"{measured_s:.2f} s ({len(linear)} linear signatures at "
+          f"m={AUTOTUNE_M}, GEMMs {list(gemms)}); kernel launches "
+          f"{launches}; on {smi_line()}")
+    for r in rows:
+        print(f"autotune row: {r['key']} path {r['path']}: measured "
+              f"{r['measured_us']} us, predicted {r['predicted_us']} "
+              f"us{' (winner)' if r['won'] else ''}"
+              f"{' ERROR ' + r['error'] if r['error'] else ''}")
+    if bad or len(reports) != len(linear) + len(cases):
+        fail(f"autotune: winners not measured for {bad} "
+             f"({len(reports)} problems)")
+    problems = hygiene.validate_cache(cache_file)
+    if problems:
+        fail(f"autotune: the cache fails hygiene: {problems[:5]}")
+    # cache-only: the same plans from a copy of the file, nothing measured
+    copy = cache_file + ".copy.json"
+    shutil.copy(cache_file, copy)
+    repro_torch.configure(tune_cache=copy, tune_cache_only=True)
+    D.clear_registry()
+    again = cache_only_gate("autotune cache-only", lambda: (
+        D.tune_linear_params(params, m_hint=AUTOTUNE_M, measure=True),
+        {label: S.autotune(*mats) for label, _fs, mats, _m in cases}))
+    D.clear_registry()
+    sources = {S.plan_key(dev, prob): D.resolve_plan(prob, dev, paths)
+               for prob, paths, _plan, _rep in reports}
+    wrong = {k: src for k, (plan, src) in sources.items() if src != "cache"}
+    if again != (linear, gemms) or wrong or any(
+            sources[S.plan_key(dev, p)][0] != plan
+            for p, _, plan, _ in reports):
+        fail(f"autotune cache-only: plans or sources differ ({wrong})")
+    print(f"autotune cache-only: {len(sources)} plans resolved from "
+          f"the cache, 0 measurements; winners "
+          f"{sorted({p.path for p in linear.values()})} (linear), "
+          f"{ {k: v.path for k, v in gemms.items()} }")
+    with open(out, "w") as f:
+        json.dump({"launches": launches, "rows": rows,
+                   "measured_s": measured_s}, f)
+    sys.stdout.flush()
+
+
+def cluster_phase_launchers(tmp: str) -> None:
+    """(e) the serve and solve launchers as subprocesses, traced."""
+    from repro_torch.obs import hygiene
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    runs = {
+        "serve": ["repro_torch.launch.serve", "--smoke", "--replicas",
+                  str(CLUSTER_REPLICAS)],
+        "solve": ["repro_torch.launch.solve", "--n", "1024", "--tile",
+                  str(TILE), "--tol", str(SOLVE_TOL)],
+    }
+    for label, argv in runs.items():
+        path = os.path.join(tmp, f"launch_{label}.jsonl")
+        cmd = [sys.executable, "-m", *argv, "--trace", path]
+        if DEVICE != "cuda":
+            cmd += ["--device", DEVICE]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=300)
+        tail = out.stdout.strip().splitlines()[-2:]
+        print(f"launcher {label}: exit {out.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; {tail}")
+        if out.returncode != 0:
+            fail(f"launcher {label} exited {out.returncode}: "
+                 f"{out.stderr[-2000:]}")
+        problems = hygiene.validate_trace(path,
+                                          min_span_types=MIN_SPAN_TYPES)
+        if problems:
+            fail(f"launcher {label}: trace fails hygiene: {problems[:5]}")
+
+
+def cluster_phase(cfg, seed: int = 0) -> dict:
+    """Phase 14: (a) InternLM2-1.8B at published widths, ``cfg``'s depth,
+    served by a Cluster of CLUSTER_REPLICAS and by one Engine: the same
+    tokens; (b) the cluster traced; (c) a traced solve and SUMMA GEMM;
+    (d) the measured search; (e) the launchers traced."""
+    import shutil
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-trace-")
+    gen = torch.Generator(device=DEVICE).manual_seed(1414)
+    try:
+        out = cluster_phase_serve(cfg, seed, tmp)
+        out.update(cluster_phase_solve_summa(gen, tmp))
+        free_card()
+        out["autotune"] = cluster_phase_autotune(cfg, seed, tmp)
+        cluster_phase_launchers(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def ptxas_rows(log: str) -> list[str]:
     """One 'kernel<t>: registers, spill stores/loads' line per entry
     function of a ptxas -v report."""
@@ -4816,7 +5293,8 @@ def main() -> None:
     sv = run("4 serve", serve, cfg)
     ss = run("4b serve state", serve_state,
              dataclasses.replace(cfg, n_layers=STATE_LAYERS))
-    sq = run("4c serve quant", serve_quant, cfg)
+    sq = run("4c serve quant", serve_quant,
+             dataclasses.replace(cfg, n_layers=QUANT_LAYERS))
     sm9 = run("9a serve moe", serve_moe, dataclasses.replace(
         get("qwen2-moe-a2.7b"), n_layers=MOE_LAYERS))
     sw9 = run("9b serve gemma3", serve_windowed, dataclasses.replace(
@@ -4833,6 +5311,9 @@ def main() -> None:
     tr = run("7 train", train_phase, cfg)
     sm = run("8 summa", summa_phase,
              torch.Generator(device=DEVICE).manual_seed(88))
+    cl14 = run("14 cluster, trace, autotune", cluster_phase,
+               dataclasses.replace(cfg, n_layers=STATE_LAYERS))
+    at14 = cl14["autotune"]["launches"]
     t0 = time.perf_counter()
     ks_rows = time_ksplit(gen, policy)
     tg = time_tile_grouped(gen)
@@ -4850,7 +5331,8 @@ def main() -> None:
                       + tr["launches"] + sm9["launches"]
                       + sm9["launches16"] + sw9["launches"]
                       + sx10["launches"] + sj11["launches"]
-                      + sf12["launches"] + sf13["launches"]),
+                      + sf12["launches"] + sf13["launches"]
+                      + cl14["launches"] + at14["ksplit_gemm"]),
          "launches_by_phase": {"serve": sv["launches"],
                                "serve_state": ss["launches"],
                                "serve_quant": sq["launches"],
@@ -4861,7 +5343,9 @@ def main() -> None:
                                "serve_xlstm": sx10["launches"],
                                "serve_jamba_period": sj11["launches"],
                                "serve_frontends": sf12["launches"],
-                               "family_train": sf13["launches"]},
+                               "family_train": sf13["launches"],
+                               "cluster": cl14["launches"],
+                               "autotune": at14["ksplit_gemm"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")},
@@ -4874,14 +5358,18 @@ def main() -> None:
         {"name": "mp_gemm_tile", "route": "cuda",
          "source": "src/repro_torch/csrc/mp_gemm_tile.cu",
          "replaces": "src/repro/kernels/mp_gemm_tile.py:121",
-         "launches": sol["store"]["launches"],
+         "launches": sol["store"]["launches"] + at14["mp_gemm_tile"],
+         "launches_by_phase": {"solve": sol["store"]["launches"],
+                               "autotune": at14["mp_gemm_tile"]},
          "max_abs_err": max(*tile_err.values(), *(
              v for (path, _, _), v in edge_err.items() if path == "tile")),
          **tg[("tile", "4096^3", "0D100S")]},
         {"name": "split_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/split_gemm.cu",
          "replaces": "src/repro/kernels/split_gemm.py:117",
-         "launches": sol["split"]["launches"],
+         "launches": sol["split"]["launches"] + at14["split_gemm"],
+         "launches_by_phase": {"solve": sol["split"]["launches"],
+                               "autotune": at14["split_gemm"]},
          "max_abs_err": max(v for key, v in split_err.items()
                             if key[0] != "slices"),
          **sp[SPLIT_TIMES[0][0]]},
@@ -4900,9 +5388,11 @@ def main() -> None:
         {"name": "grouped_gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:119",
-         "launches": sol["grouped"]["launches"] + sm["launches"],
+         "launches": (sol["grouped"]["launches"] + sm["launches"]
+                      + at14["grouped_gemm"]),
          "launches_by_phase": {"solve": sol["grouped"]["launches"],
-                               "summa": sm["launches"]},
+                               "summa": sm["launches"],
+                               "autotune": at14["grouped_gemm"]},
          "summa_panel": sm["panel"],
          "max_abs_err": max(*gr_err.values(), *(
              v for (path, _, _), v in edge_err.items() if path == "grouped")),
@@ -4918,7 +5408,7 @@ def main() -> None:
                           for v in sol.values())
                       + sq["convert_launches"] + tr["convert_launches"]
                       + sf12["convert_launches"]
-                      + sf13["convert_launches"]),
+                      + sf13["convert_launches"] + at14["convert"]),
          "launches_by_form": {
              "convert": sum(v["convert_launches"] for v in sol.values()),
              "convert_by_class": sum(v["class_launches"]
@@ -4929,7 +5419,8 @@ def main() -> None:
              "serve_quant": sq["convert_launches"],
              "train": tr["convert_launches"],
              "serve_frontends": sf12["convert_launches"],
-             "family_train": sf13["convert_launches"]},
+             "family_train": sf13["convert_launches"],
+             "autotune": at14["convert"]},
          "max_abs_err": max(cv_err.values()), **cv},
     ]
     train_row = next(r for r in ks_rows
@@ -4970,7 +5461,11 @@ def main() -> None:
           + "; ".join(
               f"{name} train step {sf13[name]['step_ms']:.1f} ms, peak "
               f"{sf13[name]['peak_gb']:.2f} GB" for name, *_ in FT_CELLS)
-          + f" (phase 13 {sf13['phase_s']:.1f} s); "
+          + f" (phase 13 {sf13['phase_s']:.1f} s); cluster "
+          f"{cl14['tokens_per_s']:.2f} tokens/s vs one engine "
+          f"{cl14['engine_tokens_per_s']:.2f}, traced wall "
+          f"{cl14['traced_s']:.2f} s vs {cl14['untraced_s']:.2f} s (phase 14 "
+          f"{cl14['phase_s']:.1f} s); "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(f"phase seconds: {json.dumps(secs)}")
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,10 @@ The package mirrors ``repro``'s module names (``core``, ``kernels``,
 counterpart, but it imports neither ``jax`` nor ``repro``: the JAX
 package is the reference the tests hold this one to.
 
-Importing the package is light: only the subpackage names below are
-bound, lazily, on first attribute access.  Entry points run on ``cuda``
+Importing the package is light: :func:`configure`, the process-global
+settings facade (:mod:`repro_torch.config`, standard library only), is
+bound at import; the subpackage names below are bound lazily, on first
+attribute access.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; on CPU tensors each kernel
 wrapper computes its plain PyTorch version instead.
 """
@@ -15,9 +17,13 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["bridge", "checkpoint", "configs", "core", "data", "formats",
-           "kernels", "launch", "models", "obs", "optim", "quant", "runtime",
-           "serve", "solve", "split", "train", "tree", "tune"]
+from repro_torch import config
+from repro_torch.config import configure
+
+__all__ = ["config", "configure", "bridge", "checkpoint", "configs", "core",
+           "data", "formats", "kernels", "launch", "models", "obs", "optim",
+           "quant", "runtime", "serve", "solve", "split", "train", "tree",
+           "tune"]
 
 
 def __getattr__(name):

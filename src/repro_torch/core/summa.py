@@ -458,7 +458,24 @@ def summa_mp_gemm(a, b, c=None, *, grid, alpha: float = 1.0,
     obs.metrics_registry().counter(
         _dispatch.DISPATCH_METRIC, path=plan.path, op=prob.op,
         formats=prob.formats).inc()
-    return _summa_impl(a, b, c, grid, alpha, beta, plan.path)
+    if not obs.is_enabled():
+        return _summa_impl(a, b, c, grid, alpha, beta, plan.path)
+    # one span for the whole distributed GEMM plus an instant per
+    # k-panel with the static owner schedule (host time; the span ends
+    # when the last local update is enqueued)
+    K = prob.k
+    with obs.span("summa.gemm", "summa", op=prob.op, path=plan.path,
+                  m=prob.m, n=prob.n, k=prob.k, formats=prob.formats,
+                  steps=K // a.tile):
+        try:
+            qa, la, pb, lb = _panel_owner_steps(K, a.tile, grid.P, grid.Q)
+            for s in range(len(qa)):
+                obs.event("summa.panel", "summa", step=s,
+                          a_owner_col=int(qa[s]), a_local=int(la[s]),
+                          b_owner_row=int(pb[s]), b_local=int(lb[s]))
+        except ValueError:
+            pass          # _summa_impl raises the descriptive error
+        return _summa_impl(a, b, c, grid, alpha, beta, plan.path)
 
 
 def summa_collective_bytes(M: int, N: int, K: int, tile: int, P: int, Q: int,

@@ -44,6 +44,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
+#: guards the wrappers' module-level launch counters: the cluster's
+#: replicas launch from their own threads, and ``launches += 1`` is a
+#: read-modify-write
+COUNT_LOCK = threading.Lock()
+
 #: kernel name -> {"seconds": build time or 0.0 if reused, "log": nvcc's
 #: stderr (ptxas register / spill report)} for the builds of this process
 BUILD_INFO: dict[str, dict] = {}

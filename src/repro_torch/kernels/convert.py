@@ -68,7 +68,8 @@ def convert(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     err = _lib().convert_launch(x.data_ptr(), out.data_ptr(), x.numel(),
                                 _build.DTYPE_CODES[out_dtype], dev, stream)
     _build.check_launch("convert", err)
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out
 
 
@@ -182,7 +183,8 @@ def convert_by_class(x: torch.Tensor, cls_map, tile: int,
     err = _lib().convert_by_class_launch(x.data_ptr(), ctypes.byref(a), dev,
                                          stream)
     _build.check_launch("convert_by_class", err)
-    class_launches += 1
+    with _build.COUNT_LOCK:
+        class_launches += 1
     return outs
 
 

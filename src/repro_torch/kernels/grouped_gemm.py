@@ -243,9 +243,10 @@ def grouped_mp_gemm(a: CompactMPMatrix, b: CompactMPMatrix,
         err = lib.grouped_gemm_launch(ctypes.byref(args), t, plan["smem"],
                                       dev, stream)
         _build.check_launch("grouped_gemm", err)
-        launches += 1
-        for p in _tile.paths_taken(plan, c_cls):
-            path_launches[p] += 1
+        with _build.COUNT_LOCK:
+            launches += 1
+            for p in _tile.paths_taken(plan, c_cls):
+                path_launches[p] += 1
     return CompactMPMatrix(tuple(outs), c_cls,
                            CompactMPMatrix.make_slots(c_cls), t,
                            (mt * t, nt * t), fset)

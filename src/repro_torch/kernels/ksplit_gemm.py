@@ -104,13 +104,16 @@ _scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 def _scratch_for(dev: torch.device, key: tuple[int, int], ws_elems: int,
                  counters: int):
-    ws, cnt = _scratch.get(key, (None, None))
-    if ws is None or ws.numel() < ws_elems:
-        ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=dev)
-    if cnt is None or cnt.numel() < counters:
-        cnt = torch.zeros(max(counters, 1), dtype=torch.int32, device=dev)
-    _scratch[key] = (ws, cnt)
-    return ws, cnt
+    with _build.COUNT_LOCK:      # threads sharing a stream share these
+        ws, cnt = _scratch.get(key, (None, None))
+        if ws is None or ws.numel() < ws_elems:
+            ws = torch.empty(max(ws_elems, 1), dtype=torch.float32,
+                             device=dev)
+        if cnt is None or cnt.numel() < counters:
+            cnt = torch.zeros(max(counters, 1), dtype=torch.int32,
+                              device=dev)
+        _scratch[key] = (ws, cnt)
+        return ws, cnt
 
 
 def ksplit_gemm_plain(x: torch.Tensor, bufs, fmts) -> torch.Tensor:
@@ -258,5 +261,6 @@ def _launch(x: torch.Tensor, bufs, fmts, geom: Geometry) -> torch.Tensor:
             ctypes.c_void_p]).ksplit_gemm_launch
     err = _launch_fn(ctypes.byref(a), dev, stream)
     _build.check_launch("ksplit_gemm", err)
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return y

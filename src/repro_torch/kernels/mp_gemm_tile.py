@@ -282,7 +282,8 @@ def mp_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
     err = lib.mp_gemm_tile_launch(ctypes.byref(a), tile, plan["smem"], dev,
                                   stream)
     _build.check_launch("mp_gemm_tile", err)
-    launches += 1
-    for p in paths_taken(plan, pc):
-        path_launches[p] += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        for p in paths_taken(plan, pc):
+            path_launches[p] += 1
     return outs

@@ -248,7 +248,8 @@ def _slice_pass(a: _Args, f: int, spec: tuple, tile: int, dev0,
     dev, stream = _build.cuda_args(sa)
     err = lib.split_prep_launch(ctypes.byref(a), f, tile, dev, stream)
     _build.check_launch("split_gemm slice pass", err)
-    prep_launches += 1
+    with _build.COUNT_LOCK:
+        prep_launches += 1
     return sa, sb
 
 
@@ -293,7 +294,8 @@ def split_gemm_tile_multi(a_bufs, b_bufs, c_bufs, pa, pb, pc, *, tile: int,
     dev, stream = _build.cuda_args(a_bufs[0])
     err = lib.split_gemm_launch(ctypes.byref(a), tile, dev, stream)
     _build.check_launch("split_gemm", err)
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return outs
 
 

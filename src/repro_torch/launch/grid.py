@@ -23,6 +23,14 @@ exception in a rank fails the call: the rank's own exception is raised,
 chained to a :class:`GridRankError` that carries its traceback.  ``fn``
 must be importable by name from ``repro_torch`` (a child imports only the
 function's module, never a test module).
+
+Tracing: a rank never opens the parent's trace file (the tracing
+variables are kept from the children's environment while they spawn).
+When the parent traces, rank 0 records into an in-memory tracer on the
+parent's timeline and its events are written into the parent's trace
+after the ranks join — rank 0's view, as the reference's single
+controller traces one distributed GEMM once; the other ranks trace
+nothing.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ import traceback
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import obs
 
 #: backends a grid can run over
 BACKENDS = ("nccl", "gloo")
@@ -234,9 +244,15 @@ def _threads_per_rank(world: int) -> int:
 #: thread-count variables of the BLAS libraries a rank may load
 _THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
+#: variables that switch tracing on at import (``repro_torch.obs``)
+_TRACE_VARS = (obs.TRACE_ENV, obs.OBS_ENV)
+
 
 def _rank_main(rank: int, world: int, P: int, Q: int, fn, args, kwargs,
-               device: str, backend: str, workdir: str) -> None:
+               device: str, backend: str, workdir: str,
+               trace_t0: float | None = None) -> None:
+    if rank == 0 and trace_t0 is not None:
+        obs.configure(enabled=True, t0=trace_t0)
     try:
         dev = rank_device(device, rank)
         if dev.type == "cuda":
@@ -251,6 +267,10 @@ def _rank_main(rank: int, world: int, P: int, Q: int, fn, args, kwargs,
             if rank == 0:
                 with open(os.path.join(workdir, "result.pt"), "wb") as fh:
                     torch.save(result, fh)
+                if obs.is_enabled():
+                    with open(os.path.join(workdir, "trace.pkl"),
+                              "wb") as fh:
+                        pickle.dump(obs.tracer().buffer, fh)
         finally:
             dist.destroy_process_group()
     except BaseException as e:
@@ -276,18 +296,25 @@ def run_on_grid(P: int, Q: int, fn, *args, device: str = "cuda",
     world = int(P) * int(Q)
     _check_placement(world, device, backend)
     workdir = tempfile.mkdtemp(prefix="repro-grid-")
-    saved = {k: os.environ.get(k) for k in _THREAD_VARS}
+    saved = {k: os.environ.get(k) for k in _THREAD_VARS + _TRACE_VARS}
+    trace_t0 = obs.tracer().t0 if obs.is_enabled() else None
     try:
         for k in _THREAD_VARS:
             os.environ.setdefault(k, str(_threads_per_rank(world)))
+        for k in _TRACE_VARS:    # a rank must not reopen the parent's file
+            os.environ.pop(k, None)
         try:
             tmp.start_processes(
                 _rank_main, args=(world, int(P), int(Q), fn, args, kwargs,
-                                  device, backend, workdir),
+                                  device, backend, workdir, trace_t0),
                 nprocs=world, join=True, start_method="spawn")
         except (tmp.ProcessRaisedException, tmp.ProcessExitedException):
             _raise_rank_error(workdir, world)
             raise
+        trace = os.path.join(workdir, "trace.pkl")
+        if trace_t0 is not None and os.path.exists(trace):
+            with open(trace, "rb") as fh:
+                obs.tracer().absorb(pickle.load(fh))
         with open(os.path.join(workdir, "result.pt"), "rb") as fh:
             return torch.load(fh, weights_only=False)
     finally:

@@ -4,6 +4,8 @@ through the shape-bucketed engine.
 
     python -m repro_torch.launch.serve --prompts "1 2 3" "4 5" --max-new 8
     python -m repro_torch.launch.serve --smoke --device cpu --stats
+    python -m repro_torch.launch.serve --smoke --device cpu --replicas 2 \
+        --trace run.jsonl
 
 The first serves InternLM2-1.8B at full width on the card (``--device
 cuda``, the default); the second its reduced twin with the kernels'
@@ -30,20 +32,17 @@ either package); ``--quantize SPEC`` serves every request through an
 activation-aware quantized variant (``repro_torch.quant``).  On an MoE
 config the variant calibrates the KSplit linears (attention, the shared
 expert, the lm_head) and shares the expert weights with the default
-tree, as the reference's does; it serves in equal mode.  Options of
-the reference launcher that the port cannot serve yet exit non-zero,
-naming the ``ROADMAP.md`` queue-1 item that ports them.  Exit
-status is also non-zero if any request was rejected at admission.
+tree, as the reference's does; it serves in equal mode.
+
+``--replicas N`` serves through a :class:`~repro_torch.serve.Cluster` of
+N engines sharing the weights (``--quantize`` with it is refused, as the
+reference refuses it).  ``--trace PATH`` records a ``repro_torch.obs``
+JSONL trace through :func:`repro_torch.configure` and writes its Chrome
+export (``PATH`` with ``.trace.json``) after the stream drains.  Exit
+status is non-zero if any request was rejected at admission.
 """
 import argparse
 import json
-
-#: reference options not served yet -> the ROADMAP.md queue-1 item
-UNPORTED = {
-    "replicas": "--replicas > 1 needs serve/cluster.py "
-                "(ROADMAP.md queue 1, item 9)",
-    "trace": "--trace needs obs tracing (ROADMAP.md queue 1, item 8)",
-}
 
 
 def _parse(argv=None):
@@ -99,29 +98,35 @@ def _parse(argv=None):
     ap.add_argument("--quantize-ratio", type=float, default=0.25,
                     help="fraction of K-blocks the calibrator keeps HIGH "
                          "when --quantize is set")
-    ap.add_argument("--replicas", type=int, default=1, help="not ported")
-    ap.add_argument("--trace", default="", help="not ported")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind one "
+                         "admission front-end (1: a single engine)")
+    ap.add_argument("--trace", default="",
+                    help="record a repro_torch.obs JSONL trace to this "
+                         "path (a Perfetto-loadable .trace.json is "
+                         "written beside it)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = _parse(argv)
-    asked = [name for name in UNPORTED
-             if (args.replicas > 1 if name == "replicas"
-                 else getattr(args, name))]
-    if asked:
-        raise SystemExit("not ported yet: "
-                         + "; ".join(UNPORTED[n] for n in asked))
+    if args.quantize and args.replicas > 1:
+        raise SystemExit("--quantize serves through Engine weight "
+                         "variants; not supported with --replicas")
 
     import dataclasses
 
     import numpy as np
     import torch
 
+    import repro_torch
     from repro_torch.configs import get, reduced
     from repro_torch.core.formats import FormatSet
     from repro_torch.models import transformer as T
-    from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.serve import Cluster, Engine, Request, ServeConfig
+
+    if args.trace:
+        repro_torch.configure(obs_trace=args.trace)
 
     cfg = get(args.arch)
     if args.smoke:
@@ -166,18 +171,27 @@ def main(argv=None) -> int:
         prefix_pages=args.prefix_pages,
         page_tokens=args.page_tokens,
         warmup=not args.no_warmup,
+        replicas=args.replicas,
     )
-    eng = Engine(cfg, params, sc, variants=variants)
-    print(f"engine {cfg.name} on {args.device}: mode={eng.mode} buckets="
+    if sc.replicas > 1:
+        server = Cluster(cfg, params, sc)
+        eng = server.replicas[0]
+        where = f"cluster of {sc.replicas} replicas"
+    else:
+        server = eng = Engine(cfg, params, sc, variants=variants)
+        where = "engine"
+    print(f"{where} {cfg.name} on {args.device}: mode={eng.mode} buckets="
           f"{sorted(k.pad_len for k in eng.scheduler.buckets)} "
           f"refill={eng.refill_enabled} "
           f"prefix_cache={eng.prefix is not None} "
           f"chunk={eng._chunk or None}")
     if sc.warmup:
-        rep = eng.warmup()
-        fresh = rep.pop("fresh_resolutions")
-        print(f"warmup: {fresh} fresh plan resolutions; "
-              f"paths={ {k: v['paths'] for k, v in rep.items()} }")
+        reps = (server.warmup() if sc.replicas > 1
+                else {"engine": eng.warmup()})
+        for name, rep in reps.items():
+            fresh = rep.pop("fresh_resolutions")
+            print(f"warmup {name}: {fresh} fresh plan resolutions; "
+                  f"paths={ {k: v['paths'] for k, v in rep.items()} }")
     reqs = [Request(np.array([int(t) % cfg.vocab for t in p.split()],
                              np.int64),
                     max_new_tokens=args.max_new,
@@ -185,27 +199,40 @@ def main(argv=None) -> int:
                     seed=args.request_seed + i, fset=req_tag)
             for i, p in enumerate(args.prompts)]
     rejected = 0
-    for i, r in enumerate(eng.generate(reqs)):
+    for i, r in enumerate(server.generate(reqs)):
         if r.error:
             rejected += 1
             print(f"request {i}: prompt={np.asarray(r.prompt).tolist()} "
                   f"REJECTED — {r.error}")
             continue
+        replica = f" replica={r.replica}" if sc.replicas > 1 else ""
         print(f"request {i}: prompt={np.asarray(r.prompt).tolist()} "
               f"→ out={r.out_tokens}  "
               f"[bucket={r.bucket} padded_to={r.padded_to} "
-              f"cold={r.cold} latency={r.latency_s * 1e3:.0f}ms]")
-    st = eng.stats()
-    print(f"served={st['requests']['served']} "
-          f"microbatches={st['microbatches']['total']} "
-          f"(multi={st['microbatches']['multi_request']}) "
-          f"refills={st['microbatches']['refills']} "
-          f"chunked_prefills={st['chunked_prefills']} "
-          f"hit_rate={st['bucket_hit_rate']:.2f} "
-          f"post_warmup_fresh_resolutions="
-          f"{st['plans']['post_warmup_fresh_resolutions']}")
+              f"cold={r.cold}{replica} "
+              f"latency={r.latency_s * 1e3:.0f}ms]")
+    st = server.stats()
+    if sc.replicas > 1:
+        per = [p["requests"]["served"] for p in st["per_replica"]]
+        print(f"served={st['requests']['served']} over {st['healthy']}/"
+              f"{st['replicas']} healthy replicas (per replica {per}) "
+              f"post_warmup_fresh_resolutions="
+              f"{st['post_warmup_fresh_resolutions']}")
+    else:
+        print(f"served={st['requests']['served']} "
+              f"microbatches={st['microbatches']['total']} "
+              f"(multi={st['microbatches']['multi_request']}) "
+              f"refills={st['microbatches']['refills']} "
+              f"chunked_prefills={st['chunked_prefills']} "
+              f"hit_rate={st['bucket_hit_rate']:.2f} "
+              f"post_warmup_fresh_resolutions="
+              f"{st['plans']['post_warmup_fresh_resolutions']}")
     if args.stats:
         print(json.dumps(st, indent=1, sort_keys=True))
+    if args.trace:
+        from repro_torch.obs.trace import export_chrome
+        repro_torch.configure(obs_trace=None, obs=False)  # close the JSONL
+        print(f"trace: {args.trace} (chrome: {export_chrome(args.trace)})")
     if rejected:
         raise SystemExit(f"{rejected} request(s) rejected at admission")
     return 0

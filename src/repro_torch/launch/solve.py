@@ -15,7 +15,9 @@ ranks (``--local-path ref|grouped``; escalation defaults to ``balanced``).
 ``--backend`` defaults to ``nccl`` when P·Q cards are visible (a card per
 rank) and to ``gloo`` otherwise (every rank on ``cuda:0``, or the CPU);
 the choice is printed before any work.  The reference's ``--devices``
-has no counterpart: the grid is ``--summa``.
+has no counterpart: the grid is ``--summa``.  ``--trace PATH`` records a
+``repro_torch.obs`` JSONL trace (with ``--summa``, rank 0's events) and
+writes its Chrome export beside it.
 Exit status is nonzero unless the solve converged with zero fresh
 mid-solve plan resolutions and (tile escalation, store mode) a map
 cheaper than uniform-HIGH.
@@ -84,6 +86,10 @@ def _parse(argv=None):
     ap.add_argument("--stats", action="store_true",
                     help="print per-sweep wall-times and per-escalation "
                          "promotion records (JSON)")
+    ap.add_argument("--trace", default="",
+                    help="record a repro_torch.obs JSONL trace to this "
+                         "path (a Perfetto-loadable .trace.json is "
+                         "written beside it)")
     return ap.parse_args(argv)
 
 
@@ -92,6 +98,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    from repro_torch import obs
     from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet
     from repro_torch.launch.grid import placement
     from repro_torch.solve import (SolveConfig, diag_dominant, graded_spd,
@@ -100,6 +107,8 @@ def main(argv=None) -> int:
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if args.trace:
+        obs.configure(enabled=True, trace_path=args.trace)
     grid = (tuple(int(v) for v in args.summa.lower().split("x"))
             if args.summa else None)
     device, backend = args.device, args.backend
@@ -162,6 +171,10 @@ def main(argv=None) -> int:
               " ".join(f"{s:.4f}" for s in rep.sweep_seconds))
         for p in rep.promotions:
             print("promotion:", json.dumps(p, sort_keys=True))
+    if args.trace:
+        from repro_torch.obs.trace import export_chrome
+        obs.configure(enabled=False)     # flush and close the JSONL file
+        print(f"trace: {args.trace} (chrome: {export_chrome(args.trace)})")
     # only the data-driven tile mode is gated on a strict storage saving:
     # balanced escalation may saturate at uniform-HIGH, and a split solve
     # saves compute passes, not bytes

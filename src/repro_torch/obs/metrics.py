@@ -1,10 +1,15 @@
-"""Process-local metrics registry — labeled counters and histograms (the
-part of ``repro.obs.metrics`` that dispatch and the serve engine use).
+"""Process-local metrics registry — labeled counters, gauges and
+histograms (twin of ``repro.obs.metrics``).
 
 A *metric* is a name plus a label set
 (``dispatch.calls{path=ksplit_cuda,op=linear,...}``); each distinct label
-combination is its own series.  Increments are a dict lookup and a float
-add under a lock.
+combination is its own series.  Creating or finding a series is a dict
+lookup under a lock; the registry is always live, while the event tracer
+(``repro_torch.obs.trace``) is the part that is off unless enabled.
+
+Naming: ``<subsystem>.<noun>[_<unit>]`` (``tune.plan_resolutions``,
+``serve.request.latency_s``), labels for the dimensions that fan out
+(``path=``, ``source=``, ``op=``).
 """
 from __future__ import annotations
 
@@ -16,6 +21,11 @@ def label_key(labels: dict) -> str:
     return ",".join(f"{k}={labels[k]}" for k in sorted(labels))
 
 
+#: guards the read-modify-write of every update: the cluster's replicas
+#: update the process-global registry from their own threads
+_UPDATE_LOCK = threading.Lock()
+
+
 class Counter:
     """Monotonically-increasing value (float increments allowed)."""
 
@@ -25,11 +35,24 @@ class Counter:
         self.value = 0.0
 
     def inc(self, v: float = 1.0) -> None:
-        self.value += v
+        with _UPDATE_LOCK:
+            self.value += v
+
+
+class Gauge:
+    """Last-written value."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
 
 
 class Histogram:
-    """Streaming count/sum/min/max summary."""
+    """Streaming count/sum/min/max summary (no samples kept)."""
 
     __slots__ = ("count", "sum", "min", "max")
 
@@ -41,21 +64,32 @@ class Histogram:
 
     def observe(self, v: float) -> None:
         v = float(v)
-        self.count += 1
-        self.sum += v
-        self.min = min(self.min, v)
-        self.max = max(self.max, v)
+        with _UPDATE_LOCK:
+            self.count += 1
+            self.sum += v
+            self.min = min(self.min, v)
+            self.max = max(self.max, v)
 
     @property
     def mean(self) -> float:
         return self.sum / self.count if self.count else 0.0
 
+    def summary(self) -> dict:
+        return {"count": self.count, "sum": self.sum, "mean": self.mean,
+                "min": self.min if self.count else 0.0,
+                "max": self.max if self.count else 0.0}
 
-_KINDS = {"counter": Counter, "histogram": Histogram}
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
 
 
 class MetricsRegistry:
-    """Thread-safe name → {label set → series} store."""
+    """Thread-safe name → {label set → series} store.
+
+    ``counter()/gauge()/histogram()`` create-or-return the series of one
+    label combination (a name keeps its first kind: asking for another
+    raises ``TypeError``); ``snapshot()`` returns plain data for reports;
+    ``reset(name)`` clears one metric's series, ``reset()`` all."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -79,6 +113,9 @@ class MetricsRegistry:
     def counter(self, name: str, **labels) -> Counter:
         return self._series("counter", name, labels)
 
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._series("gauge", name, labels)
+
     def histogram(self, name: str, **labels) -> Histogram:
         return self._series("histogram", name, labels)
 
@@ -90,13 +127,31 @@ class MetricsRegistry:
                 else []
 
     def value(self, name: str, default: float = 0.0, **labels) -> float:
-        """One counter's value, without creating the series."""
+        """One counter's or gauge's value, without creating the
+        series."""
         with self._lock:
             ent = self._metrics.get(name)
             if ent is None:
                 return default
             hit = ent[1].get(label_key(labels))
             return hit[1].value if hit else default
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
+    def snapshot(self) -> dict:
+        """``{name: [{"labels": {...}, "value": v | summary-dict}, ...]}``
+        — plain JSON-able data, sorted by label key."""
+        out: dict = {}
+        with self._lock:
+            for name, (kind, table) in sorted(self._metrics.items()):
+                out[name] = [
+                    {"labels": dict(table[key][0]),
+                     "value": (table[key][1].summary() if kind == "histogram"
+                               else table[key][1].value)}
+                    for key in sorted(table)]
+        return out
 
     def reset(self, name: str | None = None) -> None:
         with self._lock:

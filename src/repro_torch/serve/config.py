@@ -5,8 +5,8 @@
     eng = Engine(cfg, params, ServeConfig(max_batch=4))
 
 The defaults are the reference's: slot refill, the paged prefix cache
-and chunked long-prompt prefill are on.  The reference's cluster fields
-(``replicas``, ``affinity``, ``stall_timeout_s``) are not ported yet.
+and chunked long-prompt prefill are on; one engine serves unless
+``replicas`` asks for a :class:`~repro_torch.serve.cluster.Cluster`.
 """
 from __future__ import annotations
 
@@ -52,6 +52,14 @@ class ServeConfig:
       (honoured by the launcher; ``Engine.warmup()`` stays explicit).
     * ``summa_grid`` — run the SUMMA self-check for this P×Q grid at
       engine construction (None → ``ArchConfig.summa_grid``).
+
+    Cluster:
+
+    * ``replicas`` — data-parallel engines behind the front-end.
+    * ``affinity`` — prefer the replica that last served a request's
+      (bucket, format set) when load is within ``AFFINITY_SLACK``.
+    * ``stall_timeout_s`` — no-progress window after which a replica is
+      declared stalled and its pending work re-routed.
     """
     buckets: Optional[tuple] = None
     waste_cap: float = 0.75
@@ -67,6 +75,9 @@ class ServeConfig:
     page_tokens: int = 4
     chunked_prefill: bool = True
     warmup: bool = True
+    replicas: int = 1
+    affinity: bool = True
+    stall_timeout_s: float = 10.0
 
     def __post_init__(self):
         if self.buckets is not None:
@@ -75,11 +86,14 @@ class ServeConfig:
                                                 for b in self.buckets))))
         for field, lo in (("max_batch", 1), ("max_queue", 1),
                           ("max_dynamic", 1), ("max_seq", 2),
-                          ("prefix_pages", 1), ("page_tokens", 1)):
+                          ("prefix_pages", 1), ("page_tokens", 1),
+                          ("replicas", 1)):
             if getattr(self, field) < lo:
                 raise ValueError(f"{field} {getattr(self, field)} < {lo}")
         if not 0.0 <= self.waste_cap <= 1.0:
             raise ValueError(f"waste_cap {self.waste_cap} not in [0, 1]")
+        if self.stall_timeout_s <= 0:
+            raise ValueError(f"stall_timeout_s {self.stall_timeout_s} <= 0")
 
     def pad_lens(self, arch_buckets: Optional[tuple] = None) -> tuple:
         """Configured pad lengths with the documented fallback chain."""

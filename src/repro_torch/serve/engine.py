@@ -81,6 +81,14 @@ refilled, page-reused, chunked and sampled requests alike.
 There is no ``jit`` to warm: :meth:`warmup` resolves every GEMM plan the
 buckets need (and builds the CUDA kernels), and ``stats()`` counts the
 *fresh* plan resolutions after warmup, which must stay 0.
+
+Trace events (``repro_torch.obs``, when enabled), as the reference's:
+``serve.warmup`` per bucket, ``serve.microbatch`` around each microbatch,
+``serve.prefill`` around every prefill (full, page-reused, chunked, and
+a refill's), ``serve.decode`` around the decode loop, ``serve.retire``
+per retired request and ``serve.refill`` per refilled slot.  Spans are
+host time; a microbatch's span ends after its last tokens are read to
+the host, so it covers the device work too.
 """
 from __future__ import annotations
 
@@ -91,6 +99,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
@@ -122,7 +131,7 @@ class Request:
     latency_s: float = 0.0
     dispatch_paths: tuple = ()
     error: str = ""
-    replica: int = -1             # cluster replica (no cluster ported yet)
+    replica: int = -1             # cluster replica (serve.cluster)
 
 
 @dataclasses.dataclass
@@ -282,10 +291,6 @@ class Engine:
         keys = list(keys) if keys is not None else [
             k for k, b in self.scheduler.buckets.items() if b.configured]
         fresh0 = dispatch.fresh_resolutions()
-        plan_table = dispatch.resolve_plans_for_buckets(
-            self.variants,
-            [(k.fset, self.scheduler.cfg.max_batch, k.pad_len)
-             for k in keys])
         if self.device.type == "cuda":
             ops.ensure_built()
         report = {}
@@ -294,6 +299,11 @@ class Engine:
             if key.pad_len + 1 > self.max_seq:
                 raise AdmissionError(
                     f"bucket {key} does not fit max_seq {self.max_seq}")
+            with obs.span("serve.warmup", "serve", bucket=str(key),
+                          batch=bucket.batch):
+                plan_table = dispatch.resolve_plans_for_buckets(
+                    self.variants,
+                    [(key.fset, self.scheduler.cfg.max_batch, key.pad_len)])
             plans = {**plan_table.get((key.fset, 1), {}),
                      **plan_table.get((key.fset, bucket.batch), {})}
             bucket.paths = tuple(sorted({p.path for p in plans.values()}))
@@ -380,10 +390,13 @@ class Engine:
             bucket, reqs = mb
             if not reqs:
                 continue
-            if self.mode == "masked":
-                self._serve_microbatch(bucket, reqs)
-            else:
-                self._serve_microbatch_equal(bucket, reqs)
+            serve = (self._serve_microbatch if self.mode == "masked"
+                     else self._serve_microbatch_equal)
+            with obs.span("serve.microbatch", "serve",
+                          bucket=str(bucket.key), n_real=len(reqs),
+                          batch=bucket.batch, pad_len=bucket.key.pad_len,
+                          warm=bucket.warmed):
+                serve(bucket, reqs)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Snapshot a host staging buffer onto the device.  The numpy copy
@@ -404,6 +417,7 @@ class Engine:
             raise ValueError(f"a row's last token is outside the prefill "
                              f"span [{start}, {stop})")
         toks_d = self._dev(toks[:, start:stop])
+        steps = self.metrics.counter("serve.prefill_steps")
         last = None
         for s in range(start, stop):
             logits, _ = T.forward_decode(params, self.cfg,
@@ -413,7 +427,8 @@ class Engine:
                 last = torch.empty_like(logits[:, 0])
             for i in np.flatnonzero(lengths == s + 1):
                 last[i].copy_(logits[i, 0])
-        self.metrics.counter("serve.prefill_steps").inc(stop - start)
+            # per position: a cluster's heartbeat reads it mid-prefill
+            steps.inc()
         return last
 
     def _decode(self, params, caches, cur: torch.Tensor,
@@ -459,6 +474,10 @@ class Engine:
         m.counter("serve.requests_served").inc()
         m.counter("serve.tokens_generated").inc(n_new)
         m.histogram("serve.request.latency_s").observe(r.latency_s)
+        if obs.is_enabled():
+            obs.event("serve.retire", "serve", bucket=str(bucket.key),
+                      slot=i, new_tokens=n_new, cold=r.cold,
+                      latency_s=round(r.latency_s, 6))
 
     @staticmethod
     def _drain(devbuf: list, hist: list) -> None:
@@ -544,24 +563,24 @@ class Engine:
             active = np.array([r.active for r in rows], np.int64)
             return self._dev(pos), self._dev(active)
 
-        process_retirements()
-        pos_d, active_d = decode_state()
-        steps = 0
-        while any(r.active for r in rows):
-            logits = self._decode(params, caches, cur, pos_d)
-            live = np.array([r.active for r in rows])
-            n = np.array([r.emitted for r in rows], np.int64)
-            cur = self._sample(logits, temps, seeds, n, live)
-            devbuf.append(cur)
-            pos_d = pos_d + active_d
-            steps += 1
-            for i, r in enumerate(rows):
-                if r.active:
-                    r.emitted += 1
-                    pos[i] += 1
-            if process_retirements():
-                pos_d, active_d = decode_state()
-        m.counter("serve.decode_steps").inc(steps)
+        with obs.span("serve.decode", "serve", bucket=str(key)):
+            process_retirements()
+            pos_d, active_d = decode_state()
+            while any(r.active for r in rows):
+                logits = self._decode(params, caches, cur, pos_d)
+                live = np.array([r.active for r in rows])
+                n = np.array([r.emitted for r in rows], np.int64)
+                cur = self._sample(logits, temps, seeds, n, live)
+                devbuf.append(cur)
+                pos_d = pos_d + active_d
+                # counted per step: the cluster's heartbeat reads it
+                m.counter("serve.decode_steps").inc()
+                for i, r in enumerate(rows):
+                    if r.active:
+                        r.emitted += 1
+                        pos[i] += 1
+                if process_retirements():
+                    pos_d, active_d = decode_state()
         bucket.warmed = True
         m.counter("serve.serve_time_s").inc(time.perf_counter() - t0)
         m.histogram("serve.microbatch.size").observe(n_real)
@@ -614,8 +633,10 @@ class Engine:
         devbuf: list = []
         drops: list = []
         caches = T.init_cache(self.cfg, B, self.max_seq, self.device)
-        last = self._prefill(params, caches, toks, np.full(B, S), 0, S,
-                             drops)
+        with obs.span("serve.prefill", "serve", bucket=str(key), batch=B,
+                      pad_len=S, prefix_reuse=False):
+            last = self._prefill(params, caches, toks, np.full(B, S), 0, S,
+                                 drops)
         cur = self._sample(last, temps, seeds, np.zeros(B, np.int64), draw)
         devbuf.append(cur)
         bucket.padded_tokens += int((B - n_real) * S)
@@ -629,20 +650,21 @@ class Engine:
                 for i in ret:
                     self._finalize(rows[i], i, bucket, hist, S, t0)
 
-        process_retirements()
-        t = 1
-        while any(r.active for r in rows):
-            logits = self._decode_equal(params, caches, cur, S + t - 1,
-                                        drops)
-            cur = self._sample(logits, temps, seeds,
-                               np.full(B, t, np.int64), draw)
-            devbuf.append(cur)
-            for r in rows:
-                if r.active:
-                    r.emitted += 1
-            t += 1
+        with obs.span("serve.decode", "serve", bucket=str(key)):
             process_retirements()
-        m.counter("serve.decode_steps").inc(t - 1)
+            t = 1
+            while any(r.active for r in rows):
+                logits = self._decode_equal(params, caches, cur, S + t - 1,
+                                            drops)
+                cur = self._sample(logits, temps, seeds,
+                                   np.full(B, t, np.int64), draw)
+                devbuf.append(cur)
+                m.counter("serve.decode_steps").inc()
+                for r in rows:
+                    if r.active:
+                        r.emitted += 1
+                t += 1
+                process_retirements()
         if self.cfg.n_experts:
             self.moe_dropped.append(int(torch.stack(drops).sum()))
         bucket.warmed = True
@@ -714,20 +736,25 @@ class Engine:
                     for i in range(n_real)]
             use_sfx = bool(digs) and all(
                 d is not None and self.prefix.covers(d) for d in digs)
-            if use_sfx:
-                for i in range(n_real):
-                    rows[i].table = self._scatter_chain(caches, digs[i], i)
-                last = self._prefill(params, caches, toks, lengths, P, S)
-                self.metrics.counter("serve.prefix.reused_prefills").inc()
-                bucket.padded_tokens += int(
-                    B * (S - P)
-                    - np.maximum(lengths[:n_real] - P, 0).sum())
-            else:
-                missed = self._count_wave(digs)
-                last = self._prefill(params, caches, toks, lengths, 0, S)
-                bucket.padded_tokens += int(B * S - lengths[:n_real].sum())
-                for i in missed.values():
-                    self._insert_chain_from_row(caches, digs[i], i)
+            with obs.span("serve.prefill", "serve", bucket=str(key),
+                          batch=B, pad_len=S, prefix_reuse=use_sfx):
+                if use_sfx:
+                    for i in range(n_real):
+                        rows[i].table = self._scatter_chain(caches, digs[i],
+                                                            i)
+                    last = self._prefill(params, caches, toks, lengths, P, S)
+                    self.metrics.counter(
+                        "serve.prefix.reused_prefills").inc()
+                    bucket.padded_tokens += int(
+                        B * (S - P)
+                        - np.maximum(lengths[:n_real] - P, 0).sum())
+                else:
+                    missed = self._count_wave(digs)
+                    last = self._prefill(params, caches, toks, lengths, 0, S)
+                    bucket.padded_tokens += int(
+                        B * S - lengths[:n_real].sum())
+                    for i in missed.values():
+                        self._insert_chain_from_row(caches, digs[i], i)
         return self._sample(last, temps, seeds, np.zeros(B, np.int64),
                             np.arange(B) < n_real)
 
@@ -780,23 +807,26 @@ class Engine:
         C = self._chunk
         digs, n_skip = self._chunk_skip(key.fset, toks, lengths,
                                         range(n_real), S)
-        missed: dict[tuple, int] = {}
-        if n_skip:
-            npages = n_skip * C // self.pool.page_tokens
-            for i in range(n_real):
-                rows[i].table = self._scatter_chain(caches,
-                                                    digs[i][:npages], i)
-            self.metrics.counter("serve.prefix.reused_prefills").inc()
-        else:
-            missed = self._count_wave(digs)
-        last = self._prefill(params, caches, toks, lengths, n_skip * C, S)
-        self._count_chunks(S, n_skip)
-        bucket.padded_tokens += int(
-            B * (S - n_skip * C)
-            - np.maximum(lengths[:n_real] - n_skip * C, 0).sum())
-        for i in missed.values():
-            self._insert_chain_from_row(caches, digs[i], i)
-        return last
+        with obs.span("serve.prefill", "serve", bucket=str(key), batch=B,
+                      pad_len=S, prefix_reuse=n_skip > 0,
+                      chunks=S // C, chunks_skipped=n_skip):
+            missed: dict[tuple, int] = {}
+            if n_skip:
+                npages = n_skip * C // self.pool.page_tokens
+                for i in range(n_real):
+                    rows[i].table = self._scatter_chain(caches,
+                                                        digs[i][:npages], i)
+                self.metrics.counter("serve.prefix.reused_prefills").inc()
+            else:
+                missed = self._count_wave(digs)
+            last = self._prefill(params, caches, toks, lengths, n_skip * C, S)
+            self._count_chunks(S, n_skip)
+            bucket.padded_tokens += int(
+                B * (S - n_skip * C)
+                - np.maximum(lengths[:n_real] - n_skip * C, 0).sum())
+            for i in missed.values():
+                self._insert_chain_from_row(caches, digs[i], i)
+            return last
 
     def _scratch_cache(self, B: int) -> list:
         """The refill prefill's cache at batch width ``B``, zeroed."""
@@ -851,8 +881,15 @@ class Engine:
                     insert = dig
                 start = 0
                 bucket.padded_tokens += int(S - L2)
-        last = self._prefill(params, scratch, np.tile(toks[i, :L2], (B, 1)),
-                             np.full(B, L2, np.int64), start, L2)
+        chunks = (dict(chunks=S // self._chunk,
+                       chunks_skipped=start // self._chunk)
+                  if self._is_chunked(S) else {})
+        with obs.span("serve.prefill", "serve", bucket=str(key), batch=B,
+                      pad_len=S, prefix_reuse=table is not None,
+                      refill_slot=i, **chunks):
+            last = self._prefill(params, scratch,
+                                 np.tile(toks[i, :L2], (B, 1)),
+                                 np.full(B, L2, np.int64), start, L2)
         draw = np.arange(B) == 0
         first = int(self._sample(last, np.where(draw, temps[i], 0.0),
                                  np.full(B, seeds[i]), np.zeros(B, np.int64),
@@ -868,6 +905,9 @@ class Engine:
         self.metrics.counter("serve.refills").inc()
         if table is not None:
             self.metrics.counter("serve.prefix.reused_refills").inc()
+        if obs.is_enabled():
+            obs.event("serve.refill", "serve", bucket=str(key), slot=i,
+                      length=L2, prefix_reuse=table is not None)
         return first
 
     # ------------------------------------------------------------------

@@ -43,6 +43,7 @@ import dataclasses
 import threading
 from typing import Optional
 
+from repro_torch import obs
 from repro_torch.obs.metrics import MetricsRegistry
 
 __all__ = [
@@ -240,6 +241,9 @@ class ShapeBucketScheduler:
                                      field=field).inc(getattr(gone, field))
             self._pending.pop(victim, None)
             self.metrics.counter("serve.evictions").inc()
+            if obs.is_enabled():
+                obs.event("serve.evict", "serve", bucket=str(victim),
+                          served=gone.served)
         self.buckets[key] = Bucket(key, self.cfg.max_batch, configured=False)
         self._dynamic_lru[key] = True
         return key
@@ -268,6 +272,9 @@ class ShapeBucketScheduler:
             self._queue.append((key, req))
             self._pending[key].append(req)
             self._queued_ids.add(id(req))
+        if obs.is_enabled():
+            obs.event("serve.admit", "serve", bucket=str(key),
+                      length=length, fset=fset)
         return key
 
     def pending(self) -> int:

@@ -39,8 +39,15 @@ grouped solve (``residual_path="grouped"``, ``balance_groups=P`` and the
 same ``nrhs_pad``): the grouped kernel's accumulate-into form sums every
 C tile in the single launch's order.
 
-Not ported here: the reference's ``obs`` spans and events (they come
-with the port's ``obs`` tracing).  The port adds the device:
+Trace events (``repro_torch.obs``, when enabled), as the reference's:
+``solve.run`` around the solve, ``solve.factor`` around each
+factorization, ``solve.sweep`` around each LU refinement sweep,
+``solve.escalate`` per promotion (with the promoted tiles' coordinates,
+at most ``PROMOTION_COORD_CAP``), ``solve.compute_decision`` and
+``solve.sweep_metric``.  Spans are host time; the factor and sweep spans
+end after their results are read to the host.  A distributed solve's
+ranks all trace the same decisions: the parent's trace keeps rank 0's
+(``launch.grid.run_on_grid``).  The port adds the device:
 ``solve(..., device=None)`` runs on ``cuda`` unless the caller passes
 ``device="cpu"``, and reports the seconds the trailing updates spend
 copying panels to the device and products back.
@@ -53,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import accuracy as ACC
 from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet
 from repro_torch.core.layout import MPMatrix
@@ -258,6 +266,10 @@ def _decide_compute(cfg: SolveConfig, mt: int, rt: int, dev
             or split_s < store_s else "store")
     if mode == "split":
         cfg = dataclasses.replace(cfg, fset=split_fset)
+    if obs.is_enabled():
+        obs.event("solve.compute_decision", "solve", mode=mode,
+                  policy=cfg.compute_escalation, store_s=store_s,
+                  split_s=split_s)
     return cfg, mode, store_s, split_s
 
 
@@ -396,7 +408,9 @@ class _Solver:
             self.gemm_seconds += t3 - t0
             return prod
 
-        lu_, _stats = LU.blocked_lu(a_stored, self.pa, t, trailing)
+        with obs.span("solve.factor", "solve", rung=rung,
+                      factorization=self.factorizations + 1):
+            lu_, _stats = LU.blocked_lu(a_stored, self.pa, t, trailing)
         self.factorizations += 1
         self.factor_seconds += time.perf_counter() - tf
         return lu_
@@ -445,7 +459,7 @@ class _Solver:
         ratio = map_ratio_string(self.pa, fset)
         self.ratio_history.append(ratio)
         changed = np.argwhere(self.pa != old_pa)
-        self.promotions.append({
+        record = {
             "escalation": self.escalations,
             "mode": cfg.escalation,
             "rung": self._book_rung(),
@@ -453,7 +467,10 @@ class _Solver:
             "coords": [[int(i), int(j)]
                        for i, j in changed[:PROMOTION_COORD_CAP]],
             "ratio": ratio,
-        })
+        }
+        self.promotions.append(record)
+        if obs.is_enabled():
+            obs.event("solve.escalate", "solve", **record)
         return True
 
     def metric(self, x: np.ndarray) -> float:
@@ -516,15 +533,22 @@ def _solve_lu(sv: _Solver, t0: float) -> SolveReport:
     sweeps = 0
     while sweeps < cfg.max_sweeps:
         ts = time.perf_counter()
-        r = sv.b64 - np.asarray(sv.amul(x.astype(np.float32)), np.float64)
-        d = LU.solve_upper(
-            lu_, LU.solve_unit_lower(lu_, r.astype(np.float32), cfg.tile),
-            cfg.tile)
-        x = x + d
-        m = sv.metric(x)
+        with obs.span("solve.sweep", "solve", sweep=sweeps + 1,
+                      method="lu"):
+            r = sv.b64 - np.asarray(sv.amul(x.astype(np.float32)),
+                                    np.float64)
+            d = LU.solve_upper(
+                lu_,
+                LU.solve_unit_lower(lu_, r.astype(np.float32), cfg.tile),
+                cfg.tile)
+            x = x + d
+            m = sv.metric(x)
         sv.sweep_seconds.append(time.perf_counter() - ts)
         sweeps += 1
         history.append(m)
+        if obs.is_enabled():
+            obs.event("solve.sweep_metric", "solve", sweep=sweeps,
+                      metric=float(m))
         if m <= cfg.tol:
             return sv.report(x, True, sweeps, history, t0)
         if not np.isfinite(m) or m > cfg.stall_ratio * prev:
@@ -573,6 +597,9 @@ def _solve_cg(sv: _Solver, t0: float) -> SolveReport:
         sv.sweep_seconds.append(time.perf_counter() - blk0)
         blk0 = time.perf_counter()
         history.append(m)
+        if obs.is_enabled():
+            obs.event("solve.sweep_metric", "solve", sweep=iters,
+                      metric=float(m))
         if m <= cfg.tol:
             return sv.report(x, True, iters, history, t0)
         if not np.isfinite(m) or m > cfg.stall_ratio * prev:
@@ -627,11 +654,13 @@ def solve(a, b, cfg: SolveConfig = SolveConfig(),
                            torch.from_numpy(b64), cfg, device=rank_device,
                            backend=backend)
     t0 = time.perf_counter()
-    sv = _Solver(a, b, cfg, torch.device("cuda" if device is None
-                                         else device), grid)
-    sv.ratio_history.append(map_ratio_string(sv.pa, sv.cfg.fset))
-    if cfg.method == "cg":
-        return _solve_cg(sv, t0)
-    if cfg.method != "lu":
-        raise ValueError(f"unknown method {cfg.method!r} (lu | cg)")
-    return _solve_lu(sv, t0)
+    with obs.span("solve.run", "solve", method=cfg.method, tile=cfg.tile,
+                  escalation=cfg.escalation):
+        sv = _Solver(a, b, cfg, torch.device("cuda" if device is None
+                                             else device), grid)
+        sv.ratio_history.append(map_ratio_string(sv.pa, sv.cfg.fset))
+        if cfg.method == "cg":
+            return _solve_cg(sv, t0)
+        if cfg.method != "lu":
+            raise ValueError(f"unknown method {cfg.method!r} (lu | cg)")
+        return _solve_lu(sv, t0)

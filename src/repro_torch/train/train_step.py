@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch import tree as TR
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
@@ -52,8 +53,15 @@ def make_train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
     linear gets its plan resolved now, at ``tune_tokens`` rows, so the
     steps do no fresh resolution."""
     if tune_params is not None:
-        dispatch.warm_registry()
-        dispatch.tune_linear_params(tune_params, m_hint=tune_tokens or 4096)
+        with obs.span("train.tune_setup", "train",
+                      m_hint=tune_tokens or 4096):
+            dispatch.warm_registry()
+            dispatch.tune_linear_params(tune_params,
+                                        m_hint=tune_tokens or 4096)
+    if obs.is_enabled():
+        obs.event("train.step_config", "train", microbatches=microbatches,
+                  compress_accum=compress_accum,
+                  tuned=tune_params is not None)
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:

@@ -9,7 +9,8 @@ are published peaks (NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 989
 TFLOP/s dense bf16, 67 TFLOP/s fp32 outside the tensor cores); they feed
 a relative roofline, not a measurement.
 
-``REPRO_TORCH_TUNE_DEVICE=<table key>`` forces a spec (so a CPU host can
+``REPRO_TORCH_TUNE_DEVICE=<table key>`` (or ``repro_torch.configure(
+device=...)``, which takes precedence) forces a spec (so a CPU host can
 resolve plans for the card, and tests can drive the card's dispatch
 decisions on CPU tensors — the kernel wrappers then run their plain
 versions).
@@ -18,9 +19,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 
 import torch
+
+from repro_torch import config
 
 #: environment variable that forces a DeviceSpec by table key
 DEVICE_ENV = "REPRO_TORCH_TUNE_DEVICE"
@@ -60,8 +62,9 @@ KERNEL_CAPABILITY = (9, 0)
 
 def detect_device(device: torch.device | str | None = None) -> DeviceSpec:
     """The DeviceSpec of ``device`` (default: cuda if available, else
-    cpu), unless ``REPRO_TORCH_TUNE_DEVICE`` forces one."""
-    forced = os.environ.get(DEVICE_ENV)
+    cpu), unless the ``device`` setting (``REPRO_TORCH_TUNE_DEVICE``)
+    forces one."""
+    forced = config.get("device")
     if forced:
         if forced not in DEVICE_TABLE:
             raise KeyError(f"{DEVICE_ENV}={forced!r} not in device table "

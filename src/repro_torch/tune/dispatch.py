@@ -11,6 +11,11 @@ and its fixed summation order makes a row's result the same at any M);
 on other devices the plain PyTorch paths run.  The refinement solver
 prefetches every plan it can need (``resolve_solve_plans``).
 
+``tune_linear_params(..., measure=True)``, :func:`autotune_summa` and
+``search.autotune`` measure the candidates on the device and persist the
+winners; by default every resolution is the cost model's or a cached
+plan, never a measurement.
+
 Counters (in :func:`repro_torch.obs.metrics_registry`):
 
 * ``tune.plan_resolutions{source=registry|cache|model}`` — a ``model``
@@ -18,6 +23,11 @@ Counters (in :func:`repro_torch.obs.metrics_registry`):
   resolutions count under ``summa_registry|summa_cache|summa_default``,
   a ``summa_default`` one being fresh too);
 * ``dispatch.calls{path, op, formats}`` — one per dispatched GEMM.
+
+Trace events (when ``repro_torch.obs`` tracing is on): ``plan.resolve``
+per resolution (key, source) and a ``gemm.dispatch`` span around
+``mp_matmul``'s execution (host time: the span closes when the launches
+are enqueued).
 """
 from __future__ import annotations
 
@@ -47,14 +57,21 @@ DISPATCH_METRIC = "dispatch.calls"
 LINEAR_PATHS = ("ksplit_torch", "ksplit_cuda")
 
 
-def _count_resolution(source: str) -> None:
+def _count_resolution(source: str, key: str | None = None) -> None:
     obs.metrics_registry().counter(RESOLUTION_METRIC, source=source).inc()
+    if key is not None and obs.is_enabled():
+        obs.event("plan.resolve", "plan", key=key, source=source)
 
 
 def resolution_counters() -> dict[str, int]:
     """``{source: count}`` of plan resolutions since the last reset."""
     return {labels["source"]: int(c.value) for labels, c in
             obs.metrics_registry().series(RESOLUTION_METRIC)}
+
+
+def reset_resolution_counters() -> None:
+    """Reset ``tune.plan_resolutions`` in the metrics registry."""
+    obs.metrics_registry().reset(RESOLUTION_METRIC)
 
 
 def fresh_resolutions(counters: dict[str, int] | None = None) -> int:
@@ -84,7 +101,7 @@ def register_plan(key: str, plan: GemmPlan) -> None:
 
 def warm_registry(cache: S.PlanCache | None = None) -> int:
     """Load every persisted plan into the registry; returns the count."""
-    cache = cache or S.default_cache()
+    cache = cache if cache is not None else S.default_cache()
     keys = cache.keys()
     for key in keys:
         _REGISTRY[key] = cache.get(key)
@@ -220,17 +237,17 @@ def resolve_plan(prob: GemmProblem, dev: DeviceSpec | None = None,
     """registry > persisted cache > cost-model best; returns (plan,
     source).  Never measures."""
     dev = dev or detect_device()
+    key = S.plan_key(dev, prob)
     hit = _lookup_plan(prob, dev)
     if hit is not None:
-        _count_resolution(hit[1])
+        _count_resolution(hit[1], key)
         return hit
-    key = S.plan_key(dev, prob)
     ranked = S.rank_plans(S.candidate_plans(prob, dev, paths), prob, dev)
     if not ranked:
         raise ValueError(f"no valid plan for {key}")
     plan = ranked[0][0]
     _REGISTRY[key] = plan
-    _count_resolution("model")
+    _count_resolution("model", key)
     return plan, "model"
 
 
@@ -250,6 +267,11 @@ def mp_matmul(a: MPMatrix, b: MPMatrix, c: MPMatrix | None = None, *,
     obs.metrics_registry().counter(
         DISPATCH_METRIC, path=plan.path, op=prob.op,
         formats=prob.formats).inc()
+    if obs.is_enabled():
+        with obs.span("gemm.dispatch", "gemm", path=plan.path,
+                      m=prob.m, n=prob.n, k=prob.k, op=prob.op,
+                      formats=prob.formats):
+            return execute_plan(plan, a, b, c, alpha=alpha, beta=beta)
     return execute_plan(plan, a, b, c, alpha=alpha, beta=beta)
 
 
@@ -331,12 +353,44 @@ def linear_matmul(x: torch.Tensor, w: KSplitWeight) -> torch.Tensor:
     return _linear_forward(path, x, w)
 
 
-def tune_linear_params(params, m_hint: int) -> dict[str, GemmPlan]:
-    """Tune-once-at-setup: resolve a plan for every distinct KSplitWeight
+def tune_linear_params(params, m_hint: int, *, measure: bool = False,
+                       cache: S.PlanCache | None = None, warmup: int = 1,
+                       iters: int = 3) -> dict[str, GemmPlan]:
+    """Tune-once-at-setup: a plan for every distinct KSplitWeight
     signature in a parameter tree (dicts / lists / MPLinear leaves) at
-    ``m_hint`` rows.  Pure model selection + cache lookup."""
+    ``m_hint`` rows, loaded into the registry.
+
+    ``measure=False`` (the default) is model selection and cache lookup
+    only.  ``measure=True`` (outside cache-only mode) times both linear
+    paths on zero activations ``[m_hint, K]`` (bf16) on the weight's
+    device — the path a call of that weight would execute, so an
+    unsorted map times the gathering path under either plan — and
+    persists the winner to ``cache`` (default: the process cache)."""
     from repro_torch.core.linear import MPLinear
     plans: dict[str, GemmPlan] = {}
+
+    def tune(w: KSplitWeight) -> None:
+        dev = detect_device(w.bufs[0].device)
+        prob = linear_problem(w, m_hint)
+        key = S.plan_key(dev, prob)
+        if key in plans:
+            return
+        if not measure or S.cache_only():
+            plan = resolve_plan(prob, dev, LINEAR_PATHS)[0]
+        else:
+            x = torch.zeros((m_hint, w.shape[0]), dtype=torch.bfloat16,
+                            device=w.bufs[0].device)
+
+            def run(p: GemmPlan, x=x, w=w) -> torch.Tensor:
+                path = p.path if (p.path != "ksplit_cuda" or w.sorted) \
+                    else "ksplit_torch"
+                return _linear_forward(path, x, w)
+
+            plan, _ = S.autotune_problem(
+                prob, run, dev=dev, paths=LINEAR_PATHS, cache=cache,
+                warmup=warmup, iters=iters)
+            _REGISTRY[key] = plan
+        plans[key] = plan
 
     def visit(node):
         if isinstance(node, dict):
@@ -346,12 +400,7 @@ def tune_linear_params(params, m_hint: int) -> dict[str, GemmPlan]:
             for v in node:
                 visit(v)
         elif isinstance(node, MPLinear) and isinstance(node.w, KSplitWeight):
-            w = node.w
-            dev = detect_device(w.bufs[0].device)
-            prob = linear_problem(w, m_hint)
-            key = S.plan_key(dev, prob)
-            if key not in plans:
-                plans[key] = resolve_plan(prob, dev, LINEAR_PATHS)[0]
+            tune(node.w)
 
     visit(params)
     return plans
@@ -430,12 +479,13 @@ def resolve_summa_plan(prob: GemmProblem, dev: DeviceSpec | None = None
     per-shard shape, format set) key; otherwise the reference
     one-dot-per-C-class update is used."""
     dev = dev or detect_device()
+    key = S.plan_key(dev, prob)
     hit = _lookup_plan(prob, dev)
     if hit is not None:
-        _count_resolution("summa_" + hit[1])
+        _count_resolution("summa_" + hit[1], key)
         return hit
     t = prob.tile
-    _count_resolution("summa_default")
+    _count_resolution("summa_default", key)
     return GemmPlan(path="ref", bm=t, bn=t, bk=t), "default"
 
 
@@ -448,6 +498,34 @@ def summa_mp_matmul(a: MPMatrix, b: MPMatrix, c: MPMatrix | None = None, *,
     from repro_torch.core.summa import summa_mp_gemm
     return summa_mp_gemm(a, b, c, grid=grid, alpha=alpha, beta=beta,
                          plan=plan)
+
+
+def autotune_summa(a: MPMatrix, b: MPMatrix, c: MPMatrix | None = None, *,
+                   grid, alpha: float = 1.0, beta: float = 0.0,
+                   **kw) -> GemmPlan:
+    """Measure SUMMA's local-update candidates (``SUMMA_PATHS``) on
+    ``grid`` and persist the winner under the distributed plan key.
+    Collective: every rank calls it with the same operands, in the same
+    order.  Each candidate's time is the slowest rank's (gathered after
+    every measurement), so every rank ranks the same numbers and
+    persists the same plan."""
+    from repro_torch.core.summa import summa_mp_gemm
+    a, b, c = canonical_operands(a, b, c)
+    prob = summa_problem(a, b, c, grid, alpha=alpha, beta=beta)
+    kw.setdefault("dev", detect_device(a.device))
+
+    def run(p: GemmPlan):
+        return summa_mp_gemm(a, b, c, grid=grid, alpha=alpha, beta=beta,
+                             plan=p).bufs
+
+    def slowest_rank(fn, **mkw) -> float:
+        mine = torch.tensor([S.measure(fn, **mkw)], dtype=torch.float64,
+                            device=grid.device)
+        return max(float(v) for v in grid.all_gather(mine))
+
+    plan, _ = S.autotune_problem(prob, run, paths=SUMMA_PATHS,
+                                 timer=slowest_rank, **kw)
+    return plan
 
 
 # ---------------------------------------------------------------------------

@@ -207,7 +207,8 @@ def test_import_leaves_jax_and_reference_out():
     """``import repro_torch`` (every module: ``repro_torch.split``,
     ``repro_torch.solve``, ``repro_torch.serve.kv_pages``, the quant,
     optim, data, checkpoint, runtime and train modules, SUMMA, its
-    schedule and grid, and the three launchers among them)
+    schedule and grid, the settings facade, the tracer, both hygiene
+    validators, the serve cluster and the three launchers among them)
     imports neither jax nor the JAX package — checked in a fresh
     interpreter, and in a rank it spawns (``run_on_grid``)."""
     code = (
@@ -225,7 +226,10 @@ def test_import_leaves_jax_and_reference_out():
         "'repro_torch.data.pipeline', 'repro_torch.checkpoint.ckpt', "
         "'repro_torch.runtime.fault', 'repro_torch.train.train_step', "
         "'repro_torch.train.trainer', 'repro_torch.core.summa', "
-        "'repro_torch.core.schedule', 'repro_torch.launch.grid'):\n"
+        "'repro_torch.core.schedule', 'repro_torch.launch.grid', "
+        "'repro_torch.config', 'repro_torch.obs.trace', "
+        "'repro_torch.obs.hygiene', 'repro_torch.tune.hygiene', "
+        "'repro_torch.serve.cluster'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"

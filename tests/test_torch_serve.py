@@ -195,17 +195,30 @@ def test_serve_launcher_smoke_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--replicas", "2"],
-                                   ["--replicas", "2", "--ckpt", "x"],
+                                   ["--replicas", "2", "--trace", "TRACE"],
                                    ["--replicas", "2", "--quantize",
                                     "int8:d"],
-                                   ["--trace", "t.jsonl"]])
-def test_serve_launcher_refuses_unported_options(flags):
-    """Options of the reference launcher the port cannot serve yet
-    (``--replicas > 1``, ``--trace``) exit non-zero before any model is
-    built, naming their ROADMAP item, also beside the ported ``--ckpt``
-    and ``--quantize`` (which ``tests/test_torch_quant.py`` serves)."""
-    with pytest.raises(SystemExit) as exc:
-        serve_cli.main(["--smoke", "--device", "cpu", *flags])
-    msg = str(exc.value.code)
-    assert "not ported yet" in msg and "ROADMAP.md queue 1, item" in msg
-    assert flags[0] in msg
+                                   ["--trace", "TRACE"]])
+def test_serve_launcher_refuses_unported_options(flags, tmp_path, capsys):
+    """The reference launcher's ``--replicas`` and ``--trace`` are served
+    now (a cluster of engines; a JSONL trace with its Chrome export that
+    the hygiene validator accepts); what the reference refuses,
+    ``--replicas`` with ``--quantize``, the port refuses before any model
+    is built, with the reference's message."""
+    from repro_torch.obs import hygiene
+    trace = str(tmp_path / "t.jsonl")
+    flags = [trace if f == "TRACE" else f for f in flags]
+    argv = ["--smoke", "--device", "cpu", "--max-new", "2", *flags]
+    if "--quantize" in flags:
+        with pytest.raises(SystemExit) as exc:
+            serve_cli.main(argv)
+        assert "not supported with --replicas" in str(exc.value.code)
+        return
+    assert serve_cli.main(argv) == 0
+    out = capsys.readouterr().out
+    if "--replicas" in flags:
+        assert "cluster of 2 replicas" in out
+        assert "over 2/2 healthy replicas" in out
+    if "--trace" in flags:
+        assert hygiene.validate_trace(trace, min_span_types=3) == []
+        assert os.path.exists(trace[:-len(".jsonl")] + ".trace.json")

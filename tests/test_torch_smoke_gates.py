@@ -39,6 +39,15 @@ as the kernel's wrapper counts on the card):
   one more;
 * the kernel-against-plain gate fails on a kernel whose output is off
   by more than twice the plain orders' gap.
+
+Phase 14's gates (a reduced InternLM2 served by a two-replica cluster):
+
+* the token gate passes, and fails when one replica is built with
+  another ``rng_seed`` (its sampled requests change);
+* the trace gate passes on the cluster's trace, and fails on a line of
+  an unknown ``cat`` or an ``X`` span without ``dur``;
+* the cache-only spy passes on resolutions from the cache, and fails on
+  a cache-only resolution that calls ``measure``.
 """
 import dataclasses
 import os
@@ -543,3 +552,85 @@ def test_expert_gradient_gate_fails_wrong_expert_gathered(monkeypatch):
     cfg, params, batch, *_ = _moe_step0()
     with pytest.raises(SystemExit, match="does not follow their kept"):
         _probe(cfg, params, batch)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: cluster tokens, trace hygiene, the cache-only spy
+# ---------------------------------------------------------------------------
+
+def _cluster_run(tmp_path, fault=None, trace=None):
+    """Phase 14's requests on a reduced InternLM2 through one engine and
+    a two-replica cluster (``fault(cluster)`` before serving); runs
+    ``cluster_gate`` and returns the cluster."""
+    import repro_torch
+    from repro_torch.serve import Cluster, Engine, ServeConfig
+    cfg = reduced(get("internlm2-1.8b"))
+    params = PT.init_model(torch.Generator().manual_seed(0), cfg)
+    single = CS.cluster_requests(cfg.vocab)
+    CS.served_run(Engine(cfg, params, ServeConfig()), single)
+    cl = Cluster(cfg, params, ServeConfig(replicas=CS.CLUSTER_REPLICAS))
+    if fault is not None:
+        fault(cl)
+    reqs = CS.cluster_requests(cfg.vocab)
+    if trace:
+        repro_torch.configure(obs_trace=trace)
+    try:
+        CS.served_run(cl, reqs)
+    finally:
+        repro_torch.configure(obs_trace=None)
+    CS.cluster_gate("rehearsal", reqs, [r.out_tokens for r in single],
+                    cl.stats())
+    return cl
+
+
+def test_cluster_gates_pass_clean_run(tmp_path):
+    path = str(tmp_path / "cluster.jsonl")
+    cl = _cluster_run(tmp_path, trace=path)
+    events = CS.trace_gate("rehearsal", path, CS.CLUSTER_REPLICAS)
+    assert {"serve.microbatch", "serve.prefill", "serve.decode",
+            "serve.warmup"} <= set(CS.span_summary(events))
+    assert cl.stats()["healthy"] == 2
+
+
+def test_cluster_token_gate_fails_replica_with_another_seed(tmp_path):
+    def reseed(cl):
+        eng = cl.replicas[1]
+        eng.config = dataclasses.replace(eng.config, rng_seed=7)
+
+    with pytest.raises(SystemExit, match="differ from one engine"):
+        _cluster_run(tmp_path, fault=reseed)
+
+
+@pytest.mark.parametrize("bad", [
+    {"name": "serve.route", "cat": "rogue", "ph": "i", "ts": 1.0,
+     "pid": 1, "tid": 1, "s": "t", "args": {"replica": 0}},
+    {"name": "serve.decode", "cat": "serve", "ph": "X", "ts": 1.0,
+     "pid": 1, "tid": 1, "args": {}}], ids=["unknown-cat", "span-no-dur"])
+def test_trace_gate_fails_schema_faults(tmp_path, bad):
+    import json
+    path = str(tmp_path / "cluster.jsonl")
+    _cluster_run(tmp_path, trace=path)
+    CS.trace_gate("rehearsal", path, CS.CLUSTER_REPLICAS)
+    with open(path, "a") as f:
+        f.write(json.dumps(bad) + "\n")
+    with pytest.raises(SystemExit, match="fails hygiene"):
+        CS.trace_gate("rehearsal", path, CS.CLUSTER_REPLICAS)
+
+
+def test_cache_only_spy_fails_a_measuring_resolution(tmp_path, monkeypatch):
+    from repro_torch.core.layout import MPMatrix
+    from repro_torch.core.precision import Policy, make_map
+    rng = np.random.default_rng(0)
+    A, B, C = (MPMatrix.from_dense(
+        torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)),
+        make_map((64, 64), 16, Policy("ratio", 0.5, seed=s)), 16)
+        for s in range(3))
+    monkeypatch.setenv(PS.CACHE_ONLY_ENV, "1")
+    plan = PS.autotune(A, B, C)                 # model pick, in memory
+    assert CS.cache_only_gate("rehearsal", lambda: PS.autotune(A, B, C)) \
+        == plan
+    monkeypatch.setattr(PS, "cache_only", lambda: False)   # the fault
+    with pytest.raises(SystemExit, match="cache-only mode measured"):
+        CS.cache_only_gate("rehearsal",
+                           lambda: PS.autotune(A, B, C, force=True,
+                                               warmup=1, iters=1))
