@@ -102,8 +102,8 @@ Phases (each raises on failure, so a failing run never exits 0):
    convert kernel into every output dtype beside ``x.to``, and its
    class-map form at the solve's 8064² C and an 8192² 5D95S operand
    beside its bound and the per-class path (integer sets' path);
-7. (run between 5 and 6) train InternLM2-1.8B at full width, seq 128 x
-   batch 4: the step-0 loss and every gradient leaf through the ksplit kernel
+7. (run between 5 and 6) train InternLM2-1.8B at full width, 12 of its
+   24 layers (TRAIN_LAYERS), seq 128 x batch 4: the step-0 loss and every gradient leaf through the ksplit kernel
    (under autograd; the backward is the gathering path's VJP) within a
    stated allowance of the same step with ``ksplit_gemm_plain`` swapped
    in (and no further from it than a second plain order is); every forward KSplit linear on the kernel, no fresh resolution
@@ -133,7 +133,7 @@ Phases (each raises on failure, so a failing run never exits 0):
 9. (run after 4c) the MoE and local/global families through the engine's
    equal mode (phases 9 and 10 cut depth, not width, to keep the run
    inside its time limit; no gate depends on depth). Qwen1.5-MoE-A2.7B at
-   full width, 8 of its 24 layers (60 experts top-4, random weights from
+   full width, 4 of its 24 layers (60 experts top-4, random weights from
    a seeded generator; its parameter bytes by kind printed): eight
    requests (four 32-token, four 64-token prompts, 12
    new tokens, two sampled) at ``max_batch=4``. (a) At the published
@@ -162,12 +162,12 @@ Phases (each raises on failure, so a failing run never exits 0):
    period decoded through 2048 positions, past the window, against the
    bulk forward under rule (c).
 10. (run after 9) the xLSTM family through the engine's equal mode:
-   xLSTM-1.3B at full width, 16 of its 48 layers (14 mLSTM and 2 sLSTM,
+   xLSTM-1.3B at full width, 8 of its 48 layers (7 mLSTM and 1 sLSTM,
    d 2048, 4 heads, vocab 50304; random weights from a seeded generator;
    its fp32 recurrent state per row printed), two 32-token and two
    64-token requests at ``max_batch=4``, 12 new tokens each: every
-   request equal to ``generate_reference``, 17 ksplit launches in every
-   model step (14 ``up_proj``, 2 ``ff_up``, the lm_head: counted per
+   request equal to ``generate_reference``, 9 ksplit launches in every
+   model step (7 ``up_proj``, 1 ``ff_up``, the lm_head: counted per
    step), no
    fresh resolution, every KSplit linear on the kernel; then the first
    pattern period (1 sLSTM, 7 mLSTM layers) decoded through 128
@@ -220,7 +220,7 @@ Phases (each raises on failure, so a failing run never exits 0):
    the batch-4 decode step beside its byte bound and the peak memory.
 13. (run after 12) training the MoE, xLSTM and Mamba-hybrid families at
    published widths, depth the only cut (``FT_CELLS``): Qwen1.5-MoE-
-   A2.7B's first 2 layers at seq 128 x batch 4, xLSTM-1.3B's first 16
+   A2.7B's first 2 layers at seq 128 x batch 4, xLSTM-1.3B's first 8
    at 512 x 2 (the mLSTM scan crosses its 256-position chunk), Jamba-
    v0.1's layer 0 at 256 x 2 (the selective scan crosses its 128-
    position chunk); each prints the bytes of weights, gradients and
@@ -269,6 +269,28 @@ Phases (each raises on failure, so a failing run never exits 0):
    measurement (a spy on ``measure``); one row per candidate (path,
    measured and predicted µs); (e) ``launch.serve --smoke --replicas 2 --trace`` and
    ``launch.solve --trace`` as subprocesses: exit 0, clean traces.
+15. (run after 8) the mesh layer: one spawn of four ranks sharing the
+   card over gloo, the mesh (pod=2, data=1, model=2), a miniature of
+   ``make_production_mesh(multi_pod=True)``; every call in that spawn
+   (``launch.mesh_checks``, gated here, see :func:`mesh_phase`): (a)
+   Qwen1.5-MoE-A2.7B at published widths, 2 layers, the prefill (one
+   pass of the layers) of one 256-token sequence per pod through
+   ``moe_block_sharded`` (the
+   non-EP, d_ff-sharded path) against the unmeshed forward of that
+   sequence (layer 0's kept pairs equal, logits and hidden states within
+   three times the gap of one extra bf16 rounding per MoE layer, 11
+   ksplit launches in every rank), and Phi-3.5-MoE's MoE block (the EP
+   path) against ``moe_block`` within its rounding allowance; (b)
+   ``cross_pod_mean`` on InternLM2-1.8B's gradient tree (2 layers, embed,
+   lm_head) bit for bit the mean over pods of the compressed trees; (c)
+   that model's parameters sharded by ``param_specs``, saved
+   collectively to the mesh's first rank (the manifest equals a
+   single-process save's), restored
+   onto (data=4, model=1) and onto ``shrink_mesh_shape``'s (2, 1) on two
+   ranks, each rank reading only its slices, every shard bit for bit
+   its slice.  The gloo collectives' ms and bytes per MoE block and the
+   cross-pod all-reduce's seconds and GB are
+   printed: four ranks on one card measure the protocol, not scaling.
 
 Every phase's seconds are printed (``phase ...: s``) and summed up in
 the ``phase seconds`` line.  The second-to-last lines are a JSON object ``{"kernels": [...]}`` and the
@@ -1589,6 +1611,10 @@ def serve_quant(cfg, seed: int = 0) -> dict:
 TRAIN_SEQ, TRAIN_BATCH = 128, 4
 TRAIN_STEPS = 8
 RESTART_LAYERS = 1
+#: phase 7's depth: 12 of InternLM2-1.8B's 24 layers at full width (24
+#: until phase 15 took the script past 900 s); the allowances below were
+#: set at 24 layers, where the summation-order gaps are largest
+TRAIN_LAYERS = 12
 #: the kernel-against-plain allowance at step 0 (loss, and per gradient
 #: leaf ||d||/||g|| and max|d|/max|g|).  Any change of fp32 summation
 #: order in the KSplit linears flips bf16 activation roundings, and 24
@@ -2544,11 +2570,12 @@ def host_clock_ms(fn, iters: int = 10) -> float:
 #: the depths phases 9 and 10 serve at (every width as published): the
 #: whole script must finish well inside its time limit on a slow host
 #: (at full depths it took 1161 s on one H100 machine), and no gate
-#: depends on depth. Qwen1.5-MoE-A2.7B: 8 of 24 layers; Gemma-3-4B: 6 of 34
-#: (one period of 5 local layers and 1 global; 12 until the script passed
-#: 900 s on a slow host); xLSTM-1.3B: 16 of 48 (two periods of 1 sLSTM and
-#: 7 mLSTM layers)
-MOE_LAYERS, GEMMA_LAYERS, XLSTM_LAYERS = 8, 6, 16
+#: depends on depth. Qwen1.5-MoE-A2.7B: 4 of 24 layers (8 until phase 15
+#: took the script past 900 s); Gemma-3-4B: 6 of 34 (one period of 5 local
+#: layers and 1 global; 12 until the script passed 900 s on a slow host);
+#: xLSTM-1.3B: 8 of 48 (one period of 1 sLSTM and 7 mLSTM layers; 16, two
+#: periods, until phase 15)
+MOE_LAYERS, GEMMA_LAYERS, XLSTM_LAYERS = 4, 6, 8
 #: phase 9's qwen2 stream: four 32-token and four 64-token prompts, 12 new
 #: tokens each, requests 1 and 5 sampled (temperature 0.8); the cache
 #: holds the 64-token bucket's 64 + 12 - 1 slots
@@ -2568,6 +2595,7 @@ GEMMA_LENS = (64, 64, 32, 32)
 GEMMA_NEW = 8
 #: gemma3 at one period of its pattern (5 local layers, 1 global): one row
 #: decoded through twice the 1024 window, so the local ring buffers wrap
+#: (the bulk's windowed attention needs a multiple of the window)
 WINDOW_POSITIONS = 2048
 
 
@@ -3923,13 +3951,14 @@ def frontends_phase(seed: int = 0) -> dict:
 #: phase 13's cells, every width as published and depth the only cut:
 #: (config, layers, seq, batch).  Qwen1.5-MoE-A2.7B's first 2 of 24
 #: layers (~1.76e9 parameters, ~30 GB with gradients and AdamW state);
-#: xLSTM-1.3B's first 16 of 48, as phase 10 serves it, at S = 512 (the
+#: xLSTM-1.3B's first 8 of 48 (one period; 16 until phase 15 took the
+#: script past 900 s), as phase 10 serves it, at S = 512 (the
 #: mLSTM bulk scan crosses its 256-position chunk); Jamba-v0.1's layer 0
 #: alone (a Mamba mixer and its d_ff 14336 MLP) at S = 256 (the selective
 #: scan crosses its 128-position chunk).  Jamba's layer 1, a 16-expert MoE,
 #: is ~2.8e9 parameters: with layers 0-1 the state comes to ~66 GB before
 #: activations, so that layer trains on the CPU only, reduced
-FT_CELLS = (("qwen2-moe-a2.7b", 2, 128, 4), ("xlstm-1.3b", 16, 512, 2),
+FT_CELLS = (("qwen2-moe-a2.7b", 2, 128, 4), ("xlstm-1.3b", 8, 512, 2),
             ("jamba-v0.1-52b", 1, 256, 2))
 #: gate (c): AdamW steps on one repeated batch, at phase 12's learning
 #: rate
@@ -5183,6 +5212,162 @@ def cluster_phase(cfg, seed: int = 0) -> dict:
     return out
 
 
+#: phase 15's mesh: a miniature of make_production_mesh(multi_pod=True)
+MESH_SHAPE = (2, 1, 2)
+MESH_AXES = ("pod", "data", "model")
+#: Qwen1.5-MoE-A2.7B's depth under the mesh, and the tokens per pod
+MESH_QWEN_LAYERS = 2
+MESH_SEQ = 256
+#: Phi-3.5-MoE's block alone: tokens per pod
+MESH_PHI_TOKENS = 256
+#: InternLM2-1.8B's depth for the gradient tree and the re-mesh
+MESH_ILM_LAYERS = 2
+#: the meshed forward's allowance: this many times the gap one extra bf16
+#: rounding of each MoE layer's expert sum makes (the sharded sum rounds
+#: three times at tp = 2 where that variant rounds once)
+MESH_ROUNDINGS = 3.0
+
+
+def mesh_phase(seed: int = 0) -> dict:
+    """Phase 15: one spawn of four ranks on the card over gloo, the mesh
+    (pod=2, data=1, model=2); every call in that spawn
+    (``launch.mesh_checks``; every gate raises here):
+
+    (a) Qwen1.5-MoE-A2.7B at published widths, MESH_QWEN_LAYERS deep,
+    the prefill (``forward_prefill``'s one pass of the layers, keeping the
+    hidden states) of one seeded MESH_SEQ-token sequence per pod under
+    ``hints_enabled(mesh)`` (60 % 2 experts: the non-EP, d_ff-sharded
+    path) against the unmeshed forward of that pod's sequence on the same
+    card: layer 0's kept (token, expert) pairs equal exactly, the
+    last-position logits and the final hidden states within
+    MESH_ROUNDINGS times the gap of one extra bf16 rounding per MoE layer
+    (floored at one bf16 rounding of the largest value), the ksplit
+    kernel launched for every KSplit linear of the meshed prefill in every
+    rank; Phi-3.5-MoE's MoE block alone (16 experts: the EP path) against
+    ``moe_block`` on the same tokens within the elementwise rounding
+    allowance; the gloo collectives' ms and bytes per MoE block printed.
+    (b) ``cross_pod_mean`` over "pod" on InternLM2-1.8B's gradient tree at
+    published widths, MESH_ILM_LAYERS deep plus embed and lm_head, drawn
+    per pod: every rank's result bit for bit the mean over pods of the
+    compressed trees computed on the rank, and its err bit for bit
+    ``compress``'s residual; the all-reduce's seconds and GB printed.
+    (c) the same tree's parameters sharded by ``param_specs`` on the mesh
+    and saved collectively: the manifest hash and leaves equal a
+    single-process save's; restored onto (data=4, model=1) by one
+    Shard(0) sharding and onto ``shrink_mesh_shape``'s (2, 1) on ranks
+    0-1: every local shard bit for bit its slice of the logical array."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.launch import mesh_checks as MC
+    from repro_torch.launch.grid import call_all
+    from repro_torch.launch.mesh import run_on_mesh
+    t_phase = time.perf_counter()
+    card = DEVICE + ":0" if DEVICE == "cuda" else "cpu"
+    if DEVICE == "cuda":   # the ranks share the card with this process
+        torch.cuda.empty_cache()
+    qwen = dataclasses.replace(get("qwen2-moe-a2.7b"),
+                               n_layers=MESH_QWEN_LAYERS)
+    phi = get("phi3.5-moe-42b-a6.6b")
+    ilm = dataclasses.replace(get("internlm2-1.8b"), n_layers=MESH_ILM_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-remesh-")
+    try:
+        pre, blk, cpm, rem = run_on_mesh(
+            MESH_SHAPE, MESH_AXES, call_all, [
+                (MC.prefill_mesh_check, (qwen, seed, MESH_SEQ), {}),
+                (MC.moe_block_check, (phi, seed, MESH_PHI_TOKENS), {}),
+                (MC.cross_pod_check, (ilm, seed), {}),
+                (MC.remesh_check, (ilm, seed, tmp), {})],
+            device=card, backend="gloo")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spawn_s = time.perf_counter() - t_phase
+    # (a) the sharded MoE inside Qwen's prefill
+    want = ksplit_linears(qwen, False) + sum(
+        (2 if qwen.gated_mlp else 1) for _, f in qwen.layer_kinds()
+        if f == "moe" and qwen.n_shared)
+    per_block = {}
+    for r in pre:
+        c, n = r["comm"], r["moe_layers"]
+        per_block[r["rank"]] = (
+            1e3 * sum(c["seconds"].values()) / n,
+            sum(c["bytes"].values()) / n)
+        allow = max(MESH_ROUNDINGS * r["logits_gap_extra"],
+                    2.0 ** -8 * r["logits_max"])
+        allow_h = max(MESH_ROUNDINGS * r["hidden_gap_extra"],
+                      2.0 ** -8 * r["hidden_max"])
+        print(f"mesh (a) rank {r['rank']}: layer 0 kept pairs equal "
+              f"{r['layer0_kept_equal']} ({r['layer0_kept']} kept, "
+              f"{r['layer0_dropped']} dropped), logits gap "
+              f"{r['logits_gap']:.4e} (one extra rounding "
+              f"{r['logits_gap_extra']:.4e}, allowance {allow:.4e}), hidden "
+              f"gap {r['hidden_gap']:.4e} (extra {r['hidden_gap_extra']:.4e},"
+              f" allowance {allow_h:.4e}), later-layer picks replayed that "
+              f"would differ {r['replayed_flips']}, ksplit launches "
+              f"{r['launches']} (want {want}), meshed prefill "
+              f"{r['seconds']:.3f} s, gloo per MoE block "
+              f"{per_block[r['rank']][0]:.2f} ms "
+              f"{per_block[r['rank']][1] / 1e6:.2f} MB "
+              f"({json.dumps(c['calls'])})")
+        if not (r["layer0_kept_equal"] and r["finite"]
+                and r["shape"] == [1, 1, qwen.vocab]):
+            fail(f"mesh (a) rank {r['rank']}: layer 0's kept pairs differ "
+                 "or the logits are not finite of the expected shape")
+        if not (r["logits_gap"] <= allow and r["hidden_gap"] <= allow_h):
+            fail(f"mesh (a) rank {r['rank']}: the meshed prefill is outside "
+                 "its allowance of the unmeshed one")
+        if r["launches"] != want:
+            fail(f"mesh (a) rank {r['rank']}: {r['launches']} ksplit "
+                 f"launches in the meshed prefill, not {want}")
+    for r in blk:
+        c = r["comm"]
+        print(f"mesh (a) phi3.5 EP block rank {r['rank']}: max err "
+              f"{r['max_err']:.4e}, worst / allowance {r['worst_ratio']:.4f}"
+              f", bit equal {r['bit_equal']}, {r['seconds'] * 1e3:.2f} ms, "
+              f"gloo {1e3 * sum(c['seconds'].values()):.2f} ms "
+              f"{sum(c['bytes'].values()) / 1e6:.2f} MB")
+        if not r["worst_ratio"] <= 1.0:
+            fail(f"mesh (a) rank {r['rank']}: the EP block is outside its "
+                 "rounding allowance of moe_block")
+    # (b) cross_pod_mean
+    for r in cpm:
+        c = r["comm"]
+        print(f"mesh (b) rank {r['rank']} pod {r['pod']}: equal "
+              f"{r['equal']}, err equal {r['err_equal']}, {r['tensors']} "
+              f"tensors, {r['seconds']:.3f} s, all-reduced "
+              f"{c['bytes'].get('cross_pod', 0) / 1e9:.3f} GB (fp32) in "
+              f"{c['seconds'].get('cross_pod', 0.0):.3f} s")
+        if not (r["equal"] and r["err_equal"]):
+            fail(f"mesh (b) rank {r['rank']}: cross_pod_mean differs from "
+                 "the mean of the compressed trees, or err from compress's")
+    # (c) elastic re-mesh
+    if not (rem[0].get("hash_equal") and rem[0].get("leaves_equal")):
+        fail("mesh (c): the sharded save's manifest differs from a "
+             "single-process save's")
+    for r in rem:
+        print(f"mesh (c) rank {r['rank']}: save {r['save_s']:.2f} s "
+              f"({r['sharded_leaves']} sharded tensors, received "
+              f"{r['comm']['bytes'].get('gather', 0) / 1e6:.1f} MB), remesh "
+              f"{r['remesh']}, shrink {r['shrink']}")
+        if not r["remesh"]["equal"]:
+            fail(f"mesh (c) rank {r['rank']}: a restored shard differs")
+        if (r["shrink"] is not None) != (r["rank"] < 2) or (
+                r["shrink"] is not None and not r["shrink"]["equal"]):
+            fail(f"mesh (c) rank {r['rank']}: the shrunk restore is wrong")
+    out = {"launches": sum(r["launches"] for r in pre),
+           "per_block_ms": max(v[0] for v in per_block.values()),
+           "per_block_mb": max(v[1] for v in per_block.values()) / 1e6,
+           "cross_pod_s": max(r["comm"]["seconds"].get("cross_pod", 0.0)
+                              for r in cpm),
+           "cross_pod_gb": cpm[0]["comm"]["bytes"].get("cross_pod", 0)
+           / 1e9, "spawn_s": spawn_s,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"mesh phase: one spawn of 4 ranks {spawn_s:.1f} s")
+    return out
+
+
 def ptxas_rows(log: str) -> list[str]:
     """One 'kernel<t>: registers, spill stores/loads' line per entry
     function of a ptxas -v report."""
@@ -5308,9 +5493,11 @@ def main() -> None:
     sf13 = run("13 family train", family_train_phase)
     sol = run("5 solve", solve_phase)
     run("5 parity", parity_phase)
-    tr = run("7 train", train_phase, cfg)
+    tr = run("7 train", train_phase,
+             dataclasses.replace(cfg, n_layers=TRAIN_LAYERS))
     sm = run("8 summa", summa_phase,
              torch.Generator(device=DEVICE).manual_seed(88))
+    ms15 = run("15 mesh", mesh_phase)
     cl14 = run("14 cluster, trace, autotune", cluster_phase,
                dataclasses.replace(cfg, n_layers=STATE_LAYERS))
     at14 = cl14["autotune"]["launches"]
@@ -5332,7 +5519,8 @@ def main() -> None:
                       + sm9["launches16"] + sw9["launches"]
                       + sx10["launches"] + sj11["launches"]
                       + sf12["launches"] + sf13["launches"]
-                      + cl14["launches"] + at14["ksplit_gemm"]),
+                      + cl14["launches"] + at14["ksplit_gemm"]
+                      + ms15["launches"]),
          "launches_by_phase": {"serve": sv["launches"],
                                "serve_state": ss["launches"],
                                "serve_quant": sq["launches"],
@@ -5345,7 +5533,8 @@ def main() -> None:
                                "serve_frontends": sf12["launches"],
                                "family_train": sf13["launches"],
                                "cluster": cl14["launches"],
-                               "autotune": at14["ksplit_gemm"]},
+                               "autotune": at14["ksplit_gemm"],
+                               "mesh": ms15["launches"]},
          "max_abs_err": max(ks_err.values()),
          **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")},
@@ -5465,7 +5654,10 @@ def main() -> None:
           f"{cl14['tokens_per_s']:.2f} tokens/s vs one engine "
           f"{cl14['engine_tokens_per_s']:.2f}, traced wall "
           f"{cl14['traced_s']:.2f} s vs {cl14['untraced_s']:.2f} s (phase 14 "
-          f"{cl14['phase_s']:.1f} s); "
+          f"{cl14['phase_s']:.1f} s); mesh gloo per MoE block "
+          f"{ms15['per_block_ms']:.2f} ms {ms15['per_block_mb']:.2f} MB, "
+          f"cross_pod_mean {ms15['cross_pod_gb']:.3f} GB in "
+          f"{ms15['cross_pod_s']:.3f} s (phase 15 {ms15['phase_s']:.1f} s); "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(f"phase seconds: {json.dumps(secs)}")
     print(json.dumps({"kernels": kernels}))

@@ -65,6 +65,9 @@ class ArchConfig:
     capacity_factor: float = 1.25
     #: model-axis size at which ``moe_ep`` is decided (see module doc)
     ep_axis: int = REFERENCE_TP
+    #: shard large params over "data" too (ZeRO-3 / FSDP): read by
+    #: ``launch.sharding``'s rules only
+    fsdp: bool = False
     # --- hybrid / ssm ------------------------------------------------------
     block_type: str = "attn"     # attn | mamba_hybrid | xlstm
     attn_every: int = 0          # hybrid: layer i % attn_every == attn_offset
@@ -197,6 +200,29 @@ def get(name: str) -> ArchConfig:
     if name not in REGISTRY:
         load_all()
     return REGISTRY[name]
+
+
+#: the dry run's cell shapes (``launch.dryrun``), as the reference's
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+#: archs allowed to run long_500k (sub-quadratic path exists)
+LONG_OK = {"jamba-v0.1-52b", "gemma3-4b", "xlstm-1.3b"}
+
+
+def cells(arch: str) -> list[str]:
+    """Dry-run cells for an arch, applying the documented skips."""
+    cfg = get(arch)
+    out = ["train_4k", "prefill_32k"]
+    if not cfg.encoder_only:
+        out.append("decode_32k")
+        if arch in LONG_OK:
+            out.append("long_500k")
+    return out
 
 
 def reduced(cfg: ArchConfig, tp: int = 2) -> ArchConfig:

@@ -1,9 +1,8 @@
 """Jamba-v0.1-52B [arXiv:2403.19887; hf] — hybrid Mamba+attention 1:7
 interleave, MoE every other layer (16 experts, top-2).
 
-The reference also sets ``fsdp=True`` and ``remat_group=2``: sharding
-and rematerialization knobs of its mesh, with no counterpart on one
-card.  ``kv_dup_to_tp`` only duplicates kv heads for the reference's
+``fsdp=True`` as in the reference (read by ``launch.sharding``); its
+``remat_group=2`` has no counterpart.  ``kv_dup_to_tp`` only duplicates kv heads for the reference's
 16-way model axis; at the port's ``tp=1`` the 8 kv heads stay as
 published.  At full depth (51.6e9 parameters) it does not fit one card;
 the port serves it reduced on the CPU and one pattern period (8 of 32
@@ -31,4 +30,5 @@ register(ArchConfig(
     use_rope=False,     # Jamba uses no positional encoding in attn layers
     notes="Mamba d_state=16, expand=2; EP over model axis (16 experts).",
     kv_dup_to_tp=True,
+    fsdp=True,
 ))

@@ -2,9 +2,9 @@
 
 ``tp`` is the reference's 16 and ``kv_dup_to_tp`` duplicates its 8 kv
 heads to 16 (group 8), as the reference's cache does; the duplicated
-heads are real weights there.  The reference also sets ``fsdp=True``
-and ``remat_group=6``, knobs of its mesh with no counterpart on one
-card.  At full depth (126 layers, ~1.2 TB at ratio_high 0.5) it runs
+heads are real weights there.  ``fsdp=True`` as in the
+reference (read by ``launch.sharding``); its ``remat_group=6`` has no
+counterpart.  At full depth (126 layers, ~1.2 TB at ratio_high 0.5) it runs
 reduced on the CPU and its first layers at published widths on the
 card (``chip_smoke.py`` phase 12).
 """
@@ -22,4 +22,5 @@ register(ArchConfig(
     rope_theta=500000.0,
     tp=REFERENCE_TP,
     kv_dup_to_tp=True,
+    fsdp=True,
 ))

@@ -6,9 +6,9 @@ ahead of the text tokens.
 
 ``tp`` is the reference's 16: its 56 q heads are padded to 64 and its 8
 kv heads duplicated to 16 (group 4), and the padded heads are real
-weights there, so the port keeps that geometry.  The reference also sets
-``fsdp=True`` and ``remat_group=4``: sharding and rematerialization
-knobs of its mesh, with no counterpart on one card.  At full depth (60
+weights there, so the port keeps that geometry.  ``fsdp=True`` as in
+the reference (read by ``launch.sharding``); its ``remat_group=4`` has
+no counterpart.  At full depth (60
 layers, ~108 GB at ratio_high 0.5) it does not fit one card; the card
 runs its first layers at every published width (``chip_smoke.py``
 phase 12).
@@ -30,4 +30,5 @@ register(ArchConfig(
     rope_theta=5000000.0,
     tp=REFERENCE_TP,
     notes="56 q-heads padded to 64 for TP=16 (kv 8 duplicated to 16).",
+    fsdp=True,
 ))

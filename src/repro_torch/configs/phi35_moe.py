@@ -1,9 +1,8 @@
 """Phi-3.5-MoE (42B total / 6.6B active)
 [hf:microsoft/Phi-3.5-MoE-instruct] — 16 experts, top-2.
 
-The reference also sets ``fsdp=True`` and ``remat_group=4``: sharding
-and rematerialization knobs of its mesh, with no counterpart on one
-card.  At full width (~42B parameters) it does not fit one card; the
+``fsdp=True`` as in the reference (read by ``launch.sharding``); its
+``remat_group=4`` has no counterpart.  At full width (~42B parameters) it does not fit one card; the
 port runs it reduced."""
 from repro_torch.configs.base import ArchConfig, register
 
@@ -20,4 +19,5 @@ register(ArchConfig(
     top_k=2,
     rope_theta=10000.0,
     kv_dup_to_tp=True,
+    fsdp=True,
 ))

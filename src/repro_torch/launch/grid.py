@@ -22,7 +22,10 @@ result (:func:`call_all` runs many calls in one spawn).  An
 exception in a rank fails the call: the rank's own exception is raised,
 chained to a :class:`GridRankError` that carries its traceback.  ``fn``
 must be importable by name from ``repro_torch`` (a child imports only the
-function's module, never a test module).
+function's module, never a test module).  :func:`spawn` is the same
+machinery for any handle a rank builds over the default group:
+:func:`run_on_grid` builds a :class:`Grid`,
+``repro_torch.launch.mesh.run_on_mesh`` a named mesh.
 
 Tracing: a rank never opens the parent's trace file (the tracing
 variables are kept from the children's environment while they spawn).
@@ -34,6 +37,7 @@ nothing.
 """
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import shutil
@@ -166,19 +170,28 @@ def rank_report(grid: Grid) -> dict:
             "packages": sorted({m.split(".")[0] for m in sys.modules})}
 
 
-def call_all(grid: Grid, calls, capture: bool = False) -> list:
+def call_all(grid, calls, capture: bool = False) -> list:
     """Run every call of ``calls`` on ``grid`` in order and return the
     results, so many grid calls share one spawn.  A call is ``(fn, args,
     kwargs)``, run as ``fn(*args, grid=grid, **kwargs)``, or ``(fn, args,
-    kwargs, (P, Q))``, run on ``regrid(grid, P, Q)``.  With ``capture``,
+    kwargs, (P, Q))``, run on ``regrid(grid, P, Q)``.  ``grid`` may also
+    be a named mesh (``repro_torch.launch.mesh.Mesh``): a call then runs
+    as ``fn(*args, mesh=mesh, **kwargs)``, and ``(fn, args, kwargs,
+    (shape, axes))`` on ``mesh.reshaped(shape, axes)`` (a rank outside
+    that mesh gets ``None``).  With ``capture``,
     a call's exception is returned in its result's place; only for errors
     every rank raises alike before any collective (argument checks), or
     the ranks fall out of step."""
     out = []
     for fn, args, kwargs, *shape in calls:
         try:
-            g = regrid(grid, *shape[0]) if shape else grid
-            out.append(fn(*args, grid=g, **kwargs))
+            if isinstance(grid, Grid):
+                g = regrid(grid, *shape[0]) if shape else grid
+                out.append(fn(*args, grid=g, **kwargs))
+                continue
+            m = grid.reshaped(*shape[0]) if shape else grid
+            out.append(fn(*args, mesh=m, **kwargs) if m.coordinate
+                       is not None else None)
         except Exception as e:   # noqa: BLE001 — returned to the caller
             if not capture:
                 raise
@@ -248,7 +261,7 @@ _THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 _TRACE_VARS = (obs.TRACE_ENV, obs.OBS_ENV)
 
 
-def _rank_main(rank: int, world: int, P: int, Q: int, fn, args, kwargs,
+def _rank_main(rank: int, world: int, setup, fn, args, kwargs,
                device: str, backend: str, workdir: str,
                trace_t0: float | None = None) -> None:
     if rank == 0 and trace_t0 is not None:
@@ -262,7 +275,7 @@ def _rank_main(rank: int, world: int, P: int, Q: int, fn, args, kwargs,
             backend, init_method=f"file://{os.path.join(workdir, 'rdv')}",
             world_size=world, rank=rank)
         try:
-            result = fn(Grid(P, Q, device=dev, backend=backend), *args,
+            result = fn(setup(device=dev, backend=backend), *args,
                         **kwargs)
             if rank == 0:
                 with open(os.path.join(workdir, "result.pt"), "wb") as fh:
@@ -292,8 +305,19 @@ def run_on_grid(P: int, Q: int, fn, *args, device: str = "cuda",
     docstring).  The ranks split the host's cores: each runs
     ``cpu_count // (P·Q)`` threads (torch, and the BLAS variables it
     starts with unless the caller set them)."""
+    return spawn(int(P) * int(Q), functools.partial(Grid, int(P), int(Q)),
+                 fn, *args, device=device, backend=backend, **kwargs)
+
+
+def spawn(world: int, setup, fn, *args, device: str = "cuda",
+          backend: str, **kwargs):
+    """Spawn ``world`` ranks on ``device`` over ``backend``; each builds
+    its handle ``setup(device=rank device, backend=backend)`` over the
+    default group (collectively) and runs ``fn(handle, *args,
+    **kwargs)``; rank 0's result is returned.  ``setup`` and ``fn`` are
+    pickled by name."""
     import torch.multiprocessing as tmp
-    world = int(P) * int(Q)
+    world = int(world)
     _check_placement(world, device, backend)
     workdir = tempfile.mkdtemp(prefix="repro-grid-")
     saved = {k: os.environ.get(k) for k in _THREAD_VARS + _TRACE_VARS}
@@ -305,8 +329,8 @@ def run_on_grid(P: int, Q: int, fn, *args, device: str = "cuda",
             os.environ.pop(k, None)
         try:
             tmp.start_processes(
-                _rank_main, args=(world, int(P), int(Q), fn, args, kwargs,
-                                  device, backend, workdir, trace_t0),
+                _rank_main, args=(world, setup, fn, args, kwargs, device,
+                                  backend, workdir, trace_t0),
                 nprocs=world, join=True, start_method="spawn")
         except (tmp.ProcessRaisedException, tmp.ProcessExitedException):
             _raise_rank_error(workdir, world)

@@ -24,21 +24,16 @@ in ``--ckpt-dir``.  ``--summa PxQ`` (default: the arch's
 ``summa_grid``) runs the SUMMA self-check at the config's
 tile/policy/format set on a P×Q grid of spawned ranks before training
 (``core.summa.config_selfcheck``: nccl when P·Q cards are visible, else
-gloo) and prints its report.  The reference's data-parallel options
-(``--devices``, ``--mesh``) exit non-zero: they wait for data-parallel
-training across ranks (``ROADMAP.md`` queue 1, item 6b).
+gloo) and prints its report.  ``--devices N`` bounds the ranks that
+self-check may spawn: a grid of more than N ranks raises the mesh's
+descriptive error (``launch.mesh._require_devices``), as the reference's
+``make_grid_mesh`` does under its forced host-device count.  ``--mesh``
+is parsed and not read, as in the reference, whose trainer runs on one
+device: there is no data-parallel trainer in either package.
 """
 import argparse
 import os
 import tempfile
-
-#: reference options not served yet -> the ROADMAP.md queue-1 item
-UNPORTED = {
-    "devices": "--devices needs data-parallel training across ranks "
-               "(ROADMAP.md queue 1, item 6b)",
-    "mesh": "--mesh needs data-parallel training across ranks "
-            "(ROADMAP.md queue 1, item 6b)",
-}
 
 
 def _parse(argv=None):
@@ -61,8 +56,10 @@ def _parse(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda or cpu)")
-    ap.add_argument("--devices", type=int, default=0, help="not ported")
-    ap.add_argument("--mesh", default="", help="not ported")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks the --summa self-check may spawn (0: any)")
+    ap.add_argument("--mesh", default="", help="e.g. 2x2 (data x model); "
+                    "parsed, not read (as in the reference)")
     ap.add_argument("--summa", default="",
                     help="P x Q grid of the SUMMA self-check, e.g. 2x2 "
                          "(default: the arch's summa_grid)")
@@ -71,10 +68,6 @@ def _parse(argv=None):
 
 def main(argv=None) -> int:
     args = _parse(argv)
-    asked = [name for name in UNPORTED if getattr(args, name)]
-    if asked:
-        raise SystemExit("not ported yet: "
-                         + "; ".join(UNPORTED[n] for n in asked))
 
     import dataclasses
 
@@ -106,6 +99,11 @@ def main(argv=None) -> int:
         # validate the distributed SUMMA path at this config's
         # tile/policy/format set before training starts
         from repro_torch.core.summa import config_selfcheck
+        if args.devices:
+            from repro_torch.launch.mesh import _require_devices
+            _require_devices(grid[0] * grid[1],
+                             f"make_grid_mesh({grid[0]}x{grid[1]})",
+                             have=args.devices)
         rep = config_selfcheck(cfg, grid, device=args.device)
         print(f"SUMMA self-check {rep['grid']} [{rep['formats']}]: "
               f"local path {rep['local_path']} ({rep['plan_source']}), "

@@ -29,8 +29,11 @@ column and gets none) and through ``load_balance_aux``'s mean router
 probability; the expert buffers' through the gathered rows, so an
 expert without a kept token gets an exact zero, as in the reference.
 
-``moe_block_sharded`` (the mesh path) comes with data-parallel ranks
-(``ROADMAP.md`` queue 1, item 6b).
+``moe_block_sharded`` is the mesh path: on a ``launch.mesh.Mesh`` with
+a "model" axis each rank holds its slice of the experts
+(:func:`shard_experts`) and the partial outputs meet in one bf16 sum
+over "model" (see its docstring).  It is forward-only: the port's
+collectives carry no autograd rule.
 """
 from __future__ import annotations
 
@@ -270,3 +273,137 @@ def moe_block(params, x: torch.Tensor, *, top_k: int,
     if return_aux:
         return out, load_balance_aux(r, top_k)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh path
+# ---------------------------------------------------------------------------
+
+def _expert_dims(ep: bool) -> dict:
+    """Which dim of each expert weight's buffers [E, K, N] is sharded over
+    "model": E with expert parallelism; else gate/up's d_ff columns and
+    down's d_ff rows (``launch.sharding``'s MoE rule)."""
+    return ({"gate": 0, "up": 0, "down": 0} if ep
+            else {"gate": 2, "up": 2, "down": 1})
+
+
+def shard_experts(params: dict, mesh, ep: bool) -> dict:
+    """``params`` (one MoE block's) with each expert weight cut to this
+    rank's slice over "model"; the router and the shared expert stay
+    whole.  The weights' ``shape`` keeps the logical (E, K, N)."""
+    from repro_torch.launch.mesh import local_slice
+    out = dict(params)
+    for name, dim in _expert_dims(ep).items():
+        w = params[name]
+        spec = [None] * 3
+        spec[dim] = "model"
+        out[name] = dataclasses.replace(
+            w, w_hi=local_slice(w.w_hi, spec, mesh),
+            w_lo=local_slice(w.w_lo, spec, mesh))
+    return out
+
+
+def shard_model_experts(params: dict, mesh, ep: bool) -> dict:
+    """A model tree whose every MoE layer holds this rank's expert slices
+    (:func:`shard_experts`); every other tensor is shared with
+    ``params``."""
+    from repro_torch.tree import LayerList
+    layers = LayerList(
+        ({**lp, "moe": shard_experts(lp["moe"], mesh, ep)} if "moe" in lp
+         else lp for lp in params["layers"]), params["layers"].period)
+    return {**params, "layers": layers}
+
+
+def _check_local(params: dict, E: int, tp: int, ep: bool) -> None:
+    for name, dim in _expert_dims(ep).items():
+        w = params[name]
+        full = w.shape[dim]
+        got = max(w.w_hi.shape[dim], w.w_lo.shape[dim])
+        if got * tp != full:
+            raise ValueError(
+                f"moe_block_sharded: {name} holds {got} of {full} along "
+                f"dim {dim}, not this rank's 1/{tp} slice "
+                "(cut the weights with shard_experts)")
+
+
+def moe_block_sharded(params, x: torch.Tensor, *, top_k: int, mesh,
+                      ep: bool, capacity_factor: float = 1.25,
+                      drops: list | None = None):
+    """The mesh path of :func:`moe_block` (the reference's explicit
+    ``shard_map`` MoE), step for step:
+
+      * ``x`` [B, S, d] is this rank's data shard, the same on every rank
+        of "model"; when S % tp == 0 the sequence is sharded over "model"
+        (each rank keeps its S/tp rows) and all-gathered on entry in bf16;
+      * routing and the [E, C] dispatch tables are computed per data shard
+        (the capacity is per data shard);
+      * EP (``ep``, E % tp == 0): each rank computes its E/tp experts;
+      * non-EP: each rank computes every expert over its d_ff slice
+        (gate/up columns, down rows: the down product is N-split);
+      * each rank's fp32 partial is cast to bf16 and summed over "model"
+        (``launch.mesh.psum``: one fp32 all-reduce, one rounding).  The
+        reference reduce-scatters when the sequence is sharded; its
+        partitioner then gathers the rows again for the next layer, which
+        every rank here holds whole: the same values;
+      * then the aux term (identical on every model rank, averaged over
+        the data axes) and the shared expert, added in fp32 outside the
+        sharded part, with one rounding to bf16.
+
+    ``params`` holds this rank's expert slices (:func:`shard_experts`).
+    Dropped (token, expert) pairs are counted into ``drops`` as
+    :func:`moe_block` counts them.  Returns (y [B, S, d] bf16, aux).
+
+    Forward only: the collectives move detached bytes, so a loss through
+    this block would reach neither the router nor the experts.  With
+    autograd on and ``x`` or a weight requiring grad it raises."""
+    from repro_torch import tree as TR
+    from repro_torch.launch import mesh as MS
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in TR.tensors(params))):
+        raise RuntimeError(
+            "moe_block_sharded is forward only: its collectives carry no "
+            "gradient, so it refuses inputs or weights that require grad "
+            "(run it under torch.no_grad(), or train without a mesh)")
+    B, S, d = x.shape
+    E = params["router"].shape[1]
+    tp = mesh.shape["model"]
+    _check_local(params, E, tp, ep)
+    m = mesh.index("model")
+    if S % tp == 0 and tp > 1:
+        rows = S // tp
+        piece = x[:, m * rows:(m + 1) * rows].to(ACT_DTYPE).contiguous()
+        x = torch.cat(MS.all_gather(mesh, piece, "model", "x_gather"), 1)
+    T = B * S
+    xf = x.reshape(T, d)
+    r = _dispatch_tables(xf, params["router"], top_k, capacity_factor)
+    if drops is not None:
+        drops.append((~r.keep).sum())
+    _, C = r.table.shape
+    xpad = torch.cat([xf, xf.new_zeros((1, d))], 0)
+    xe = xpad[r.table.reshape(-1)].reshape(E, C, d)
+    gt = r.gate_table
+    lo, e_loc = 0, E
+    if ep:
+        e_loc = E // tp
+        lo = m * e_loc
+        xe, gt = xe[lo:lo + e_loc], gt[lo:lo + e_loc]
+    h = F.silu(params["gate"](xe)) * params["up"](xe)
+    ye = params["down"](h.to(ACT_DTYPE))                 # [e_loc, C, d]
+    weighted = ye * gt[..., None]
+    rows_ = torch.cat([weighted.reshape(e_loc * C, d),
+                       weighted.new_zeros((1, d))], 0)
+    # the token's picks in ascending expert order (moe_block's order);
+    # a pick of another rank's expert, or a dropped one, reads zeros
+    slots = torch.sort(r.slot.reshape(T, top_k), dim=-1).values - lo * C
+    slots = torch.where((slots >= 0) & (slots < e_loc * C), slots,
+                        torch.full_like(slots, e_loc * C))
+    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    for j in range(top_k):
+        out = out + rows_[slots[:, j]]
+    y = MS.psum(mesh, out.to(torch.bfloat16), "model", "expert_psum")
+    aux = load_balance_aux(r, top_k)
+    for a in MS.data_axes(mesh):
+        aux = MS.pmean(mesh, aux, a)
+    if "shared" in params:
+        y = y.float() + mlp_block(params["shared"], xf).float()
+    return y.reshape(B, S, d).to(ACT_DTYPE), aux

@@ -34,6 +34,10 @@ its projected ``patch_embeds`` ahead of the embedded ``tokens``, and its
 loss covers the text positions only.  An encoder-only config adds the
 learned ``pos_embed`` table, attends without the causal mask and has no
 decode step.
+
+Under a mesh with a "model" axis (``models.shard_hints.hints_enabled``)
+an MoE FFN runs ``moe.moe_block_sharded`` on the rank's expert slices,
+as the reference's does; everything else runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
 from repro_torch.models.common import ACT_DTYPE
+from repro_torch.models.shard_hints import active_mesh
 from repro_torch.tree import LayerList
 
 #: rows of an encoder's learned position table (the reference's)
@@ -173,6 +178,12 @@ def _ffn(lp, cfg: ArchConfig, ffn: str, h, aux: bool = False,
     """(ffn output, the MoE aux loss when ``aux``, else None)."""
     if ffn == "mlp":
         return C.mlp_block(lp["mlp"], h), None
+    mesh = active_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        out, a = MOE.moe_block_sharded(
+            lp["moe"], h, top_k=cfg.top_k, mesh=mesh, ep=cfg.moe_ep,
+            capacity_factor=cfg.capacity_factor, drops=drops)
+        return out, (a if aux else None)
     out = MOE.moe_block(lp["moe"], h, top_k=cfg.top_k,
                         capacity_factor=cfg.capacity_factor,
                         return_aux=aux, drops=drops)

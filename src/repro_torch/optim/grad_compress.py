@@ -1,12 +1,20 @@
 """Gradient compression with error feedback (twin of
 ``repro.optim.grad_compress``).
 
-Microbatch accumulation keeps the gradient accumulator in bf16 with an
-fp32 error-feedback residual, halving the accumulator's memory while the
-accumulated sum stays unbiased.  The reference's second use, the
-cross-pod hierarchical all-reduce (``cross_pod_mean``: bf16 with error
-feedback before the pod-axis sum), needs data-parallel training across
-ranks and is not ported here (``ROADMAP.md`` queue 1, item 6b).
+Two uses:
+
+1. **Microbatch accumulation** keeps the gradient accumulator in bf16
+   with an fp32 error-feedback residual, halving the accumulator's memory
+   while the accumulated sum stays unbiased.
+2. **Cross-pod hierarchical mean** (:func:`cross_pod_mean`): each pod's
+   gradients are cast to bf16 with error feedback applied locally before
+   the sum over the "pod" axis, which adds the bf16 values widened to
+   fp32, as the reference's ``psum`` does.
+
+The reference's ``cross_pod_mean`` is a single-controller ``shard_map``
+whose every pod holds the same gradient tree, so its result equals the
+compressed tree.  Here each pod's ranks hold their own gradients, and the
+result is the mean over pods of the compressed trees.
 """
 from __future__ import annotations
 
@@ -47,3 +55,18 @@ def accumulate(acc, grads, err):
         return a2, s - a2.float()
     return _split([one(a, g, e) for a, g, e in zip(
         TR.tensors(acc), TR.tensors(grads), TR.tensors(err))], acc)
+
+
+def cross_pod_mean(grads, err, mesh, axis: str = "pod"):
+    """Hierarchical data parallelism: the mean over ``axis`` of the
+    (already pod-locally reduced) gradients, compressed to bf16 with
+    error feedback.  ``compress`` first; then each bf16 tensor is summed in
+    fp32 over ``axis`` (``launch.mesh.psum`` of its fp32 widening: one
+    all-reduce), divided by the pod count and rounded to bf16.  Returns
+    ``(mean tree, err)``, ``err`` being ``compress``'s residual."""
+    from repro_torch.launch import mesh as MS
+    npods = mesh.shape[axis]
+    gc, err = compress(grads, err)
+    new = {id(t): (MS.psum(mesh, t.float(), axis, "cross_pod") / npods
+                   ).to(torch.bfloat16) for t in TR.tensors(gc)}
+    return TR.replace_tensors(gc, new), err

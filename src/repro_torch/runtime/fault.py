@@ -4,8 +4,10 @@
 The trainer emits per-step heartbeats; the watchdog declares a straggler
 when a step exceeds ``factor ×`` the running median and a failure when
 the heartbeat goes silent for ``dead_after`` seconds.  Recovery is
-checkpoint-restore; restoring onto a smaller mesh waits for
-data-parallel training across ranks (``ROADMAP.md`` queue 1, item 6b).
+checkpoint-restore.  The elastic shrink is :func:`shrink_mesh_shape`
+followed by ``checkpoint.ckpt.restore(..., sharding_tree=...)`` onto a
+mesh of that shape over the surviving ranks (``launch.mesh``): the
+checkpoint holds logical arrays, so it restores onto any mesh.
 """
 from __future__ import annotations
 

@@ -409,12 +409,19 @@ def test_train_launcher_trains_and_restarts_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--devices", "4"], ["--mesh", "2x2"],
                                   ["--summa", "2x2", "--mesh", "2x2"]])
-def test_train_launcher_refuses_multi_device_options(flag):
-    """The data-parallel options still exit before any work, ``--summa``
-    (ported) or not beside them."""
-    with pytest.raises(SystemExit) as ei:
-        train_cli.main(["--smoke", "--device", "cpu", *flag])
-    assert "item 6" in str(ei.value.code)
+def test_train_launcher_refuses_multi_device_options(flag, tmp_path):
+    """``--devices`` and ``--mesh`` are ported: ``--mesh`` is parsed and
+    not read (as in the reference) and ``--devices`` bounds the ranks the
+    SUMMA self-check may spawn.  What the launcher refuses, before any
+    work, is a grid larger than that bound (the mesh's descriptive
+    error)."""
+    if "--summa" in flag:
+        with pytest.raises(RuntimeError, match="needs 4 ranks but only 1"):
+            train_cli.main(["--smoke", "--device", "cpu", *flag,
+                            "--devices", "1"])
+        return
+    assert train_cli.main(["--smoke", "--device", "cpu", "--steps", "1",
+                           "--ckpt-dir", str(tmp_path), *flag]) == 0
 
 
 def test_train_launcher_runs_the_summa_selfcheck(tmp_path):
