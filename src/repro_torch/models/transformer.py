@@ -35,6 +35,11 @@ loss covers the text positions only.  An encoder-only config adds the
 learned ``pos_embed`` table, attends without the causal mask and has no
 decode step.
 
+Each model step's forward is a ``model.forward`` span; in the training
+and bulk prefill forwards it holds each layer's mixer and FFN
+(``model.attention`` and the like, ``layer=i``, norm included) and
+``model.head`` (``obs``; no-ops unless tracing).
+
 Under a mesh with a "model" axis (``models.shard_hints.hints_enabled``)
 an MoE FFN runs ``moe.moe_block_sharded`` on the rank's expert slices,
 as the reference's does; everything else runs whole on every rank.
@@ -45,6 +50,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.formats import FormatSet
 from repro_torch.core.linear import init_mp_linear
@@ -73,6 +79,13 @@ def check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not one of the reference's "
             f"{PORTED_FAMILIES}")
+
+
+#: the span of each layer kind's mixer and FFN
+MIXER_SPAN = {"attn_full": "model.attention", "attn_local": "model.attention",
+              "mamba": "model.mamba", "mlstm": "model.mlstm",
+              "slstm": "model.slstm"}
+FFN_SPAN = {"mlp": "model.mlp", "moe": "model.moe"}
 
 
 def _window(cfg: ArchConfig, mixer: str):
@@ -231,29 +244,40 @@ def _run_layers(params, cfg: ArchConfig, inputs):
     x, positions = _embed_inputs(params, cfg, _batch_of(cfg, inputs))
     causal = not cfg.encoder_only
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, (mixer, ffn) in zip(params["layers"], cfg.layer_kinds()):
-        h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        if mixer == "mlstm":
-            x = x + X.mlstm_block(lp["mlstm"], h, n_heads=cfg.n_heads)
-        elif mixer == "slstm":
-            x = x + X.slstm_block(lp["slstm"], h, n_heads=cfg.n_heads)
-        elif mixer == "mamba":
-            x = x + M.mamba_block(lp["mamba"], h)
-        else:
-            x = x + C.attention_block(lp["attn"], h, dims,
-                                      positions=positions, causal=causal,
-                                      window=_window(cfg, mixer),
-                                      rope_theta=cfg.rope_theta,
-                                      use_rope=cfg.use_rope)
+    for i, (lp, (mixer, ffn)) in enumerate(zip(params["layers"],
+                                              cfg.layer_kinds())):
+        with obs.span(MIXER_SPAN[mixer], "model", layer=i):
+            h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
+            if mixer == "mlstm":
+                x = x + X.mlstm_block(lp["mlstm"], h, n_heads=cfg.n_heads)
+            elif mixer == "slstm":
+                x = x + X.slstm_block(lp["slstm"], h, n_heads=cfg.n_heads)
+            elif mixer == "mamba":
+                x = x + M.mamba_block(lp["mamba"], h)
+            else:
+                x = x + C.attention_block(lp["attn"], h, dims,
+                                          positions=positions,
+                                          causal=causal,
+                                          window=_window(cfg, mixer),
+                                          rope_theta=cfg.rope_theta,
+                                          use_rope=cfg.use_rope)
         if ffn == "none":
             x = x.to(ACT_DTYPE)
             continue
-        h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        out, a = _ffn(lp, cfg, ffn, h2, aux=True)
-        x = (x + out).to(ACT_DTYPE)
+        with obs.span(FFN_SPAN[ffn], "model", layer=i):
+            h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
+            out, a = _ffn(lp, cfg, ffn, h2, aux=True)
+            x = (x + out).to(ACT_DTYPE)
         if a is not None:
             aux = aux + a
     return x, aux
+
+
+def _head(params, cfg: ArchConfig, x):
+    """Final norm and ``lm_head``: logits [B, S, V] fp32."""
+    with obs.span("model.head", "model"):
+        x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return params["lm_head"](x)
 
 
 def forward_train(params, cfg: ArchConfig, batch: dict):
@@ -268,15 +292,15 @@ def forward_train(params, cfg: ArchConfig, batch: dict):
     bulk band admits up to 2w - 1 (``ROADMAP.md`` queue 3, F8: decided
     for the decode's band)."""
     check_family(cfg)
-    x, aux = _run_layers(params, cfg, batch)
-    x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = params["lm_head"](x)
-    labels = batch["labels"]
-    if cfg.frontend == "vision":
-        logits = logits[:, -labels.shape[1]:]
-    loss = C.cross_entropy(logits, labels)
-    if cfg.n_experts:
-        loss = loss + 0.01 * aux
+    with obs.span("model.forward", "model", mode="train"):
+        x, aux = _run_layers(params, cfg, batch)
+        logits = _head(params, cfg, x)
+        labels = batch["labels"]
+        if cfg.frontend == "vision":
+            logits = logits[:, -labels.shape[1]:]
+        loss = C.cross_entropy(logits, labels)
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux
     return loss, {"ce": loss, "aux": aux}
 
 
@@ -289,9 +313,9 @@ def forward_prefill(params, cfg: ArchConfig, batch) -> torch.Tensor:
     the last w keys, as the reference's decode does, not to its bulk
     band of up to 2w - 1 (``ROADMAP.md`` queue 3, F8)."""
     check_family(cfg)
-    x, _ = _run_layers(params, cfg, batch)
-    x = C.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return params["lm_head"](x)
+    with obs.span("model.forward", "model", mode="prefill"):
+        x, _ = _run_layers(params, cfg, batch)
+        return _head(params, cfg, x[:, -1:])
 
 
 def forward_decode(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
@@ -311,28 +335,33 @@ def forward_decode(params, cfg: ArchConfig, tokens: torch.Tensor, caches,
     if cfg.encoder_only:
         raise ValueError("encoder-only arch has no decode step")
     dims = dims_of(cfg)
-    x = C.embed(params["embed"], tokens)
-    for lp, cache, (mixer, ffn) in zip(params["layers"], caches,
-                                       cfg.layer_kinds()):
-        h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        if mixer in ("mlstm", "slstm"):
-            block = X.mlstm_block if mixer == "mlstm" else X.slstm_block
-            out, new = block(lp[mixer], h, n_heads=cfg.n_heads, state=cache)
-            cache.update(new)
+    # one span a step and none inside: a served burst is hundreds of
+    # steps of ~2,500 kernels each, and portbench/devtrace.py's idle_gaps
+    # walks every span for every gap between two kernels
+    with obs.span("model.forward", "model", mode="decode"):
+        x = C.embed(params["embed"], tokens)
+        for lp, cache, (mixer, ffn) in zip(params["layers"], caches,
+                                           cfg.layer_kinds()):
+            h = C.rms_norm(x, lp["norm1"], cfg.norm_eps)
+            if mixer in ("mlstm", "slstm"):
+                block = X.mlstm_block if mixer == "mlstm" else X.slstm_block
+                out, new = block(lp[mixer], h, n_heads=cfg.n_heads,
+                                 state=cache)
+                cache.update(new)
+                x = (x + out).to(ACT_DTYPE)
+                continue
+            if mixer == "mamba":
+                out, new = M.mamba_block(lp["mamba"], h, state=cache)
+                cache.update(new)
+                x = x + out
+            else:
+                x = x + C.decode_attention(
+                    lp["attn"], h, dims, cache["k"], cache["v"],
+                    position=position, rope_theta=cfg.rope_theta,
+                    window=_window(cfg, mixer), use_rope=cfg.use_rope,
+                    slot=slot, kv_valid=kv_valid)
+            h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
+            out, _ = _ffn(lp, cfg, ffn, h2, drops=moe_drops)
             x = (x + out).to(ACT_DTYPE)
-            continue
-        if mixer == "mamba":
-            out, new = M.mamba_block(lp["mamba"], h, state=cache)
-            cache.update(new)
-            x = x + out
-        else:
-            x = x + C.decode_attention(
-                lp["attn"], h, dims, cache["k"], cache["v"],
-                position=position, rope_theta=cfg.rope_theta,
-                window=_window(cfg, mixer), use_rope=cfg.use_rope,
-                slot=slot, kv_valid=kv_valid)
-        h2 = C.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        out, _ = _ffn(lp, cfg, ffn, h2, drops=moe_drops)
-        x = (x + out).to(ACT_DTYPE)
-    x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return params["lm_head"](x), caches
+        x = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return params["lm_head"](x), caches

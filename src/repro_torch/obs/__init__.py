@@ -2,7 +2,7 @@
 ``repro.obs``).
 
 * a process-local :class:`~repro_torch.obs.metrics.MetricsRegistry` of
-  labeled counters, gauges and histograms — always live — that dispatch,
+  labeled counters and histograms — always live — that dispatch,
   the serve engine and the scheduler record into;
 * a span/event :class:`~repro_torch.obs.trace.Tracer` writing JSON lines
   that are Chrome ``trace_event`` dicts (open the export in Perfetto or
@@ -31,15 +31,14 @@ import atexit
 import os
 
 from repro_torch.config import KNOWN_SETTINGS
-from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
-                                     MetricsRegistry, default_registry,
-                                     label_key)
+from repro_torch.obs.metrics import (Counter, Histogram, MetricsRegistry,
+                                     default_registry, label_key)
 from repro_torch.obs.trace import (CATEGORIES, NULL_TRACER, NullTracer,
                                    Tracer, chrome_path_for, chrome_payload,
                                    export_chrome, read_events, span_types)
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "Counter", "Histogram", "MetricsRegistry",
     "default_registry", "label_key", "metrics_registry",
     "CATEGORIES", "NullTracer", "Tracer", "chrome_payload",
     "chrome_path_for", "export_chrome", "read_events", "span_types",

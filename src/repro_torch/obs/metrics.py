@@ -1,5 +1,5 @@
-"""Process-local metrics registry — labeled counters, gauges and
-histograms (twin of ``repro.obs.metrics``).
+"""Process-local metrics registry — labeled counters and histograms (twin
+of ``repro.obs.metrics`` without its gauges).
 
 A *metric* is a name plus a label set
 (``dispatch.calls{path=ksplit_cuda,op=linear,...}``); each distinct label
@@ -39,18 +39,6 @@ class Counter:
             self.value += v
 
 
-class Gauge:
-    """Last-written value."""
-
-    __slots__ = ("value",)
-
-    def __init__(self):
-        self.value = 0.0
-
-    def set(self, v: float) -> None:
-        self.value = float(v)
-
-
 class Histogram:
     """Streaming count/sum/min/max summary (no samples kept)."""
 
@@ -80,13 +68,13 @@ class Histogram:
                 "max": self.max if self.count else 0.0}
 
 
-_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+_KINDS = {"counter": Counter, "histogram": Histogram}
 
 
 class MetricsRegistry:
     """Thread-safe name → {label set → series} store.
 
-    ``counter()/gauge()/histogram()`` create-or-return the series of one
+    ``counter()/histogram()`` create-or-return the series of one
     label combination (a name keeps its first kind: asking for another
     raises ``TypeError``); ``snapshot()`` returns plain data for reports;
     ``reset(name)`` clears one metric's series, ``reset()`` all."""
@@ -113,9 +101,6 @@ class MetricsRegistry:
     def counter(self, name: str, **labels) -> Counter:
         return self._series("counter", name, labels)
 
-    def gauge(self, name: str, **labels) -> Gauge:
-        return self._series("gauge", name, labels)
-
     def histogram(self, name: str, **labels) -> Histogram:
         return self._series("histogram", name, labels)
 
@@ -127,8 +112,7 @@ class MetricsRegistry:
                 else []
 
     def value(self, name: str, default: float = 0.0, **labels) -> float:
-        """One counter's or gauge's value, without creating the
-        series."""
+        """One counter's value, without creating the series."""
         with self._lock:
             ent = self._metrics.get(name)
             if ent is None:

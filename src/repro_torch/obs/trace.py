@@ -1,19 +1,27 @@
 """Structured span/event tracer — JSON lines on disk, Chrome-trace export
-(twin of ``repro.obs.trace``, the same schema line for line).
+(twin of ``repro.obs.trace``: the same fields line for line, span ids
+in ``args``, and one more category, ``model``).
 
 Every emitted line is one Chrome ``trace_event`` dict (``ph="X"``
-complete spans with microsecond ``ts``/``dur``, ``ph="i"`` instants,
-``ph="C"`` counter samples), so the JSONL file is greppable and
-streamable, and exporting for Perfetto or ``chrome://tracing`` wraps the
-lines in ``{"traceEvents": [...]}`` (:func:`chrome_payload` /
-:func:`export_chrome`).
+complete spans with microsecond ``ts``/``dur``, ``ph="i"`` instants), so
+the JSONL file is greppable and streamable, and exporting for Perfetto
+or ``chrome://tracing`` wraps the lines in ``{"traceEvents": [...]}``
+(:func:`chrome_payload` / :func:`export_chrome`).
 
-Times are the host's: ``ts`` is microseconds since the tracer started,
-``dur`` the host microseconds a ``with`` block took.  The tracer never
-waits for the card, so a span around work that ends before a host read
-(``.item()``, ``.cpu()``, a synchronize) covers only the time it took to
-enqueue that work; a span that contains the read covers the device time
-too.  Tracing therefore changes no result and adds no wait.
+Each complete span carries, in ``args``, its ``span_id`` and the
+``parent_id`` of the span that caused it: the innermost span open on the
+same thread when it opened (None at the top).  Ids are unique within one
+process (``pid``).
+
+Times are the host's, read from ``time.perf_counter``: ``ts`` is
+microseconds since the tracer's ``t0`` (a ``perf_counter`` instant),
+``dur`` the host microseconds a ``with`` block took.  A device trace
+aligned to ``perf_counter`` (``portbench/devtrace.py``) so lies on the
+spans' timeline.  The tracer never waits for the card, so a span around
+work that ends before a host read (``.item()``, ``.cpu()``, a
+synchronize) covers only the time it took to enqueue that work; a span
+that contains the read covers the device time too.  Tracing therefore
+changes no result and adds no wait.
 
 Event taxonomy — ``cat`` is closed-world (:data:`CATEGORIES`); the trace
 hygiene validator (``repro_torch.obs.hygiene``) fails on anything
@@ -26,31 +34,47 @@ outside it:
 * ``serve`` — request lifecycle: ``serve.admit`` → ``serve.warmup`` →
   ``serve.microbatch``/``serve.prefill``/``serve.decode`` →
   ``serve.retire``, plus the cluster's ``serve.route``,
-  ``serve.replica_stall`` and ``serve.reroute``
+  ``serve.replica_stall`` and ``serve.reroute``.  ``serve.admit``,
+  ``serve.retire``, ``serve.refill`` and ``serve.evict`` carry the
+  engine's ``req_id``, ``serve.microbatch`` its ``req_ids``.  Inside a
+  microbatch, at each step that retires a row, ``serve.retire_pass``
+  around ``serve.drain``
 * ``solve`` — ``solve.run``/``solve.factor``/``solve.sweep`` spans and
   ``solve.escalate`` events carrying the promoted tiles' coordinates
 * ``train`` — tune-once setup (``train.tune_setup``, ``train.step_config``)
+  and the step: ``train.step`` ⊃ ``train.accumulate`` (microbatches > 1)
+  ⊃ ``model.forward``, ``train.backward``; ``train.optimizer``
+* ``model`` — one model step's forward (``model.forward``: embed to
+  logits); inside a training or bulk prefill forward each layer's mixer
+  (``model.attention``, ``model.mamba``, ``model.mlstm``,
+  ``model.slstm``) and FFN (``model.mlp``, ``model.moe``), each with its
+  norm and ``layer=i``, and ``model.head``
 
 The disabled path is :class:`NullTracer`: ``span()`` returns a shared
 no-op context manager and ``event()`` returns at once — no file, no
-allocation, no timestamp (``repro_torch.obs.configure`` swaps it in).
+allocation, no timestamp, no id (``repro_torch.obs.configure`` swaps it
+in).
 Writes hold a lock and carry ``tid = threading.get_ident()``, so threads
 (the cluster's drain threads) share one tracer.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
 import time
 
 #: closed-world event categories (span/event ``cat`` values)
-CATEGORIES = ("plan", "gemm", "summa", "serve", "solve", "train", "obs")
+CATEGORIES = ("plan", "gemm", "summa", "serve", "solve", "train", "obs",
+              "model")
 
 #: fields every event must carry; "X" spans additionally need ``dur``
 REQUIRED_FIELDS = ("name", "cat", "ph", "ts", "pid", "tid")
 
-#: event phases the schema admits (complete span / instant / counter)
+#: event phases the schema admits (complete span / instant / counter;
+#: the port writes no counter samples, a trace of the reference may hold
+#: them)
 PHASES = ("X", "i", "C")
 
 
@@ -80,9 +104,6 @@ class NullTracer:
     def event(self, name, cat, **args):
         return None
 
-    def counter(self, name, cat, **values):
-        return None
-
     def flush(self):
         return None
 
@@ -102,20 +123,28 @@ def _check_cat(cat: str) -> None:
 
 
 class _Span:
-    """Context manager emitting one complete ("X") event on exit."""
+    """Context manager emitting one complete ("X") event on exit, its id
+    pushed on the thread's stack of open spans while it is open."""
 
-    __slots__ = ("_tr", "_name", "_cat", "_args", "_t0")
+    __slots__ = ("_tr", "_name", "_cat", "_args", "_t0", "_id", "_parent")
 
     def __init__(self, tr, name, cat, args):
         self._tr, self._name, self._cat, self._args = tr, name, cat, args
 
     def __enter__(self):
+        stack = self._tr._open_spans()
+        self._parent = stack[-1] if stack else None
+        self._id = next(self._tr._ids)
+        stack.append(self._id)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self._tr._emit_span(self._name, self._cat, self._t0,
-                            time.perf_counter(), self._args)
+        t1 = time.perf_counter()
+        self._tr._open_spans().pop()
+        self._tr._emit_span(self._name, self._cat, self._t0, t1,
+                            dict(self._args, span_id=self._id,
+                                 parent_id=self._parent))
         return False
 
 
@@ -133,6 +162,8 @@ class Tracer:
         self._lock = threading.Lock()
         self._t0 = time.perf_counter() if t0 is None else t0
         self._pid = os.getpid()
+        self._ids = itertools.count(1)
+        self._local = threading.local()
         self.buffer: list[dict] = []
         self._f = None
         if path:
@@ -146,6 +177,14 @@ class Tracer:
         return self._t0
 
     # -- emission ---------------------------------------------------------
+
+    def _open_spans(self) -> list:
+        """This thread's stack of open span ids, innermost last."""
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
 
     def _us(self, t: float) -> float:
         return (t - self._t0) * 1e6
@@ -180,12 +219,6 @@ class Tracer:
         ev = self._base(name, cat, "i", self._us(time.perf_counter()))
         ev["s"] = "t"
         ev["args"] = args
-        self._write(ev)
-
-    def counter(self, name: str, cat: str, **values) -> None:
-        """Chrome counter track sample (``ph="C"``)."""
-        ev = self._base(name, cat, "C", self._us(time.perf_counter()))
-        ev["args"] = values
         self._write(ev)
 
     def absorb(self, events: list[dict]) -> None:

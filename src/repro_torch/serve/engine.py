@@ -86,13 +86,20 @@ Trace events (``repro_torch.obs``, when enabled), as the reference's:
 ``serve.warmup`` per bucket, ``serve.microbatch`` around each microbatch,
 ``serve.prefill`` around every prefill (full, page-reused, chunked, and
 a refill's), ``serve.decode`` around the decode loop, ``serve.retire``
-per retired request and ``serve.refill`` per refilled slot.  Spans are
-host time; a microbatch's span ends after its last tokens are read to
-the host, so it covers the device work too.
+per retired request and ``serve.refill`` per refilled slot.  Beyond the
+reference's: the model's ``model.forward`` per model step, and at each
+step that retires a row ``serve.retire_pass`` around the drain
+(``serve.drain``), each row's finalize, refills and the decode state
+staged anew.  An
+admitted request gets a ``req_id`` that its admit, retire, refill and
+evict events carry (``serve.microbatch``: ``req_ids``).  Spans are host
+time; a microbatch's span ends after its last tokens are read to the
+host, so it covers the device work too.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Optional
 
@@ -132,6 +139,7 @@ class Request:
     dispatch_paths: tuple = ()
     error: str = ""
     replica: int = -1             # cluster replica (serve.cluster)
+    req_id: int = -1              # the engine's admission id (obs events)
 
 
 @dataclasses.dataclass
@@ -263,6 +271,8 @@ class Engine:
         self._kv_pos = torch.arange(self.max_seq, device=self.device)
         #: MoE (token, expert) pairs dropped, per equal-mode microbatch
         self.moe_dropped: list[int] = []
+        #: ``Request.req_id`` of the next admission
+        self._req_ids = itertools.count()
 
     def _prefix_len(self, pad_len: int) -> int:
         """Reusable-prefix point of a bucket: ``pad_len // 2`` aligned
@@ -356,15 +366,17 @@ class Engine:
                     f"prompt {L} (padded {key.pad_len}) + "
                     f"{req.max_new_tokens} new tokens exceeds max_seq "
                     f"{self.max_seq}")
+        req.req_id = rid = next(self._req_ids)
         if use_chunk:
-            key = self.scheduler.exact_bucket(chunk_pad, req.fset)
+            key = self.scheduler.exact_bucket(chunk_pad, req.fset,
+                                              req_id=rid)
             bucket = self.scheduler.buckets[key]
             if self._chunk_warmed and not bucket.warmed:
                 bucket.warmed = True      # same plans as every bucket
         elif use_exact:
-            key = self.scheduler.exact_bucket(L, req.fset)
+            key = self.scheduler.exact_bucket(L, req.fset, req_id=rid)
         else:
-            key = self.scheduler.bucket_for(L, req.fset)
+            key = self.scheduler.bucket_for(L, req.fset, req_id=rid)
         req._t_admit = time.perf_counter()
         return self.scheduler.admit(req, L, req.fset, key=key)
 
@@ -392,10 +404,11 @@ class Engine:
                 continue
             serve = (self._serve_microbatch if self.mode == "masked"
                      else self._serve_microbatch_equal)
+            ids = [r.req_id for r in reqs] if obs.is_enabled() else None
             with obs.span("serve.microbatch", "serve",
                           bucket=str(bucket.key), n_real=len(reqs),
                           batch=bucket.batch, pad_len=bucket.key.pad_len,
-                          warm=bucket.warmed):
+                          warm=bucket.warmed, req_ids=ids):
                 serve(bucket, reqs)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -476,7 +489,8 @@ class Engine:
         m.histogram("serve.request.latency_s").observe(r.latency_s)
         if obs.is_enabled():
             obs.event("serve.retire", "serve", bucket=str(bucket.key),
-                      slot=i, new_tokens=n_new, cold=r.cold,
+                      req_id=r.req_id, slot=i, new_tokens=n_new,
+                      cold=r.cold,
                       latency_s=round(r.latency_s, 6))
 
     @staticmethod
@@ -484,7 +498,8 @@ class Engine:
         """Materialize pending device token vectors into the host history
         (the engine's device→host sync, paid at retirement)."""
         if devbuf:
-            hist.extend(torch.stack(devbuf).cpu().numpy())
+            with obs.span("serve.drain", "serve", steps=len(devbuf)):
+                hist.extend(torch.stack(devbuf).cpu().numpy())
             devbuf.clear()
 
     # -- continuous decode with retire-and-refill -------------------------
@@ -526,36 +541,10 @@ class Engine:
                                  temps, seeds, n_real, P, rows)
         devbuf.append(cur)
 
-        def process_retirements() -> bool:
-            nonlocal cur
-            changed = False
-            while True:
-                ret = [i for i in range(B)
-                       if rows[i].active and rows[i].req is not None
-                       and rows[i].emitted >= rows[i].req.max_new_tokens]
-                if not ret:
-                    return changed
-                changed = True
-                self._drain(devbuf, hist)
-                new_cur = None
-                for i in ret:
-                    self._finalize(rows[i], i, bucket, hist, S, t0)
-                    if not self.refill_enabled:
-                        continue
-                    nxt = self.scheduler.pop_pending(key)
-                    if nxt is None:
-                        continue
-                    first = self._refill_slot(
-                        bucket, params, caches, i, nxt, toks, lengths,
-                        temps, seeds, pos, rows, hist, P)
-                    if new_cur is None:
-                        # from the LIVE decode input: a refill made by an
-                        # earlier iteration of this pass (one that itself
-                        # retired at max_new_tokens == 1) exists only there
-                        new_cur = cur.clone()
-                    new_cur[i] = first
-                if new_cur is not None:
-                    cur = new_cur
+        def finished() -> list:
+            return [i for i in range(B)
+                    if rows[i].active and rows[i].req is not None
+                    and rows[i].emitted >= rows[i].req.max_new_tokens]
 
         def decode_state():
             # host staging buffers to the device: at microbatch start and
@@ -563,9 +552,44 @@ class Engine:
             active = np.array([r.active for r in rows], np.int64)
             return self._dev(pos), self._dev(active)
 
+        def retire_pass() -> bool:
+            """Retire (and refill) every finished row, then stage the
+            decode state anew; False, doing nothing, if none finished."""
+            nonlocal cur, pos_d, active_d
+            ret = finished()
+            if not ret:
+                return False
+            with obs.span("serve.retire_pass", "serve", rows=len(ret)):
+                while ret:
+                    self._drain(devbuf, hist)
+                    new_cur = None
+                    for i in ret:
+                        self._finalize(rows[i], i, bucket, hist, S, t0)
+                        if not self.refill_enabled:
+                            continue
+                        nxt = self.scheduler.pop_pending(key)
+                        if nxt is None:
+                            continue
+                        first = self._refill_slot(
+                            bucket, params, caches, i, nxt, toks, lengths,
+                            temps, seeds, pos, rows, hist, P)
+                        if new_cur is None:
+                            # from the LIVE decode input: a refill made by
+                            # an earlier iteration of this pass (one that
+                            # itself retired at max_new_tokens == 1)
+                            # exists only there
+                            new_cur = cur.clone()
+                        new_cur[i] = first
+                    if new_cur is not None:
+                        cur = new_cur
+                    ret = finished()
+                pos_d, active_d = decode_state()
+            return True
+
         with obs.span("serve.decode", "serve", bucket=str(key)):
-            process_retirements()
-            pos_d, active_d = decode_state()
+            pos_d = active_d = None
+            if not retire_pass():
+                pos_d, active_d = decode_state()
             while any(r.active for r in rows):
                 logits = self._decode(params, caches, cur, pos_d)
                 live = np.array([r.active for r in rows])
@@ -579,8 +603,7 @@ class Engine:
                     if r.active:
                         r.emitted += 1
                         pos[i] += 1
-                if process_retirements():
-                    pos_d, active_d = decode_state()
+                retire_pass()
         bucket.warmed = True
         m.counter("serve.serve_time_s").inc(time.perf_counter() - t0)
         m.histogram("serve.microbatch.size").observe(n_real)
@@ -646,9 +669,10 @@ class Engine:
                    if rows[i].active and rows[i].req is not None
                    and rows[i].emitted >= rows[i].req.max_new_tokens]
             if ret:
-                self._drain(devbuf, hist)
-                for i in ret:
-                    self._finalize(rows[i], i, bucket, hist, S, t0)
+                with obs.span("serve.retire_pass", "serve", rows=len(ret)):
+                    self._drain(devbuf, hist)
+                    for i in ret:
+                        self._finalize(rows[i], i, bucket, hist, S, t0)
 
         with obs.span("serve.decode", "serve", bucket=str(key)):
             process_retirements()
@@ -906,8 +930,9 @@ class Engine:
         if table is not None:
             self.metrics.counter("serve.prefix.reused_refills").inc()
         if obs.is_enabled():
-            obs.event("serve.refill", "serve", bucket=str(key), slot=i,
-                      length=L2, prefix_reuse=table is not None)
+            obs.event("serve.refill", "serve", bucket=str(key),
+                      req_id=nxt.req_id, slot=i, length=L2,
+                      prefix_reuse=table is not None)
         return first
 
     # ------------------------------------------------------------------

@@ -185,15 +185,16 @@ class ShapeBucketScheduler:
 
     # -- bucket selection -------------------------------------------------
 
-    def bucket_for(self, length: int, fset: str, *,
-                   commit: bool = True) -> BucketKey:
+    def bucket_for(self, length: int, fset: str, *, commit: bool = True,
+                   req_id: Optional[int] = None) -> BucketKey:
         """Best-fit bucket for a prompt of ``length`` (see module doc).
         Prompts longer than every configured bucket fall through to a
         dynamic exact-length bucket (``max_prompt`` still bounds them).
 
         ``commit=False`` resolves the key without touching any scheduler
         state (no bucket creation, LRU bump, or redirect counting) — the
-        engine uses it to finish admission checks before committing."""
+        engine uses it to finish admission checks before committing.
+        ``req_id``: the admitted request's, for a ``serve.evict`` event."""
         if length <= 0:
             raise AdmissionError(f"empty prompt (length {length})")
         if length > self.max_prompt:
@@ -206,7 +207,8 @@ class ShapeBucketScheduler:
         with self._lock:
             if self.mode == "equal":
                 return self._dynamic_or_configured(length, fset,
-                                                   commit=commit)
+                                                   commit=commit,
+                                                   req_id=req_id)
             fits = [p for p in self.cfg.pad_lens if p >= length]
             if fits:
                 pad = fits[0]      # best fit = least padding
@@ -215,10 +217,12 @@ class ShapeBucketScheduler:
                     return BucketKey(pad, fset)
                 if commit:
                     self.metrics.counter("serve.waste_redirects").inc()
-            return self._dynamic_or_configured(length, fset, commit=commit)
+            return self._dynamic_or_configured(length, fset, commit=commit,
+                                               req_id=req_id)
 
     def _dynamic_or_configured(self, length: int, fset: str, *,
-                               commit: bool = True) -> BucketKey:
+                               commit: bool = True,
+                               req_id: Optional[int] = None) -> BucketKey:
         key = BucketKey(length, fset)
         if key in self.buckets:
             if commit and not self.buckets[key].configured:
@@ -243,7 +247,7 @@ class ShapeBucketScheduler:
             self.metrics.counter("serve.evictions").inc()
             if obs.is_enabled():
                 obs.event("serve.evict", "serve", bucket=str(victim),
-                          served=gone.served)
+                          served=gone.served, req_id=req_id)
         self.buckets[key] = Bucket(key, self.cfg.max_batch, configured=False)
         self._dynamic_lru[key] = True
         return key
@@ -274,7 +278,8 @@ class ShapeBucketScheduler:
             self._queued_ids.add(id(req))
         if obs.is_enabled():
             obs.event("serve.admit", "serve", bucket=str(key),
-                      length=length, fset=fset)
+                      req_id=getattr(req, "req_id", None), length=length,
+                      fset=fset)
         return key
 
     def pending(self) -> int:
@@ -303,14 +308,6 @@ class ShapeBucketScheduler:
             if not bucket.configured and key in self._dynamic_lru:
                 self._dynamic_lru.move_to_end(key)
             return bucket, batch
-
-    def exact_bucket(self, length: int, fset: str, *,
-                     commit: bool = True) -> BucketKey:
-        """Bucket a request at its exact length, bypassing best-fit padding
-        (the engine's KV-headroom fallback: a prompt whose *padded* length
-        cannot fit ``max_new`` tokens in the cache may still fit unpadded)."""
-        with self._lock:
-            return self._dynamic_or_configured(length, fset, commit=commit)
 
     def pop_pending(self, key: BucketKey):
         """Pull the oldest pending request for ``key`` out of turn — the
@@ -349,13 +346,14 @@ class ShapeBucketScheduler:
                 self._pending[key].remove(req)   # identity ==  (eq=False)
             return out
 
-    def exact_bucket(self, length: int, fset: str, *,
-                     commit: bool = True) -> BucketKey:
+    def exact_bucket(self, length: int, fset: str, *, commit: bool = True,
+                     req_id: Optional[int] = None) -> BucketKey:
         """Bucket a request at its exact length, bypassing best-fit padding
         (the engine's KV-headroom fallback: a prompt whose *padded* length
         cannot fit ``max_new`` tokens in the cache may still fit unpadded)."""
         with self._lock:
-            return self._dynamic_or_configured(length, fset, commit=commit)
+            return self._dynamic_or_configured(length, fset, commit=commit,
+                                               req_id=req_id)
 
     # -- reporting --------------------------------------------------------
 

@@ -10,6 +10,12 @@ VJP (``tune.dispatch._KSplitLinear``).  Microbatches split the batch
 along its batch dim and run in turn, so peak activation memory is one
 microbatch's; their gradients accumulate in bf16 with fp32 error
 feedback (``optim.grad_compress``), or in fp32.
+
+Spans (``obs``, no-ops unless tracing): ``train.step`` around a step;
+inside it ``train.accumulate`` around the microbatch loop (more than one
+microbatch), the model's ``model.forward``, ``train.backward`` around
+``torch.autograd.grad`` (autograd's own thread launches the backward's
+kernels while it is open) and ``train.optimizer`` around AdamW.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ def loss_and_grads(params, cfg: ArchConfig, batch: dict):
         t.requires_grad_(True)
     try:
         loss, metrics = T.forward_train(params, cfg, batch)
-        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with obs.span("train.backward", "train"):
+            got = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for t in leaves:
             t.requires_grad_(False)
@@ -63,37 +70,47 @@ def make_train_step(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
                   compress_accum=compress_accum,
                   tuned=tune_params is not None)
 
+    def accumulate(params, batch):
+        """(loss, metrics, grads) over ``microbatches`` slices of the
+        batch, in turn."""
+        b = next(iter(batch.values())).shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{microbatches} microbatches")
+        mb = b // microbatches
+        acc = TR.map_tensors(lambda p: torch.zeros(
+            p.shape, device=p.device,
+            dtype=torch.bfloat16 if compress_accum else torch.float32),
+            params)
+        err = GC.ef_init(params) if compress_accum else None
+        loss_sum = None
+        for i in range(microbatches):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, _, grads = loss_and_grads(params, cfg, micro)
+            if compress_accum:
+                acc, err = GC.accumulate(acc, grads, err)
+            else:
+                acc = TR.map_tensors(lambda a, g: a + g.to(a.dtype),
+                                     acc, grads)
+            del grads
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        grads = TR.map_tensors(lambda a: a.float() / microbatches, acc)
+        del acc, err
+        loss = loss_sum / microbatches
+        return loss, {"ce": loss,
+                      "aux": torch.zeros((), device=loss.device)}, grads
+
     def train_step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, metrics, grads = loss_and_grads(params, cfg, batch)
-        else:
-            b = next(iter(batch.values())).shape[0]
-            if b % microbatches:
-                raise ValueError(f"batch {b} does not split into "
-                                 f"{microbatches} microbatches")
-            mb = b // microbatches
-            acc = TR.map_tensors(lambda p: torch.zeros(
-                p.shape, device=p.device,
-                dtype=torch.bfloat16 if compress_accum else torch.float32),
-                params)
-            err = GC.ef_init(params) if compress_accum else None
-            loss_sum = None
-            for i in range(microbatches):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                loss, _, grads = loss_and_grads(params, cfg, micro)
-                if compress_accum:
-                    acc, err = GC.accumulate(acc, grads, err)
-                else:
-                    acc = TR.map_tensors(lambda a, g: a + g.to(a.dtype),
-                                         acc, grads)
-                del grads
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-            grads = TR.map_tensors(lambda a: a.float() / microbatches, acc)
-            del acc, err
-            loss = loss_sum / microbatches
-            metrics = {"ce": loss, "aux": torch.zeros((), device=loss.device)}
-        params, opt_state, opt_metrics = adamw.update(params, grads,
-                                                      opt_state, ocfg)
+        with obs.span("train.step", "train"):
+            if microbatches == 1:
+                loss, metrics, grads = loss_and_grads(params, cfg, batch)
+            else:
+                with obs.span("train.accumulate", "train",
+                              microbatches=microbatches):
+                    loss, metrics, grads = accumulate(params, batch)
+            with obs.span("train.optimizer", "train"):
+                params, opt_state, opt_metrics = adamw.update(
+                    params, grads, opt_state, ocfg)
         return params, opt_state, dict(metrics, **opt_metrics, loss=loss)
 
     return train_step
