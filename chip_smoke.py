@@ -7,7 +7,7 @@ NVIDIA H100.
 Phases (each raises on failure, so a failing run never exits 0):
 
 1. print the card (``nvidia-smi`` name and power limit) and the device
-   spec dispatch resolves for it (must be ``gpu-h100``), build the five
+   spec dispatch resolves for it (must be ``gpu-h100``), build the six
    CUDA kernels from ``src/repro_torch/csrc`` (nvcc in parallel), print
    every kernel's registers and spills from ptxas, and read the SASS of
    the tile, grouped and split libraries (``cuobjdump -sass``): each must
@@ -32,7 +32,11 @@ Phases (each raises on failure, so a failing run never exits 0):
    into every output dtype, bit for bit, and its class-map form (the
    layouts' storage cast) bit for bit against its plain version under mixed
    and split maps at 8192², at the solve's 8064² C and 8064×128 panel and on
-   a ragged shape;
+   a ragged shape; the decode-attention kernel's fp32 output within
+   2e-5·max|V| of its plain version's at the served decode shapes
+   (``DECODE_ATTN_SHAPES``), its bf16 output that output rounded, a row
+   alone bit for bit as in a batch of 128, and no tile past every row's
+   position read (counted, and those slots overwritten change no bit);
 3. ``mp_matmul`` at 1024³ through dispatch: the plan must be ``tile``
    (``split`` with split C classes), the kernel must launch, and the
    result must sit inside the registry-derived error bounds against numpy
@@ -101,7 +105,12 @@ Phases (each raises on failure, so a failing run never exits 0):
    m = 4 and phase 12's two bulk shapes; the
    convert kernel into every output dtype beside ``x.to``, and its
    class-map form at the solve's 8064² C and an 8192² 5D95S operand
-   beside its bound and the per-class path (integer sets' path);
+   beside its bound and the per-class path (integer sets' path); the
+   decode-attention kernel at InternLM2 ``.chat``'s step (B 128, S_max
+   512, 8 x 2 heads of 128) with every row at positions 63, 255 and 511,
+   beside the bytes of the visible keys, its plain version and
+   ``scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it);
 7. (run between 5 and 6) train InternLM2-1.8B at full width, 12 of its
    24 layers (TRAIN_LAYERS), seq 128 x batch 4: the step-0 loss and every gradient leaf through the ksplit kernel
    (under autograd; the backward is the gathering path's VJP) within a
@@ -355,6 +364,19 @@ DEVICE = "cuda"
 SPLIT_SIZE = 4096
 #: the convert kernel's matrix edge
 CONVERT_SIZE = 8192
+#: the decode-attention checks (label, B, S_max, n_kv, group, head_dim):
+#: InternLM2 .chat's step, Jamba's, Llama-3-405B's (group 16), LLaVA's
+#: (group 7), Gemma-3-4B's (head_dim 320) and the reduced configs'
+DECODE_ATTN_SHAPES = (("internlm2.chat", 128, 512, 8, 2, 128),
+                      ("jamba", 32, 512, 8, 4, 128),
+                      ("llama405", 4, 1024, 8, 16, 128),
+                      ("llava", 4, 3072, 8, 7, 128),
+                      ("gemma3", 8, 1024, 4, 2, 320),
+                      ("reduced", 4, 80, 2, 2, 16))
+#: its fp32 agreement with the plain version, a share of max|V|
+DECODE_ATTN_TOL = 2e-5
+#: the positions every row sits at in the timed .chat steps
+DECODE_ATTN_POSITIONS = (63, 255, 511)
 #: the solve phase: operator edge (the launcher's graded_spd defaults)
 SOLVE_N = 8192
 #: the solves' HPL-MxP tolerance: at n = 8192 the launcher's tol 1 stops
@@ -1016,6 +1038,74 @@ CLASS_CASES = (
 )
 
 
+def decode_attn_case(B, S, nkv, group, dh, seed):
+    """(q, k, v, valid): random bf16 operands on the card, row i at
+    position i·(S - 1)/(B - 1) (masked decode's per-row prefixes)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, 1, nkv * group, dh), generator=g).to(torch.bfloat16)
+    k = torch.randn((B, S, nkv, dh), generator=g).to(torch.bfloat16)
+    v = (torch.randn((B, S, nkv, dh), generator=g) * 3).to(torch.bfloat16)
+    pos = torch.arange(B) * (S - 1) // max(B - 1, 1)
+    valid = torch.arange(S)[None, :] <= pos[:, None]
+    return [t.to(DEVICE) for t in (q, k, v, valid)]
+
+
+def check_decode_attention() -> dict:
+    """The decode-attention kernel against its plain version (fp32 outputs,
+    gap over max|V|) at every DECODE_ATTN_SHAPES row, under per-row
+    prefixes and a stride-0 equal-mode mask; bf16 = the fp32 output
+    rounded; rows bitwise across the batch; no tile past every row's
+    position read."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    gaps = {}
+    for label, B, S, nkv, group, dh in DECODE_ATTN_SHAPES:
+        q, k, v, valid = decode_attn_case(B, S, nkv, group, dh, 1)
+        eq = (torch.arange(S, device=DEVICE) <= S // 3)[None, :].expand(B, S)
+        vmax = v.float().abs().max()
+        for mask_name, mask in (("prefixes", valid), ("equal", eq)):
+            got = DA.decode_attention(q, k, v, mask, out_dtype=torch.float32)
+            want = DA.decode_attention_plain(q, k, v, mask, torch.float32)
+            gap = float((got - want).abs().max() / vmax)
+            gaps[(label, mask_name)] = gap
+            if not gap <= DECODE_ATTN_TOL:
+                fail(f"decode attention {label} ({mask_name}): kernel vs "
+                     f"plain {gap:.3e}·max|V| > {DECODE_ATTN_TOL}")
+            if not torch.equal(DA.decode_attention(q, k, v, mask),
+                               got.to(torch.bfloat16)):
+                fail(f"decode attention {label} ({mask_name}): the bf16 "
+                     "output is not the fp32 output rounded")
+        print(f"check decode_attention {label} (B {B}, S_max {S}, {nkv} x "
+              f"{group} heads of {dh}): kernel vs plain "
+              f"{gaps[(label, 'prefixes')]:.3e} (prefixes), "
+              f"{gaps[(label, 'equal')]:.3e} (equal mode) of max|V|")
+    q, k, v, valid = decode_attn_case(*DECODE_ATTN_SHAPES[0][1:], 2)
+    out = DA.decode_attention(q, k, v, valid)
+    for i in (0, 37, 127):
+        one = DA.decode_attention(q[i:i + 1], k[i:i + 1].contiguous(),
+                                  v[i:i + 1].contiguous(), valid[i:i + 1])
+        if not torch.equal(one[0], out[i]):
+            fail(f"decode attention: row {i} alone differs from the batch")
+    pos = torch.arange(16, device=DEVICE) * 9 + 60          # 60 … 195
+    valid = torch.arange(512, device=DEVICE)[None, :] <= pos[:, None]
+    q, k, v = q[:16], k[:16].contiguous(), v[:16].contiguous()
+    DA.reset_tiles()
+    out = DA.decode_attention(q, k, v, valid)
+    want = int(((pos // DA.TILE + 1) * 8).sum())
+    if DA.tiles_read() != want:
+        fail(f"decode attention read {DA.tiles_read()} tiles, not {want}")
+    k[:, 256:] = 7.0
+    v[:, 256:] = -5.0
+    if not torch.equal(DA.decode_attention(q, k, v, valid), out):
+        fail("decode attention: slots past every position changed the "
+             "output")
+    DA.reset_tiles()
+    print("check decode_attention: rows bitwise across the batch; tiles "
+          f"past every position unread ({want} of {16 * 8 * 8} read)")
+    return gaps
+
+
 def class_case(m, n, fkey, hi, q):
     """(format set, tile class map at TILE covering m x n) of a
     CLASS_CASES row."""
@@ -1163,8 +1253,16 @@ def serve(cfg, seed: int = 0) -> dict:
                 0 <= tok < cfg.vocab for tok in r.out_tokens):
             fail("malformed output tokens")
     steps = st["prefill_steps"] + st["decode_steps"]
+    if launches["decode_attention"] != cfg.n_layers * steps:
+        fail(f"{launches['decode_attention']} decode-attention launches in "
+             f"{steps} model steps, not {cfg.n_layers} a step")
+    attn = st["attention"]
+    print(f"serve: decode attention {launches['decode_attention']} launches "
+          f"({cfg.n_layers} a model step), tiles read "
+          f"{attn['tiles_read']} of {attn['tiles_total']}")
     prof = profile_decode(cfg, params)
-    return {"launches": launches["ksplit_gemm"], "tokens_per_s":
+    return {"launches": launches["ksplit_gemm"],
+            "attn_launches": launches["decode_attention"], "tokens_per_s":
             gen_toks / serve_s, "launches_per_step":
             launches["ksplit_gemm"] / max(1, steps), **prof}
 
@@ -2541,6 +2639,41 @@ def time_convert(gen) -> dict:
             chain_ms}
         del xs
     return row
+
+
+def time_decode_attention() -> dict:
+    """The decode-attention kernel at .chat's step with every row at each
+    of DECODE_ATTN_POSITIONS: held kernel ms beside the bytes of the
+    visible keys' K and V at 3.35 TB/s, its plain version (unheld) and
+    ``scaled_dot_product_attention`` on the same bf16 operands (GQA, the
+    mask as a boolean mask; a yardstick only).  The row at position 511
+    (the whole cache) is the one the kernels line carries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    _, B, S, nkv, group, dh = DECODE_ATTN_SHAPES[0]
+    q, k, v, _ = decode_attn_case(B, S, nkv, group, dh, 5)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    rows = {}
+    for p in DECODE_ATTN_POSITIONS:
+        valid = (torch.arange(S, device=DEVICE) <= p)[None, :] \
+            .expand(B, S).contiguous()
+        ms = time_ms(lambda: DA.decode_attention(q, k, v, valid))
+        plain_ms = time_ms(lambda: DA.decode_attention_plain(q, k, v, valid),
+                           hold=False)
+        mask = valid[:, None, None, :]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True))
+        nbytes = (B * nkv * (p + 1) * dh * 2 * 2 + q.numel() * 2
+                  + B * nkv * group * dh * 2)
+        bound_ms, by = _bound(nbytes, 0.0)
+        print(f"time decode_attention B {B}, S_max {S}, {nkv} x {group} "
+              f"heads of {dh}, every row at position {p}: kernel {ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} "
+              f"ms, scaled_dot_product_attention {lib_ms:.4f} ms")
+        rows[p] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "library_ms": lib_ms}
+    return rows
 
 
 #: the class-map form's timings (CLASS_CASES rows): the solve's
@@ -5469,6 +5602,7 @@ def main() -> None:
     split_err = check_split(gen)
     check_split_order(gen)
     cv_err = check_convert(gen)
+    da_err = check_decode_attention()
     secs["2 kernels vs plain"] = round(time.perf_counter() - t0, 1)
     print(f"phase 2 kernels vs plain: {secs['2 kernels vs plain']:.1f} s")
     run("3 mp_matmul", lambda: (check_mp_matmul(gen),
@@ -5506,6 +5640,7 @@ def main() -> None:
     tg = time_tile_grouped(gen)
     sp = time_split(gen)
     cv = time_convert(gen)
+    da = time_decode_attention()
     secs["6 timings"] = round(time.perf_counter() - t0, 1)
     print(f"phase 6 timings: {secs['6 timings']:.1f} s")
 
@@ -5611,6 +5746,15 @@ def main() -> None:
              "family_train": sf13["convert_launches"],
              "autotune": at14["convert"]},
          "max_abs_err": max(cv_err.values()), **cv},
+        # replaces no Pallas kernel (the reference's decode attention is
+        # plain jnp); timed at .chat's step with every row at position 511
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": None,
+         "launches": sv["attn_launches"],
+         "launches_by_phase": {"serve": sv["attn_launches"]},
+         "max_abs_err_over_max_v": max(da_err.values()),
+         **da[DECODE_ATTN_POSITIONS[-1]]},
     ]
     train_row = next(r for r in ks_rows
                      if (r["m"], r["n"]) == (TRAIN_SEQ * TRAIN_BATCH, 8192))

@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(_PKG, "kernels", "_build")
 #: kernel name -> its source under csrc/ (each also includes common.cuh)
 SOURCES = {"ksplit_gemm": "ksplit_gemm.cu", "mp_gemm_tile": "mp_gemm_tile.cu",
            "split_gemm": "split_gemm.cu", "grouped_gemm": "grouped_gemm.cu",
-           "convert": "convert.cu"}
+           "convert": "convert.cu",
+           "decode_attention": "decode_attention.cu"}
 _HEADERS = ("common.cuh", "tile_dot.cuh")
 
 NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

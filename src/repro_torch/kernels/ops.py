@@ -12,6 +12,7 @@ import torch
 from repro_torch.core.layout import CompactMPMatrix, KSplitWeight, MPMatrix
 from repro_torch.kernels import _build
 from repro_torch.kernels import convert as _convert
+from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import grouped_gemm as _grouped
 from repro_torch.kernels import ksplit_gemm as _ksplit
 from repro_torch.kernels import mp_gemm_tile as _mp_tile
@@ -21,7 +22,7 @@ from repro_torch.kernels import split_gemm as _split
 #: reports
 KERNELS = {"ksplit_gemm": _ksplit, "mp_gemm_tile": _mp_tile,
            "split_gemm": _split, "grouped_gemm": _grouped,
-           "convert": _convert}
+           "convert": _convert, "decode_attention": _decode_attention}
 
 
 def launch_counts() -> dict[str, int]:
@@ -47,6 +48,8 @@ def reset_launch_counts() -> None:
             mod.class_launches = 0
         if hasattr(mod, "path_launches"):
             mod.path_launches = dict.fromkeys(mod.path_launches, 0)
+        if hasattr(mod, "reset_tiles"):      # decode attention's tile counts
+            mod.reset_tiles()
 
 
 def ensure_built() -> dict[str, str]:

@@ -7,7 +7,10 @@ window), the gated or GELU MLP and the embedding (twin of
 Every large matmul is an :class:`~repro_torch.core.linear.MPLinear`:
 wq/wk/wv/up/gate are KSplit (the ksplit kernel on the card), wo/down are
 NSplit (a library matmul).  Activations travel in bf16 (``ACT_DTYPE``);
-norms, RoPE, softmax and the attention dots run in fp32.
+norms, RoPE, softmax and the attention dots run in fp32.  Decode
+attention over the cache is the kernel of
+:mod:`repro_torch.kernels.decode_attention` (its plain version on CPU
+tensors).
 """
 from __future__ import annotations
 
@@ -23,11 +26,10 @@ from repro_torch.core.formats import DEFAULT_FORMATS, FormatSet
 from repro_torch.core.layout import fp32_matmul
 from repro_torch.core.linear import init_mp_linear
 from repro_torch.core.precision import Policy
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels.decode_attention import MASKED
 
 ACT_DTYPE = torch.bfloat16
-
-#: score of a masked-out key (exp underflows to exactly 0)
-MASKED = -1e30
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -224,7 +226,6 @@ def decode_attention(params, x, dims: AttnDims, cache_k, cache_v, *,
     slot ``position % S_max``, every filled slot visible; a window refuses
     ``kv_valid`` and a per-row slot, as the reference does."""
     B = x.shape[0]
-    nq, dh = dims.n_q, dims.head_dim
     S_max = cache_k.shape[1]
     batched = torch.is_tensor(position) and position.ndim != 0
     if batched and (slot is None or kv_valid is None):
@@ -258,10 +259,7 @@ def decode_attention(params, x, dims: AttnDims, cache_k, cache_v, *,
         else:
             seen = kv_pos <= int(position)
         kv_valid = seen[None, :].expand(B, S_max)
-    kk = _repeat_kv(cache_k, dims.group)
-    vv = _repeat_kv(cache_v, dims.group)
-    out = _attend(q, kk, vv, kv_valid[:, None, None, :]).to(ACT_DTYPE)
-    out = out.reshape(B, 1, nq * dh)
+    out = DA.decode_attention(q, cache_k, cache_v, kv_valid)
     return params["wo"](out).to(ACT_DTYPE)
 
 

@@ -108,7 +108,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import decode_attention, ops
 from repro_torch.models import transformer as T
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve.config import DEFAULT_PAD_LENS, ServeConfig
@@ -1030,4 +1030,7 @@ class Engine:
             "scheduler": self.scheduler.stats(),
             "moe": ({"dropped_per_microbatch": list(self.moe_dropped)}
                     if self.cfg.n_experts else None),
+            # the decode-attention kernel's launches and 64-key tiles
+            # (read / covered) in this process since the last reset
+            "attention": decode_attention.stats(),
         }
